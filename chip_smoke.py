@@ -10,15 +10,22 @@ Phases, each of which must pass:
 2. Hold each kernel to its plain PyTorch version on the card (TF32 off for
    cuDNN and matmul) at the main path's shapes; print errors and median
    times over CUDA events.
-3. One forward of the 65M NCSN++ at F=256, T=64 with every weight redrawn
-   from a seeded generator at a non-zero scale: the kernel path on the card
-   against the plain path on the CPU, and the kernels' launch counts (81
+3. Forwards of the 65M NCSN++ at F=256 and T = 64, 128 and 192 (T=128 and
+   T=192 are the widths ``enhance`` pads phase 4's utterances to, so every
+   map size of the main path is held) with every weight redrawn from a
+   seeded generator at a non-zero scale: the kernel path on the card against
+   the plain path on the CPU, and the kernels' launch counts (81
    gn_silu_conv3x3, 28 groupnorm_silu per forward).
 4. The main path: ``ScoreModel.enhance`` through ``bbed_pc`` (30 PC steps,
    60 forwards) on 3 synthetic utterances with the default initialisation,
-   plus one ``sebridge_v2`` call, with the launch counts reset before and read
-   after. Outputs must be finite and of the input's length; the
-   ``sebridge_v2`` waveform must match the same call on the CPU.
+   plus one ``sebridge_v2`` call with redrawn weights, with the launch counts
+   reset before and read after. Outputs must be finite and of the input's
+   length; the ``sebridge_v2`` waveform must match the same call on the CPU.
+
+Phase 2 runs with TF32 off for cuDNN and matmul (the plain version's cuDNN
+conv would otherwise be the less accurate side); phases 3 and 4 run with
+torch's defaults (cuDNN allows TF32), as a user's process would: the port
+keeps its own convs and matmuls in float32.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
@@ -53,7 +60,11 @@ K1_SHAPES = [  # (B, H, W, Cin, Cout, skip)
     (1, 128, 32, 384, 128, False),
     (1, 256, 64, 128, 4, False),
 ]
-K2_SHAPES = [(1, 16, 4, 256, 256, False), (1, 8, 2, 256, 256, False), (1, 4, 1, 256, 256, False)]
+K2_SHAPES = [  # the deep levels at T=64, then at T=192 (odd widths, the concat)
+    (1, 16, 4, 256, 256, False), (1, 8, 2, 256, 256, False), (1, 4, 1, 256, 256, False),
+    (1, 16, 12, 512, 256, False), (1, 8, 6, 256, 256, True), (1, 4, 3, 256, 256, False),
+]
+FORWARD_FRAMES = (64, 128, 192)
 K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256)]
 
 
@@ -157,37 +168,45 @@ def redraw_weights(torch, model, seed):
 
 
 def check_forward(torch, ck, dev):
-    """Phase 3: 65M NCSN++ forward, kernel path on the card vs plain on CPU."""
+    """Phase 3: 65M NCSN++ forwards, kernel path on the card vs plain on CPU,
+    at every width the main path runs."""
     from diffse_tpu_torch.models.ncsnpp import NCSNpp
 
+    torch.backends.cudnn.allow_tf32 = True
+    print("phases 3-4 with torch's defaults: torch.backends.cudnn.allow_tf32=True, "
+          "torch.backends.cuda.matmul.allow_tf32=False")
     model = NCSNpp(generator=torch.Generator().manual_seed(0))
     redraw_weights(torch, model, seed=1)
     n_params = sum(p.numel() for p in model.parameters())
     cpu_model = copy.deepcopy(model).eval()
     model = model.to(dev).eval()
     rng = np.random.default_rng(2)
-    x = (rng.standard_normal((1, 2, 256, 64)) + 1j * rng.standard_normal((1, 2, 256, 64)))
-    x = torch.from_numpy(x.astype(np.complex64))
-    t = torch.tensor([0.5])
-    xd, td = x.to(dev), t.to(dev)
-    with torch.no_grad():
-        ck.reset_launch_counts()
-        out = model(xd, td)
-        torch.cuda.synchronize()
-        counts = dict(ck.launch_counts)
-        ms = median_ms(torch, lambda: model(xd, td), reps=5, warmup=1)
-        ref = cpu_model(x, t)
-    err = (out.cpu() - ref).abs().max().item() / ref.abs().max().item()
-    print(f"NCSN++ forward ({n_params} params, F=256 T=64): kernel path (card) vs plain "
-          f"path (CPU) max|diff|/max|ref| {err:.3e} (tol {FORWARD_TOL}); "
-          f"forward {ms:.2f} ms on the card; launches per forward {counts}")
-    if not torch.isfinite(out).all():
-        raise AssertionError("forward output is not finite")
-    if err > FORWARD_TOL:
-        raise AssertionError(f"forward deviates: {err:.3e}")
-    if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28}:
-        raise AssertionError(f"launch counts per forward {counts}, expected 81 and 28")
-    return ms
+    failures = []
+    for frames in FORWARD_FRAMES:
+        shape = (1, 2, 256, frames)
+        x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        x = torch.from_numpy(x.astype(np.complex64))
+        t = torch.tensor([0.5])
+        xd, td = x.to(dev), t.to(dev)
+        with torch.no_grad():
+            ck.reset_launch_counts()
+            out = model(xd, td)
+            torch.cuda.synchronize()
+            counts = dict(ck.launch_counts)
+            ms = median_ms(torch, lambda: model(xd, td), reps=5, warmup=1)
+            ref = cpu_model(x, t)
+        err = (out.cpu() - ref).abs().max().item() / ref.abs().max().item()
+        print(f"NCSN++ forward ({n_params} params, F=256 T={frames}): kernel path (card) vs "
+              f"plain path (CPU) max|diff|/max|ref| {err:.3e} (tol {FORWARD_TOL}); "
+              f"forward {ms:.2f} ms on the card; launches per forward {counts}")
+        if not torch.isfinite(out).all():
+            failures.append(f"T={frames}: output is not finite")
+        if err > FORWARD_TOL:
+            failures.append(f"T={frames}: deviates by {err:.3e}")
+        if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28}:
+            failures.append(f"T={frames}: launch counts per forward {counts}, expected 81 and 28")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def synthetic_utterance(rng, n):
@@ -214,7 +233,8 @@ def run_main_path(torch, ck, dev):
     v2_cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v2",
                               snr_conditioned="false", sigma_max=1.0)
     v2 = ScoreModel(v2_cfg, sde_kwargs=sde_kwargs, device=dev)
-    v2.backbone.load_state_dict(bbed.backbone.state_dict())
+    # non-zero weights, so that the card-vs-CPU check below sees the network
+    redraw_weights(torch, v2.backbone, seed=4)
 
     rng = np.random.default_rng(3)
     utterances = [synthetic_utterance(rng, int(s * SR)) for s in (1.0, 1.2, 1.5)]
@@ -247,7 +267,7 @@ def run_main_path(torch, ck, dev):
         raise AssertionError(f"main-path launch counts {counts}, expected {expected}")
 
     v2_cpu = ScoreModel(v2_cfg, sde_kwargs=sde_kwargs, device="cpu")
-    v2_cpu.backbone.load_state_dict(bbed.backbone.state_dict())
+    v2_cpu.backbone.load_state_dict(v2.backbone.state_dict())
     ref = v2_cpu.enhance(utterances[0][None], utterances[0][None], noise=v2_noise(7))
     err = float(np.max(np.abs(v2_out - ref)) / np.max(np.abs(ref)))
     print(f"sebridge_v2 waveform, card vs CPU plain path: max|diff|/max|ref| {err:.3e} "

@@ -29,6 +29,8 @@
 //     lets one kernel serve both TPU regimes (W = 1, 2, ...; Cout = 4).
 //   - No tensor cores, no TMA, no pipelining yet: a first kernel that is
 //     right. wgmma on bf16/tf32 tiles is the way to the card's full rate.
+//     Lacking a pipeline, the conv asks for its weights in L2 up front: the
+//     model's weights are read where they live, not from a fresh copy.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -116,10 +118,12 @@ gn_apply_kernel(const float4* __restrict__ x, const float* __restrict__ a,
 }
 
 // grid (ceil(H*W / kBM), ceil(Cout / kBN), B); Cin % kBK == 0, Cout % 4 == 0.
+// bias_total's row for batch bi starts at bi * bias_row_stride (0: one row
+// shared by the whole batch).
 __global__ void __launch_bounds__(kConvThreads)
 gn_silu_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ a,
                        const float* __restrict__ b, const float* __restrict__ w,
-                       const float* __restrict__ bias_total,
+                       const float* __restrict__ bias_total, int bias_row_stride,
                        const float* __restrict__ skip, float skip_coef,
                        float* __restrict__ out, int h, int wd, int cin, int cout) {
   const int bi = blockIdx.z;
@@ -154,6 +158,22 @@ gn_silu_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ a,
   const int b_k = tid >> 4;
   const int b_n = (tid & 15) * 4;
   const bool n_ok = n0 + b_n < cout;
+
+  // Every K step below waits on its weight tile. Weights that are not in L2
+  // would make each step wait on device memory in turn; request the weight
+  // slab of this Cout tile (9 * cin rows of up to kBN channels, two 128-byte
+  // lines each) into L2 up front, so that those misses overlap. The blocks
+  // of one Cout tile share the requests out between them.
+  const int lines = 9 * cin * 2;
+  const int share = (lines + gridDim.x - 1) / gridDim.x;
+  const int line_end = min(lines, (blockIdx.x + 1) * share);
+  for (int i = blockIdx.x * share + tid; i < line_end; i += kConvThreads) {
+    const int col = n0 + (i & 1) * (kBN / 2);
+    if (col < cout) {
+      const float* p = w + static_cast<long long>(i >> 1) * cout + col;
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+    }
+  }
 
   for (int tap = 0; tap < 9; ++tap) {
     const int dy = tap / 3 - 1;
@@ -207,7 +227,8 @@ gn_silu_conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ a,
 
   const int n = n0 + tx * kTN;
   if (n >= cout) return;
-  const float4 bt = *reinterpret_cast<const float4*>(bias_total + static_cast<long long>(bi) * cout + n);
+  const float4 bt = *reinterpret_cast<const float4*>(
+      bias_total + static_cast<long long>(bi) * bias_row_stride + n);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int mm = m0 + ty * kTM + i;
@@ -252,12 +273,13 @@ int diffse_gn_apply(const float* x, const float* a, const float* b, float* out,
 
 int diffse_gn_silu_conv3x3(const float* x, const float* a, const float* b,
                            const float* w, const float* bias_total,
-                           const float* skip, float skip_coef, float* out,
+                           int bias_row_stride, const float* skip,
+                           float skip_coef, float* out,
                            int batch, int h, int wd, int cin, int cout,
                            void* stream) {
   dim3 grid((h * wd + kBM - 1) / kBM, (cout + kBN - 1) / kBN, batch);
   gn_silu_conv3x3_kernel<<<grid, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, a, b, w, bias_total, skip, skip_coef, out, h, wd, cin, cout);
+      x, a, b, w, bias_total, bias_row_stride, skip, skip_coef, out, h, wd, cin, cout);
   return static_cast<int>(cudaGetLastError());
 }
 

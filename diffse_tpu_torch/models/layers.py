@@ -80,8 +80,18 @@ def ddpm_dense(in_dim: int, out_dim: int,
     return lin
 
 
+def hwio_memory_(conv: nn.Conv2d) -> nn.Conv2d:
+    """Store a conv's OIHW weight in HWIO memory order, so that ``conv_hwio``
+    is a free view. The shape and the state_dict stay OIHW; ``.to()``,
+    ``load_state_dict`` and ``deepcopy`` keep the strides."""
+    w = conv.weight.detach().permute(2, 3, 1, 0).contiguous().permute(3, 2, 0, 1)
+    conv.weight = nn.Parameter(w, requires_grad=conv.weight.requires_grad)
+    return conv
+
+
 def conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
-    """A conv's OIHW weight as the contiguous HWIO array the kernel takes."""
+    """A conv's OIHW weight as the contiguous HWIO array the kernel takes: a
+    view for weights in HWIO memory (``hwio_memory_``), otherwise a copy."""
     return conv.weight.permute(2, 3, 1, 0).contiguous()
 
 
@@ -191,6 +201,9 @@ class ResnetBlockBigGANpp(nn.Module):
             self.Conv_2 = ddpm_conv(in_ch, out_ch, 1, generator=generator)
         else:
             self.Conv_2 = None
+        if not (up or down):  # both convs run inside the fused kernel
+            hwio_memory_(self.Conv_0)
+            hwio_memory_(self.Conv_1)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
         batch = x.shape[0]
@@ -203,7 +216,7 @@ class ResnetBlockBigGANpp(nn.Module):
                 conv_hwio(self.Conv_0), bias0,
                 self.GroupNorm_0.num_groups, self.GroupNorm_0.eps)
             skip = to_nhwc(self.Conv_2(x)) if self.Conv_2 is not None else x_nhwc
-            bias1 = self.Conv_1.bias[None, :].expand(batch, self.out_ch).contiguous()
+            bias1 = self.Conv_1.bias[None, :].expand(batch, self.out_ch)
             out = groupnorm_silu_conv3x3(
                 h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
                 bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps,

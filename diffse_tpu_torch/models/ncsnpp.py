@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda_kernels import groupnorm_silu_conv3x3
 from ..ops.fir import downsample_2d, upsample_2d
+from ..utils import float32_precision
 from . import layers
 from .shared import BackboneRegistry
 
@@ -83,8 +84,8 @@ class NCSNpp(nn.Module):
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 modules.append(attn(in_ch))
             modules.append(layers.GroupNorm(in_ch))
-            modules.append(layers.ddpm_conv(in_ch, num_channels, 3, init_scale=0.0,
-                                            generator=g))
+            modules.append(layers.hwio_memory_(layers.ddpm_conv(
+                in_ch, num_channels, 3, init_scale=0.0, generator=g)))
             if i_level != 0:
                 modules.append(resblock(in_ch, up=True))
 
@@ -94,7 +95,7 @@ class NCSNpp(nn.Module):
     @staticmethod
     def _pyramid_head(h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
         """GroupNorm -> SiLU -> conv3x3 to 4 channels, one fused kernel."""
-        bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels).contiguous()
+        bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
         out = groupnorm_silu_conv3x3(layers.to_nhwc(h), gn.weight, gn.bias,
                                      layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
         return layers.from_nhwc(out)
@@ -104,7 +105,14 @@ class NCSNpp(nn.Module):
             x: complex ``[B, 2, F, T]``: channel 0 the diffusion state, channel 1
                the conditioning spectrogram.
             time_cond: ``[B]`` diffusion time.
+
+        The network computes in float32: on the card its cuDNN convolutions
+        and matmuls run without TF32, whatever the process-wide setting.
         """
+        with float32_precision(x.device):
+            return self._forward(x, time_cond)
+
+    def _forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
         modules = iter(self.all_modules)
         num_resolutions = len(self.ch_mult)
 

@@ -34,6 +34,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils import float32_precision
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -90,7 +92,8 @@ def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
     a, b = gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups, eps)
     v = x.float() * a[:, None, None, :] + b[:, None, None, :]
     act = (v * torch.sigmoid(v)).permute(0, 3, 1, 2)
-    out = F.conv2d(act, w.float().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    with float32_precision(x.device):
+        out = F.conv2d(act, w.float().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
     out = out + bias_total.float()[:, None, None, :]
     if skip is not None:
         out = (skip.float() + out) * skip_coef
@@ -107,7 +110,7 @@ def _library():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.diffse_gn_stats_ab.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
     lib.diffse_gn_apply.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.diffse_gn_silu_conv3x3.argtypes = [p, p, p, p, p, p, f, p, i, i, i, i, i, p]
+    lib.diffse_gn_silu_conv3x3.argtypes = [p, p, p, p, p, i, p, f, p, i, i, i, i, i, p]
     for fn in (lib.diffse_gn_stats_ab, lib.diffse_gn_apply, lib.diffse_gn_silu_conv3x3):
         fn.restype = ctypes.c_int
     return lib
@@ -240,7 +243,9 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
     Args:
         x: ``[B, H, W, Cin]``; gn_scale, gn_bias: ``[Cin]``.
         w: ``[3, 3, Cin, Cout]`` (HWIO).
-        bias_total: ``[B, Cout]`` conv bias plus any per-batch conditioning.
+        bias_total: ``[B, Cout]`` conv bias plus any per-batch conditioning;
+            a ``[Cout]`` bias expanded over the batch (row stride 0) is taken
+            as it is, without a copy.
         skip: optional ``[B, H, W, Cout]`` residual.
     """
     if not _dispatch_device("gn_silu_conv3x3", x):
@@ -256,17 +261,23 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                          f"of {num_groups} groups, Cout={cout} a multiple of 4")
     if tuple(bias_total.shape) != (bsz, cout):
         raise ValueError("gn_silu_conv3x3: bias_total must be [B, Cout]")
+    bias_row_stride = bias_total.stride(0) if bsz > 1 else 0
+    if bias_total.stride(1) != 1 or bias_row_stride not in (0, cout):
+        raise ValueError("gn_silu_conv3x3: bias_total's rows must be contiguous "
+                         "or one row expanded over the batch")
     if skip is not None and tuple(skip.shape) != (bsz, h, wd, cout):
         raise ValueError("gn_silu_conv3x3: skip must be [B, H, W, Cout]")
+    bias_rows = bias_total[0] if bias_row_stride == 0 else bias_total
     _require_kernel_inputs("gn_silu_conv3x3", x.device, x=x, gn_scale=gn_scale,
-                           gn_bias=gn_bias, w=w, bias_total=bias_total, skip=skip)
+                           gn_bias=gn_bias, w=w, bias_total=bias_rows, skip=skip)
     lib = _library()
     with torch.cuda.device(x.device):
         a, b = _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps)
         out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=torch.float32)
         _check(lib.diffse_gn_silu_conv3x3(
-            _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(bias_total), _ptr(skip),
-            float(skip_coef), _ptr(out), bsz, h, wd, cin, cout, _stream(x.device)),
+            _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(bias_rows), bias_row_stride,
+            _ptr(skip), float(skip_coef), _ptr(out), bsz, h, wd, cin, cout,
+            _stream(x.device)),
             "gn_silu_conv3x3")
     launch_counts["gn_silu_conv3x3"] += 1
     return out

@@ -8,12 +8,9 @@ import abc
 import torch
 
 from ..registry import Registry
+from ..utils import bc
 
 CorrectorRegistry = Registry("Corrector")
-
-
-def _bc(a, x):
-    return a.reshape(a.shape + (1,) * (x.ndim - a.ndim))
 
 
 class Corrector(abc.ABC):
@@ -40,8 +37,8 @@ class AnnealedLangevinDynamics(Corrector):
             grad = self.score_fn(x, t, y)
             z = noise(x)
             step_size = (self.snr * std) ** 2 * 2
-            x_mean = x + _bc(step_size, x) * grad
-            x = x_mean + z * _bc(torch.sqrt(step_size * 2), x)
+            x_mean = x + bc(step_size, x) * grad
+            x = x_mean + z * bc(torch.sqrt(step_size * 2), x)
         return x, x_mean
 
 

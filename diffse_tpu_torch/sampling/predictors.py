@@ -6,12 +6,9 @@ from __future__ import annotations
 import abc
 
 from ..registry import Registry
+from ..utils import bc
 
 PredictorRegistry = Registry("Predictor")
-
-
-def _bc(a, x):
-    return a.reshape(a.shape + (1,) * (x.ndim - a.ndim))
 
 
 class Predictor(abc.ABC):
@@ -34,4 +31,4 @@ class ReverseDiffusionPredictor(Predictor):
         f, g = self.rsde.discretize(x, t, y, stepsize)
         z = noise(x)
         x_mean = x - f
-        return x_mean + _bc(g, x) * z, x_mean
+        return x_mean + bc(g, x) * z, x_mean

@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-from diffse_tpu.models.ncsnpp import NCSNpp as JaxNCSNpp
 from diffse_tpu.models.score_model import ScoreModel as JaxScoreModel
 from diffse_tpu.models.score_model import ScoreModelConfig as JaxScoreModelConfig
 from diffse_tpu.sampling import get_pc_sampler as jax_get_pc_sampler
@@ -26,6 +25,7 @@ from diffse_tpu_torch.convert import state_dict_from_jax
 from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
 from diffse_tpu_torch.sampling import get_pc_sampler, timesteps_space
 from diffse_tpu_torch.sde import BBED
+from test_torch_ncsnpp import random_jax_params
 
 torch.set_num_threads(2)
 
@@ -36,25 +36,6 @@ SDE_KWARGS = dict(T_sampling=0.999, k=2.6, theta=0.52)
 HOP = 128
 T_ORIG = 63 * HOP  # 64 frames: the width bucket pads nothing
 SPEC_SHAPE = (1, 1, 256, 64)
-
-
-def random_jax_params(arch, seed, frames=64):
-    """Seeded random flax params of the JAX NCSN++ (see test_torch_ncsnpp):
-    kernels at 1/sqrt(fan_in), GroupNorm scales near 1, biases small."""
-    x = jnp.zeros((1, 2, 256, frames), jnp.complex64)
-    t = jnp.ones((1,), jnp.float32)
-    shapes = jax.eval_shape(JaxNCSNpp(**arch).init, jax.random.PRNGKey(0), x, t)["params"]
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        z = rng.standard_normal(leaf.shape).astype(np.float32)
-        if path[-1].key == "scale":
-            return 1.0 + 0.1 * z
-        if leaf.ndim == 1:
-            return 0.1 * z
-        return z / np.sqrt(np.prod(leaf.shape[:-1]))
-
-    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 def replay_pc_draws(key, n_steps, shape=SPEC_SHAPE, corrector_steps=1):

@@ -27,7 +27,8 @@ TOL = dict(atol=2e-4, rtol=2e-4)
 # (B, H, W, Cin, Cout): K1's row-tiled regime (W % 8 == 0, H >= 8) with
 # Cout 128, 256 and the 4-channel pyramid head, then K2's tiny maps.
 K1_SHAPES = [(2, 16, 8, 128, 128), (2, 16, 8, 128, 256), (2, 16, 8, 128, 4)]
-K2_SHAPES = [(1, 16, 4, 128, 128), (2, 8, 2, 128, 128), (3, 4, 1, 128, 128)]
+K2_SHAPES = [(1, 16, 4, 128, 128), (2, 8, 2, 128, 128), (3, 4, 1, 128, 128),
+             (2, 4, 3, 128, 128)]
 
 
 def _chain_inputs(rng, b, h, w, cin, cout, with_skip):
@@ -47,7 +48,7 @@ def _torch(*arrays):
 @pytest.mark.parametrize("shape,with_skip", [
     (K1_SHAPES[0], False), (K1_SHAPES[0], True), (K1_SHAPES[1], False),
     (K1_SHAPES[2], False), (K2_SHAPES[0], False), (K2_SHAPES[1], False),
-    (K2_SHAPES[2], False), (K2_SHAPES[2], True),
+    (K2_SHAPES[2], False), (K2_SHAPES[2], True), (K2_SHAPES[3], True),
 ])
 def test_gn_silu_conv3x3_plain_matches_pallas(shape, with_skip):
     x, gs, gb, wk, bt, skip = _chain_inputs(np.random.default_rng(0), *shape, with_skip)
@@ -120,7 +121,9 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 256, 64, 128, 128), (1, 128, 32, 384, 128),
                                    (1, 256, 64, 128, 4), (1, 16, 4, 256, 256),
-                                   (1, 8, 2, 256, 256), (1, 4, 1, 256, 256)])
+                                   (1, 8, 2, 256, 256), (1, 4, 1, 256, 256),
+                                   (1, 16, 12, 512, 256), (1, 8, 6, 256, 256),
+                                   (1, 4, 3, 256, 256)])
 @pytest.mark.parametrize("with_skip", [False, True])
 def test_gn_silu_conv3x3_kernel_matches_plain(cuda, shape, with_skip):
     arrays = _chain_inputs(np.random.default_rng(2), *shape, with_skip)
@@ -164,3 +167,54 @@ def test_kernel_refuses_grad_and_bad_inputs(cuda):
         ck.groupnorm_silu(x.detach().double(), p, p, 32)
     with pytest.raises(ValueError, match="contiguous"):
         ck.groupnorm_silu(x.detach().transpose(1, 2), p, p, 32)
+
+
+@pytest.mark.gpu
+def test_gn_silu_conv3x3_kernel_takes_expanded_bias(cuda):
+    """A [Cout] bias expanded over the batch (row stride 0) is read in place."""
+    arrays = _chain_inputs(np.random.default_rng(4), 3, 8, 6, 128, 128, True)
+    x, gs, gb, wk, bt, skip = [a.to(cuda) for a in _torch(*arrays)]
+    bias = bt[0][None, :].expand(3, 128)
+    out = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bias, 32, skip=skip, skip_coef=0.5)
+    ref = ck.groupnorm_silu_conv3x3_reference(x, gs, gb, wk, bias.contiguous(), 32,
+                                              skip=skip, skip_coef=0.5)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    with pytest.raises(ValueError, match="bias_total"):
+        ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt.t().contiguous().t(), 32)
+
+
+@pytest.mark.gpu
+def test_enhance_on_card_is_float32_under_tf32_defaults(cuda):
+    """``ScoreModel.enhance`` (``sebridge_v2``) on the card, with TF32 allowed
+    process-wide, matches the same call on the CPU to float32 accuracy, and
+    leaves the process-wide setting as it was."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.utils import randn_like
+
+    arch = dict(nf=16, ch_mult=(1, 1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(16,))
+    cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v2",
+                           snr_conditioned="false", sigma_max=1.0)
+    sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=30)
+    cpu, card = [ScoreModel(cfg, backbone_kwargs=arch, sde_kwargs=sde_kwargs, device=d)
+                 for d in ("cpu", cuda)]
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for p in cpu.backbone.parameters():
+            if p.requires_grad:
+                z = torch.randn(p.shape, generator=g)
+                p.copy_(z / p[0].numel() ** 0.5 if p.ndim >= 2 else 0.1 * z)
+    card.backbone.load_state_dict(cpu.backbone.state_dict())
+    y = (0.1 * np.random.default_rng(6).standard_normal((1, 63 * 128))).astype(np.float32)
+
+    def noise():
+        gen = torch.Generator().manual_seed(7)
+        return lambda like: randn_like(like.cpu(), gen).to(like.device)
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    ref = cpu.enhance(y, y, noise=noise())
+    out = card.enhance(y, y, noise=noise())
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    assert out.shape == ref.shape == (y.shape[-1],)
+    assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) < 1e-5

@@ -7,6 +7,8 @@ kernel in interpret mode, its fused-chain reference otherwise). Forward
 parity is held to 1e-5 relative to max|ref|.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,14 @@ torch.set_num_threads(2)
 ARCH = dict(nf=4, ch_mult=(1, 1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(16,),
             image_size=256)
 JAX_FLAGS = dict(use_pallas_groupnorm=True, fuse_pyramid=True)
+# the production widths (nf 128: 32 GroupNorm groups, a 384-channel concat of
+# group width 12, attention at 256 channels) at two levels and a 32x32 map
+WIDE_ARCH = dict(nf=128, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(16,),
+                 image_size=32)
+# the production depth (7 levels, 2 blocks each, down to 1x1 maps on a 64x64
+# input) at narrow widths
+DEEP_ARCH = dict(nf=16, ch_mult=(1, 1, 2, 2, 2, 2, 2), num_res_blocks=2,
+                 attn_resolutions=(16,), image_size=64)
 
 
 def random_jax_params(arch, seed, frames=64):
@@ -57,10 +67,10 @@ def jax_params():
     return random_jax_params(ARCH, seed=1)
 
 
-def _inputs(seed, batch, frames):
+def _inputs(seed, batch, frames, freqs=256):
     rng = np.random.default_rng(seed)
-    x = (rng.standard_normal((batch, 2, 256, frames))
-         + 1j * rng.standard_normal((batch, 2, 256, frames))).astype(np.complex64)
+    shape = (batch, 2, freqs, frames)
+    x = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
     t = rng.uniform(0.05, 0.99, size=(batch,)).astype(np.float32)
     return x, t
 
@@ -92,6 +102,56 @@ def test_forward_matches_jax(jax_params):
     assert ck.launch_counts == {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
     assert out.shape == ref.shape == (batch, 1, 256, 64)
     assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) < 1e-5
+
+
+def test_forward_matches_jax_full_width():
+    """The production channel widths, at a depth and map size the CPU runs
+    in seconds."""
+    _check_square_forward(WIDE_ARCH, groups={32}, seeds=(6, 7))
+
+
+def test_forward_matches_jax_full_depth():
+    """The production depth and blocks per level, at narrow widths."""
+    _check_square_forward(DEEP_ARCH, groups={4, 8, 12, 16}, seeds=(8, 9))
+
+
+def _check_square_forward(arch, groups, seeds):
+    """Port vs JAX on an ``image_size`` x ``image_size`` input."""
+    size = arch["image_size"]
+    params = random_jax_params(arch, seed=seeds[0])
+    x, t = _inputs(seeds[1], 1, size, freqs=size)
+    ref = np.asarray(jax.jit(JaxNCSNpp(**arch, **JAX_FLAGS).apply)(
+        {"params": params}, jnp.asarray(x), jnp.asarray(t)))
+    model = NCSNpp(**arch)
+    model.load_state_dict(state_dict_from_jax(params, **arch), strict=True)
+    assert {m.GroupNorm_0.num_groups for m in model.all_modules
+            if isinstance(m, layers.ResnetBlockBigGANpp)} == groups
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    assert out.shape == ref.shape == (1, 1, size, size)
+    assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) < 1e-5
+
+
+def test_fused_conv_weights_are_hwio_views(jax_params):
+    """The convs that only the fused kernel runs keep HWIO memory, so the
+    kernel's weight is a view, through loading, deepcopy and ``.to()``; the
+    state_dict keeps the reference's OIHW shapes."""
+    model = NCSNpp(**ARCH)
+    model.load_state_dict(state_dict_from_jax(jax_params, **ARCH), strict=True)
+    model = copy.deepcopy(model).double().float()  # .to() makes new tensors
+    fused = [m for m in model.all_modules
+             if isinstance(m, layers.ResnetBlockBigGANpp) and not (m.up or m.down)]
+    convs = [c for m in fused for c in (m.Conv_0, m.Conv_1)] + [
+        m for i, m in enumerate(model.all_modules)
+        if isinstance(m, torch.nn.Conv2d) and m.out_channels == 4 and m.kernel_size == (3, 3)
+        and isinstance(model.all_modules[i - 1], layers.GroupNorm)]
+    assert len(fused) > 0 and len(convs) == 2 * len(fused) + len(ARCH["ch_mult"])
+    for conv in convs:
+        assert layers.conv_hwio(conv).data_ptr() == conv.weight.data_ptr()
+        assert conv.weight.shape[2:] == (3, 3)
+    np.testing.assert_array_equal(
+        layers.conv_hwio(convs[0]).detach().numpy(),
+        convs[0].weight.detach().numpy().transpose(2, 3, 1, 0))
 
 
 def test_gaussian_fourier_projection_matches_jax():

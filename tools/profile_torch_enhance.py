@@ -4,12 +4,13 @@
     python3 tools/profile_torch_enhance.py [--seconds 1.5] [--table PATH]
 
 Runs ``diffse_tpu_torch``'s ``ScoreModel.enhance`` (65M NCSN++, default
-initialisation, float32, TF32 off) once to warm up, then once under
+initialisation, float32) once to warm up, then once under
 ``torch.profiler``, and prints:
 
   - the card's name and power limit;
   - wall time of the profiled enhance and the sum of device kernel time, so
-    the device's idle share ``1 - kernel_time / wall``;
+    the device's idle share ``1 - kernel_time / wall``, and the number of
+    device kernel launches;
   - device time grouped by kernel family (the port's CUDA kernels, cuDNN and
     other convolutions, GEMMs, FFTs, elementwise and reductions) and the top
     kernels by device time.
@@ -64,8 +65,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -94,9 +93,11 @@ def main() -> int:
     # none of their own (their kernels are their children), so the sum over
     # all entries is the device's kernel time.
     by_name = defaultdict(float)
+    launches = 0
     for avg in prof.key_averages():
         if avg.device_type == torch.autograd.DeviceType.CUDA and avg.self_device_time_total > 0:
             by_name[avg.key] += avg.self_device_time_total
+            launches += avg.count
     total_us = sum(by_name.values())
     if total_us == 0:
         print("the profiler recorded no device time: breakdown not measured", file=sys.stderr)
@@ -108,7 +109,8 @@ def main() -> int:
     print(f"bbed_pc, {args.seconds} s utterance ({frames} frames, padded to a multiple of 64), "
           f"{2 * STEPS} forwards: wall {wall_plain:.3f} s; profiled: wall {wall:.3f} s, device kernel time "
           f"{total_us / 1e6:.3f} s; device idle share {1 - total_us / 1e6 / wall_plain:.3f} "
-          f"of the unprofiled wall")
+          f"of the unprofiled wall; {launches} device kernel launches "
+          f"({launches / (2 * STEPS):.0f} per forward, sampler included)")
     for fam, us in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:28s} {us / 1e3:10.2f} ms  {us / total_us:6.1%}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
