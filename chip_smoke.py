@@ -7,9 +7,15 @@ Phases, each of which must pass:
 
 1. Print the card's name and power limit, then build the CUDA kernels from
    ``diffse_tpu_torch/csrc`` (nvcc, sm_90a) and print the build time.
-2. Hold each kernel to its plain PyTorch version on the card (TF32 off for
-   cuDNN and matmul) at the main path's shapes; print errors and median
-   times over CUDA events.
+2. Hold each GroupNorm kernel to its plain PyTorch version on the card (TF32
+   off for cuDNN and matmul) at the main path's shapes; print errors, median
+   times over CUDA events, the bound and, where one PyTorch call computes
+   the same function, that call's time.
+2b. The same for the fused bias + LeakyReLU kernel at [1,256,64,128],
+   [16,512] and [3,7,5,6] (C=6: the scalar path) in float32 (atol = rtol =
+   1e-6) and [1,256,64,128] in bfloat16 (within 1 bfloat16 ulp of the plain
+   version's float32 maths rounded to bfloat16). No path of the model runs
+   this kernel.
 3. Forwards of the 65M NCSN++ at F=256 and T = 64, 128 and 192 (T=128 and
    T=192 are the widths ``enhance`` pads phase 4's utterances to, so every
    map size of the main path is held) with every weight redrawn from a
@@ -21,13 +27,23 @@ Phases, each of which must pass:
    plus one ``sebridge_v2`` call with redrawn weights, with the launch counts
    reset before and read after. Outputs must be finite and of the input's
    length; the ``sebridge_v2`` waveform must match the same call on the CPU.
+5. The SNR path, the paper's single-NFE mode: ``sebridge_v3_snr`` on the 65M
+   ``ncsnpp`` (redrawn weights, fixed_snr 0.17783) with a redrawn SNRNet, on
+   phase 4's utterances. SNRNet's output on the card against the CPU (1e-5
+   relative), the snapped t_hat equal on both (and not within float error of
+   a snap boundary), the waveforms against the CPU given the same noise, and
+   81/28 launches per forward, one forward per utterance. Then one
+   ``sebridge_v2_snr`` call on the 65M ``ncsnpp_snr``, checked the same way.
+   Each path's launch counts are reset before it and read after it.
 
 Phase 2 runs with TF32 off for cuDNN and matmul (the plain version's cuDNN
-conv would otherwise be the less accurate side); phases 3 and 4 run with
+conv would otherwise be the less accurate side); phases 3 to 5 run with
 torch's defaults (cuDNN allows TF32), as a user's process would: the port
-keeps its own convs and matmuls in float32.
+keeps its own convs, matmuls and LSTM in float32.
 
-The line before the last is a JSON object of the kernels; the last line is
+The line before the last is a JSON object of the kernels (times in ms; the
+bound is the larger of bytes over 3.35 TB/s and float32 operations over
+67 TFLOP/s, the H100 SXM's peaks); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or any phase fails.
 """
@@ -66,10 +82,30 @@ K2_SHAPES = [  # the deep levels at T=64, then at T=192 (odd widths, the concat)
 ]
 FORWARD_FRAMES = (64, 128, 192)
 K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256)]
+K4_SHAPES = [((1, 256, 64, 128), "float32"), ((16, 512), "float32"), ((3, 7, 5, 6), "float32"),
+             ((1, 256, 64, 128), "bfloat16")]
+# K4, kernel vs plain version: float32 is the same few operations in the same
+# order; bfloat16 may differ by one rounding of the float32 result.
+K4_F32_TOL = dict(atol=1e-6, rtol=1e-6)
+K4_BF16_ULPS = 1.0
+UTTERANCE_SECONDS = (1.0, 1.2, 1.5)
+# SNR path: the -15 dB training set's SNR as an amplitude ratio, and a bias
+# on SNRNet's last layer that puts g_hat near sigmoid(-2) = 0.12, so that
+# est_snr ~ 0.14 snaps inside the Karras grid (random weights alone give
+# g_hat ~ 0.5 and snap every utterance to t = 1).
+FIXED_SNR = 0.17783
+SNRNET_FC_BIAS = -2.0
+# A snap closer than this (relative) to a boundary between two grid points
+# could go either way between card and CPU.
+SNAP_MARGIN = 1e-4
+# The H100 SXM's peaks (NVIDIA's data sheet): HBM3 and float32 outside the
+# tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def median_ms(torch, fn, reps=20, warmup=3):
-    """Median time of one call over CUDA events."""
+    """Median time of one call over CUDA events (launch overhead included)."""
     for _ in range(warmup):
         fn()
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
@@ -82,8 +118,62 @@ def median_ms(torch, fn, reps=20, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def queued_ms(torch, fn, reps=50):
+    """Device time of one call: ``reps`` calls enqueued behind a sleep on the
+    card, so they run back to back whatever the host's launch overhead."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the host takes to enqueue
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops, nbytes):
+    """The least time the card could take: ``(ms, "bytes" | "operations")``."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def conv_work(b, h, w, cin, cout, skip):
+    """K1's operations and bytes: the conv's multiply-adds, ~9 operations per
+    input element (statistics, affine, SiLU) and 3 per output element
+    (bias, skip, scale); x, the GroupNorm affine, the weights, the bias,
+    the skip and the output, each moved once, in float32."""
+    flops = 2 * b * h * w * 9 * cin * cout + 9 * b * h * w * cin + 3 * b * h * w * cout
+    nbytes = 4 * (b * h * w * cin + 2 * cin + 9 * cin * cout + b * cout
+                  + (2 if skip else 1) * b * h * w * cout)
+    return flops, nbytes
+
+
+def timing(torch, fn, plain, library=None):
+    """Per-call and queued times of the kernel, its plain version and the
+    library call."""
+    out = {"ms": median_ms(torch, fn), "plain_ms": median_ms(torch, plain),
+           "device_ms": queued_ms(torch, fn), "plain_device_ms": queued_ms(torch, plain),
+           "library_ms": None, "library_device_ms": None}
+    if library is not None:
+        out["library_ms"] = median_ms(torch, library)
+        out["library_device_ms"] = queued_ms(torch, library)
+    return out
+
+
+def describe(t, bound_ms, bound_by):
+    lib = ("" if t["library_ms"] is None else
+           f" library {t['library_ms']:.4f} ms (queued {t['library_device_ms']:.4f})")
+    return (f"kernel {t['ms']:.4f} ms (queued {t['device_ms']:.4f}) plain {t['plain_ms']:.4f} "
+            f"ms (queued {t['plain_device_ms']:.4f}){lib} bound {bound_ms:.4f} ms ({bound_by})")
+
+
 def check_kernels(torch, ck, dev):
-    """Phase 2. Returns per-kernel {max_abs_err, ms, plain_ms}."""
+    """Phase 2. Returns per-kernel {max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, library_ms, ...} at the shape the JSON line reports."""
+    import torch.nn.functional as F
+
     rng = np.random.default_rng(0)
 
     def t(a):
@@ -108,15 +198,16 @@ def check_kernels(torch, ck, dev):
         err = (out - ref).abs().max().item()
         rel = err / ref.abs().max().item()
         ok = torch.allclose(out, ref, **KERNEL_TOL)
-        ms = median_ms(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw))
-        plain_ms = median_ms(torch, lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
+        times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw),
+                       lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
+        bound_ms, bound_by = bound(*conv_work(b, h, w, cin, cout, with_skip))
         name = f"gn_silu_conv3x3 {[b, h, w, cin]}->{cout}{' +skip' if with_skip else ''}"
         print(f"{name}: max_abs_err {err:.3e} rel {rel:.3e} ok {ok} | "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+              f"{describe(times, bound_ms, bound_by)}")
         r = result["gn_silu_conv3x3"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if (b, h, w, cin, cout, with_skip) == (1, 256, 64, 128, 128, True):
-            r["ms"], r["plain_ms"] = ms, plain_ms
+            r.update(times, bound_ms=bound_ms, bound_by=bound_by)
         if not ok:
             failures.append(name)
     for shape in K3_SHAPES:
@@ -132,21 +223,76 @@ def check_kernels(torch, ck, dev):
             err = (out - ref).abs().max().item()
             rel = err / ref.abs().max().item()
             ok = torch.allclose(out, ref, **KERNEL_TOL)
-            ms = median_ms(torch, lambda: ck.groupnorm_silu(x, sc, bi, groups, apply_silu=apply_silu))
-            plain_ms = median_ms(torch, lambda: ck.groupnorm_silu_reference(
-                x, sc, bi, groups, apply_silu=apply_silu))
+            # GroupNorm alone is one PyTorch call (on the NCHW view of x)
+            library = None if apply_silu else (
+                lambda: F.group_norm(x.permute(0, 3, 1, 2), groups, sc, bi, eps=1e-6))
+            times = timing(
+                torch, lambda: ck.groupnorm_silu(x, sc, bi, groups, apply_silu=apply_silu),
+                lambda: ck.groupnorm_silu_reference(x, sc, bi, groups, apply_silu=apply_silu),
+                library)
+            # x in, out: statistics (3), affine (2), SiLU (4) per element
+            bound_ms, bound_by = bound((9 if apply_silu else 5) * x.numel(),
+                                       4 * (2 * x.numel() + 2 * c))
             name = f"groupnorm_silu {list(shape)} silu={apply_silu}"
             print(f"{name}: max_abs_err {err:.3e} rel {rel:.3e} ok {ok} | "
-                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                  f"{describe(times, bound_ms, bound_by)}")
             r = result["groupnorm_silu"]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if shape == (1, 256, 64, 128) and apply_silu:
-                r["ms"], r["plain_ms"] = ms, plain_ms
+                r.update(times, bound_ms=bound_ms, bound_by=bound_by)
             if not ok:
                 failures.append(name)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return result
+
+
+def bf16_ulps(torch, out, ref):
+    """max |out - ref| in units of ref's bfloat16 spacing (8 significant bits)."""
+    ref32 = ref.float()
+    exponent = torch.floor(torch.log2(ref32.abs().clamp_min(2.0 ** -126)))
+    return ((out.float() - ref32).abs() / torch.exp2(exponent - 7)).max().item()
+
+
+def check_fused_act(torch, ck, dev):
+    """Phase 2b: the fused bias + LeakyReLU kernel against its plain version.
+    Returns its record at [1,256,64,128] float32."""
+    from diffse_tpu_torch.ops.fused_act import fused_bias_leaky_relu
+
+    rng = np.random.default_rng(1)
+    record, failures = {"max_abs_err": 0.0}, []
+    for shape, dtype_name in K4_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+        bias = torch.from_numpy(rng.standard_normal(shape[-1]).astype(np.float32)).to(dev, dtype)
+        out = fused_bias_leaky_relu(x, bias)
+        ref = ck.fused_bias_leaky_relu_reference(x, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if dtype == torch.float32:
+            ok = torch.allclose(out, ref, **K4_F32_TOL)
+            detail = f"max_abs_err {err:.3e} (atol = rtol = {K4_F32_TOL['atol']})"
+        else:
+            ulps = bf16_ulps(torch, out, ref)
+            ok = ulps <= K4_BF16_ULPS
+            detail = f"max_abs_err {err:.3e}, {ulps:.2f} bf16 ulp (limit {K4_BF16_ULPS})"
+        ok = ok and out.dtype == dtype and out.shape == x.shape
+        times = timing(torch, lambda: fused_bias_leaky_relu(x, bias),
+                       lambda: ck.fused_bias_leaky_relu_reference(x, bias))
+        # x in, out, bias; add, select, scale per element
+        bound_ms, bound_by = bound(3 * x.numel(),
+                                   x.element_size() * (2 * x.numel() + shape[-1]))
+        name = f"fused_bias_leaky_relu {list(shape)} {dtype_name}"
+        print(f"{name}: {detail} ok {ok} | {describe(times, bound_ms, bound_by)}")
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        if shape == (1, 256, 64, 128) and dtype == torch.float32:
+            record.update(times, bound_ms=bound_ms, bound_by=bound_by)
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"fused_bias_leaky_relu disagrees with its plain version: "
+                             f"{failures}")
+    return record
 
 
 def redraw_weights(torch, model, seed):
@@ -173,7 +319,7 @@ def check_forward(torch, ck, dev):
     from diffse_tpu_torch.models.ncsnpp import NCSNpp
 
     torch.backends.cudnn.allow_tf32 = True
-    print("phases 3-4 with torch's defaults: torch.backends.cudnn.allow_tf32=True, "
+    print("phases 3-5 with torch's defaults: torch.backends.cudnn.allow_tf32=True, "
           "torch.backends.cuda.matmul.allow_tf32=False")
     model = NCSNpp(generator=torch.Generator().manual_seed(0))
     redraw_weights(torch, model, seed=1)
@@ -203,27 +349,41 @@ def check_forward(torch, ck, dev):
             failures.append(f"T={frames}: output is not finite")
         if err > FORWARD_TOL:
             failures.append(f"T={frames}: deviates by {err:.3e}")
-        if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28}:
+        if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}:
             failures.append(f"T={frames}: launch counts per forward {counts}, expected 81 and 28")
     if failures:
         raise AssertionError("; ".join(failures))
 
 
-def synthetic_utterance(rng, n):
-    """Speech-like: a harmonic stack under a syllable envelope, plus noise."""
+def synthetic_pair(rng, n):
+    """Speech-like clean signal (a harmonic stack under a syllable envelope)
+    and the same plus white noise."""
     t = np.arange(n) / SR
     f0 = rng.uniform(100, 220)
     harm = sum(rng.uniform(0.2, 1.0) * np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6.3))
                for k in range(1, 6))
     env = 0.02 + np.clip(np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t), 0, None)
     clean = 0.3 * env * harm / 5
-    return (clean + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    return clean.astype(np.float32), (clean + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+def main_path_pairs():
+    """The (clean, noisy) utterances of phases 4 and 5: 1.0, 1.2 and 1.5 s."""
+    rng = np.random.default_rng(3)
+    return [synthetic_pair(rng, int(s * SR)) for s in UTTERANCE_SECONDS]
+
+
+def cpu_noise(torch, seed):
+    """A noise source drawn on the CPU, so that card and CPU get the same draws."""
+    from diffse_tpu_torch.utils import randn_like
+
+    g = torch.Generator().manual_seed(seed)
+    return lambda like: randn_like(like.cpu(), g).to(like.device)
 
 
 def run_main_path(torch, ck, dev):
     """Phase 4: enhance through bbed_pc (3 utterances) and sebridge_v2."""
     from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
-    from diffse_tpu_torch.utils import randn_like
 
     sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=30)
     bbed = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed",
@@ -236,12 +396,7 @@ def run_main_path(torch, ck, dev):
     # non-zero weights, so that the card-vs-CPU check below sees the network
     redraw_weights(torch, v2.backbone, seed=4)
 
-    rng = np.random.default_rng(3)
-    utterances = [synthetic_utterance(rng, int(s * SR)) for s in (1.0, 1.2, 1.5)]
-
-    def v2_noise(seed):
-        g = torch.Generator().manual_seed(seed)
-        return lambda like: randn_like(like.cpu(), g).to(like.device)
+    utterances = [noisy for _, noisy in main_path_pairs()]
 
     walls, outs = [], []
     ck.reset_launch_counts()
@@ -251,7 +406,7 @@ def run_main_path(torch, ck, dev):
                                 N=30, timeit=True)[:2]
         walls.append(time.time() - t0)
         outs.append(out)
-    v2_out = v2.enhance(utterances[0][None], utterances[0][None], noise=v2_noise(7))
+    v2_out = v2.enhance(utterances[0][None], utterances[0][None], noise=cpu_noise(torch, 7))
     counts = dict(ck.launch_counts)
 
     for y, out, wall in zip(utterances, outs, walls):
@@ -262,19 +417,154 @@ def run_main_path(torch, ck, dev):
     for y, out in zip(utterances + [utterances[0]], outs + [v2_out]):
         if out.shape != y.shape or not np.isfinite(out).all():
             raise AssertionError(f"bad output: shape {out.shape} vs {y.shape}")
-    expected = {"gn_silu_conv3x3": 81 * total_forwards, "groupnorm_silu": 28 * total_forwards}
+    expected = {"gn_silu_conv3x3": 81 * total_forwards, "groupnorm_silu": 28 * total_forwards,
+                "fused_bias_leaky_relu": 0}
     if counts != expected:
         raise AssertionError(f"main-path launch counts {counts}, expected {expected}")
 
     v2_cpu = ScoreModel(v2_cfg, sde_kwargs=sde_kwargs, device="cpu")
     v2_cpu.backbone.load_state_dict(v2.backbone.state_dict())
-    ref = v2_cpu.enhance(utterances[0][None], utterances[0][None], noise=v2_noise(7))
+    ref = v2_cpu.enhance(utterances[0][None], utterances[0][None], noise=cpu_noise(torch, 7))
     err = float(np.max(np.abs(v2_out - ref)) / np.max(np.abs(ref)))
     print(f"sebridge_v2 waveform, card vs CPU plain path: max|diff|/max|ref| {err:.3e} "
           f"(tol {WAVEFORM_TOL})")
     if err > WAVEFORM_TOL:
         raise AssertionError(f"sebridge_v2 waveform deviates: {err:.3e}")
     return counts, walls
+
+
+def redraw_snrnet(torch, seed):
+    """An SNRNet with every weight drawn from a seeded generator (kernels at
+    1/sqrt(fan_in), biases small) and its output bias at SNRNET_FC_BIAS."""
+    from diffse_tpu_torch.models.snrnet import SNRNet
+
+    net = SNRNet()
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in net.parameters():
+            z = torch.randn(p.shape, generator=g)
+            p.copy_(z / p[0].numel() ** 0.5 if p.ndim >= 2 else 0.1 * z)
+        net.fc.bias.fill_(SNRNET_FC_BIAS)
+    return net.eval()
+
+
+def snap_margin(est_snr):
+    """Relative distance of the unsnapped time from the nearest boundary
+    between two points of the Karras grid."""
+    from diffse_tpu_torch.models.score_model import T_30_F32
+
+    t_ = np.float32(est_snr) / np.float32(10 ** 0.25 * FIXED_SNR)
+    boundaries = (T_30_F32[1:] + T_30_F32[:-1]) / 2
+    return float(np.min(np.abs(boundaries - t_)) / t_)
+
+
+def run_snr_path(torch, ck, dev):
+    """Phase 5: sebridge_v3_snr on 3 utterances, then sebridge_v2_snr, each
+    held to the CPU. Returns the launch counts of each path."""
+    from diffse_tpu_torch.models.score_model import (
+        ScoreModel,
+        ScoreModelConfig,
+        snap_to_karras_grid,
+    )
+
+    sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=30)
+    snrnet = redraw_snrnet(torch, seed=5)
+    pairs = main_path_pairs()
+    failures = []
+
+    def model_pair(cfg, seed):
+        card = ScoreModel(cfg, sde_kwargs=sde_kwargs, device=dev,
+                          snr_model=copy.deepcopy(snrnet))
+        redraw_weights(torch, card.backbone, seed=seed)
+        cpu = ScoreModel(cfg, sde_kwargs=sde_kwargs, device="cpu",
+                         snr_model=copy.deepcopy(snrnet))
+        cpu.backbone.load_state_dict(card.backbone.state_dict())
+        return card, cpu
+
+    def compare(label, out, ref, length):
+        err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+        print(f"{label} waveform, card vs CPU plain path: max|diff|/max|ref| {err:.3e} "
+              f"(tol {WAVEFORM_TOL})")
+        if out.shape != (length,) or not np.isfinite(out).all():
+            failures.append(f"{label}: bad output, shape {out.shape}")
+        if err > WAVEFORM_TOL:
+            failures.append(f"{label}: waveform deviates by {err:.3e}")
+
+    v3_cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v3",
+                              snr_conditioned="true", fixed_snr=FIXED_SNR, sigma_max=1.0)
+    v3, v3_cpu = model_pair(v3_cfg, seed=6)
+
+    # SNRNet and the snap, card against CPU
+    t_hats = []
+    for i, (_, noisy) in enumerate(pairs):
+        est = v3.estimate_snr(noisy[None])[0].item()
+        est_cpu = v3_cpu.estimate_snr(noisy[None])[0].item()
+        g, g_cpu = est / (1 + est), est_cpu / (1 + est_cpu)  # SNRNet's sigmoid output
+        rel = abs(g - g_cpu) / abs(g_cpu)
+        t_hat, t_hat_cpu = (snap_to_karras_grid(e, FIXED_SNR)[0] for e in (est, est_cpu))
+        margin = snap_margin(est_cpu)
+        print(f"utterance {i} ({UTTERANCE_SECONDS[i]} s): SNRNet g_hat {g:.7f} card vs "
+              f"{g_cpu:.7f} CPU, rel {rel:.3e} (tol 1e-5); est_snr {est:.6f}; t_hat "
+              f"{t_hat:.6f} card, {t_hat_cpu:.6f} CPU; snap margin {margin:.3e}")
+        if rel > 1e-5:
+            failures.append(f"utterance {i}: SNRNet deviates by {rel:.3e}")
+        if margin < SNAP_MARGIN:
+            failures.append(f"utterance {i}: the estimate lies within float error of a snap "
+                            "boundary; pick another SNRNet seed")
+        if t_hat != t_hat_cpu:
+            failures.append(f"utterance {i}: t_hat {t_hat} on the card, {t_hat_cpu} on the CPU")
+        t_hats.append(float(t_hat))
+    spec2 = torch.randn((1, 2, 256, 192), device=dev)  # the 1.5 s utterance, padded to 16
+    with torch.no_grad():
+        snrnet_ms = median_ms(torch, lambda: v3.snr_model(spec2))
+    print(f"SNRNet ({sum(p.numel() for p in snrnet.parameters())} params) at [1,2,256,192]: "
+          f"{snrnet_ms:.4f} ms")
+
+    # sebridge_v3_snr: one warm-up call, then the path with fresh counts
+    v3.enhance(pairs[0][1][None], pairs[0][1][None], noise=cpu_noise(torch, 9))
+    torch.cuda.synchronize()
+    walls, outs = [], []
+    ck.reset_launch_counts()
+    for i, (_, noisy) in enumerate(pairs):
+        t0 = time.time()
+        outs.append(v3.enhance(noisy[None], noisy[None], noise=cpu_noise(torch, 10 + i)))
+        walls.append(time.time() - t0)
+    v3_counts = dict(ck.launch_counts)
+    for i, (_, noisy) in enumerate(pairs):
+        ref = v3_cpu.enhance(noisy[None], noisy[None], noise=cpu_noise(torch, 10 + i))
+        print(f"sebridge_v3_snr: {UTTERANCE_SECONDS[i]} s utterance, t_hat {t_hats[i]:.6f}, "
+              f"wall {walls[i]:.4f} s")
+        compare(f"sebridge_v3_snr utterance {i}", outs[i], ref, len(noisy))
+    expected = {"gn_silu_conv3x3": 81 * len(pairs), "groupnorm_silu": 28 * len(pairs),
+                "fused_bias_leaky_relu": 0}
+    print(f"sebridge_v3_snr launches: {v3_counts} over {len(pairs)} forwards")
+    if v3_counts != expected:
+        failures.append(f"sebridge_v3_snr launch counts {v3_counts}, expected {expected}")
+    del v3, v3_cpu
+
+    # sebridge_v2_snr on the SNR-conditioned NCSN++, with the clean reference
+    v2_cfg = ScoreModelConfig(backbone="ncsnpp_snr", sde="bbed", model_type="sebridge_v2",
+                              snr_conditioned="true", fixed_snr=FIXED_SNR, sigma_max=0.5)
+    v2, v2_cpu = model_pair(v2_cfg, seed=7)
+    n_params = sum(p.numel() for p in v2.backbone.parameters())
+    clean, noisy = pairs[0]
+    v2.enhance(clean[None], noisy[None], noise=cpu_noise(torch, 11))  # warm-up
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.time()
+    out = v2.enhance(clean[None], noisy[None], noise=cpu_noise(torch, 12))
+    wall = time.time() - t0
+    v2_counts = dict(ck.launch_counts)
+    ref = v2_cpu.enhance(clean[None], noisy[None], noise=cpu_noise(torch, 12))
+    print(f"sebridge_v2_snr ({n_params} params, ncsnpp_snr): {UTTERANCE_SECONDS[0]} s "
+          f"utterance, wall {wall:.4f} s, launches {v2_counts}")
+    compare("sebridge_v2_snr", out, ref, len(noisy))
+    expected = {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}
+    if v2_counts != expected:
+        failures.append(f"sebridge_v2_snr launch counts {v2_counts}, expected {expected}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"sebridge_v3_snr": v3_counts, "sebridge_v2_snr": v2_counts}
 
 
 def main() -> int:
@@ -305,35 +595,44 @@ def main() -> int:
     print(f"built {lib.name} in {time.time() - t0:.1f} s")
 
     ok = True
-    kernels, counts = None, None
+    results = {}
     for name, phase in (("kernels", lambda: check_kernels(torch, ck, dev)),
+                        ("fused_act", lambda: check_fused_act(torch, ck, dev)),
                         ("forward", lambda: check_forward(torch, ck, dev)),
-                        ("enhance", lambda: run_main_path(torch, ck, dev))):
+                        ("enhance", lambda: run_main_path(torch, ck, dev)),
+                        ("snr", lambda: run_snr_path(torch, ck, dev))):
         t0 = time.time()
         try:
-            result = phase()
+            results[name] = phase()
         except Exception:  # report every phase, then fail
             traceback.print_exc()
             print(f"phase {name}: FAILED after {time.time() - t0:.1f} s")
             ok = False
             continue
         print(f"phase {name}: ok in {time.time() - t0:.1f} s")
-        if name == "kernels":
-            kernels = result
-        elif name == "enhance":
-            counts = result[0]
     if not ok:
         return 1
 
-    sources = {"route": "cuda", "source": "diffse_tpu_torch/csrc/gn_kernels.cu"}
+    # launches on each main path, each counted from zero
+    paths = {"bbed_pc+sebridge_v2": results["enhance"][0], **results["snr"]}
+
+    def launches(kernel):
+        by_path = {path: counts[kernel] for path, counts in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+    gn_source = {"route": "cuda", "source": "diffse_tpu_torch/csrc/gn_kernels.cu"}
     record = {"kernels": [
-        {"name": "gn_silu_conv3x3", **sources,
+        {"name": "gn_silu_conv3x3", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:269",
          "also_replaces": "diffse_tpu/ops/pallas_kernels.py:350",
-         "launches": counts["gn_silu_conv3x3"], **kernels["gn_silu_conv3x3"]},
-        {"name": "groupnorm_silu", **sources,
+         **launches("gn_silu_conv3x3"), **results["kernels"]["gn_silu_conv3x3"]},
+        {"name": "groupnorm_silu", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
-         "launches": counts["groupnorm_silu"], **kernels["groupnorm_silu"]},
+         **launches("groupnorm_silu"), **results["kernels"]["groupnorm_silu"]},
+        {"name": "fused_bias_leaky_relu", "route": "cuda",
+         "source": "diffse_tpu_torch/csrc/fused_act.cu",
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:208",
+         **launches("fused_bias_leaky_relu"), **results["fused_act"]},
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -181,13 +181,16 @@ class ResnetBlockBigGANpp(nn.Module):
     """BigGAN-style residual block with in-block FIR up/down-sampling.
 
     Plain blocks run both GroupNorm -> SiLU -> conv3x3 chains as one kernel
-    each: the first with bias ``Conv_0.bias + Dense_0(SiLU(temb))``, the second
-    with the residual ``(x' + h) / sqrt(2)`` in its epilogue. Up/down blocks
-    run GroupNorm+SiLU, FIR resampling, then the conv (the resampling sits
-    between norm and conv, so they cannot be fused)."""
+    each: the first with bias ``Conv_0.bias + Dense_0(SiLU(temb))`` (plus
+    ``Dense_1(SiLU(semb))`` in the SNR-conditioned variant), the second with
+    the residual ``(x' + h) / sqrt(2)`` in its epilogue. Up/down blocks run
+    GroupNorm+SiLU, FIR resampling, then the conv (the resampling sits between
+    norm and conv, so they cannot be fused), with the embeddings added after
+    ``Conv_0``."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int], temb_dim: int, up: bool = False,
-                 down: bool = False, generator: Optional[torch.Generator] = None):
+                 down: bool = False, semb_dim: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         out_ch = out_ch if out_ch else in_ch
         self.out_ch = out_ch
@@ -195,6 +198,7 @@ class ResnetBlockBigGANpp(nn.Module):
         self.GroupNorm_0 = GroupNorm(in_ch)
         self.Conv_0 = ddpm_conv(in_ch, out_ch, 3, generator=generator)
         self.Dense_0 = ddpm_dense(temb_dim, out_ch, generator)
+        self.Dense_1 = ddpm_dense(semb_dim, out_ch, generator) if semb_dim else None
         self.GroupNorm_1 = GroupNorm(out_ch)
         self.Conv_1 = ddpm_conv(out_ch, out_ch, 3, init_scale=0.0, generator=generator)
         if in_ch != out_ch or up or down:
@@ -205,12 +209,17 @@ class ResnetBlockBigGANpp(nn.Module):
             hwio_memory_(self.Conv_0)
             hwio_memory_(self.Conv_1)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor,
+                semb: Optional[torch.Tensor] = None) -> torch.Tensor:
         batch = x.shape[0]
         temb_bias = self.Dense_0(F.silu(temb))
+        semb_bias = self.Dense_1(F.silu(semb)) if self.Dense_1 is not None else None
         if not (self.up or self.down):
             x_nhwc = to_nhwc(x)
-            bias0 = (self.Conv_0.bias[None, :] + temb_bias).contiguous()
+            bias0 = self.Conv_0.bias[None, :] + temb_bias
+            if semb_bias is not None:
+                bias0 = bias0 + semb_bias
+            bias0 = bias0.contiguous()
             h = groupnorm_silu_conv3x3(
                 x_nhwc, self.GroupNorm_0.weight, self.GroupNorm_0.bias,
                 conv_hwio(self.Conv_0), bias0,
@@ -228,5 +237,7 @@ class ResnetBlockBigGANpp(nn.Module):
         h = resample(h, FIR_KERNEL, factor=2)
         x = resample(x, FIR_KERNEL, factor=2)
         h = self.Conv_0(h) + temb_bias[:, :, None, None]
+        if semb_bias is not None:
+            h = h + semb_bias[:, :, None, None]
         h = self.Conv_1(self.GroupNorm_1(h))
         return (self.Conv_2(x) + h) / math.sqrt(2.0)

@@ -1,10 +1,10 @@
-"""NCSN++ score network (port of diffse_tpu/models/ncsnpp.py, ``NCSNpp``).
+"""NCSN++ score network (port of diffse_tpu/models/ncsnpp.py, ``NCSNpp`` and
+``NCSNppSNR``).
 
 Built as the reference torch NCSN++ builds it: one ``all_modules``
 ``nn.ModuleList`` plus ``output_layer``, with the indices that
-``tools/convert_torch_checkpoint.py::ncsnpp_correspondence`` emits, so that
-converted flax parameters and the reference's published checkpoints load
-with ``strict=True``.
+``convert.ncsnpp_correspondence`` emits, so that converted flax parameters
+and the reference's published checkpoints load with ``strict=True``.
 
 This is the repo's NCSN++ configuration: BigGAN residual blocks, FIR
 [1,3,3,1] resampling, Gaussian-Fourier time embedding, input_skip input
@@ -12,6 +12,11 @@ pyramid with ``sum`` combine, output_skip output pyramid, SiLU. The trunk's
 GroupNorm chains run through the CUDA kernels (models/layers.py); the 7
 output-pyramid heads run GroupNorm -> SiLU -> conv3x3(->4 channels) as one
 ``groupnorm_silu_conv3x3`` each. Maps are NCHW in channels_last memory.
+
+The SNR-conditioned variant (``NCSNppSNR``) is the same network with a second
+Gaussian-Fourier embedding, of the noise level, fed through its own two dense
+layers into every residual block (``Dense_1``), and the output divided by the
+noise level instead of the time.
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ from . import layers
 from .shared import BackboneRegistry
 
 
-@BackboneRegistry.register("ncsnpp")
-class NCSNpp(nn.Module):
-    """NCSN++: ``(x complex [B, 2, F, T], t [B]) -> complex score [B, 1, F, T]``."""
+class NCSNppBase(nn.Module):
+    """NCSN++ with the time embedding alone, or with a second (noise)
+    embedding when ``snr_conditioning``."""
+
+    snr_conditioning = False
 
     def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 2, 2, 2),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
@@ -44,21 +51,28 @@ class NCSNpp(nn.Module):
         self.all_resolutions = [image_size // (2 ** i) for i in range(num_resolutions)]
         num_channels = 4
         temb_dim = nf * 4
+        semb_dim = temb_dim if self.snr_conditioning else None
         g = generator
 
         def resblock(in_ch, out_ch=None, up=False, down=False):
             return layers.ResnetBlockBigGANpp(in_ch, out_ch, temb_dim, up=up, down=down,
-                                              generator=g)
+                                              semb_dim=semb_dim, generator=g)
 
         def attn(ch):
             return layers.AttnBlockpp(ch, generator=g)
 
-        modules = [
-            layers.GaussianFourierProjection(nf, scale=16.0, generator=g),
-            layers.ddpm_dense(2 * nf, temb_dim, g),
-            layers.ddpm_dense(temb_dim, temb_dim, g),
-            layers.ddpm_conv(num_channels, nf, 3, generator=g),
-        ]
+        def embedding():
+            return [layers.GaussianFourierProjection(nf, scale=16.0, generator=g)]
+
+        def embedding_denses():
+            return [layers.ddpm_dense(2 * nf, temb_dim, g),
+                    layers.ddpm_dense(temb_dim, temb_dim, g)]
+
+        # time_embed[, noise_embed], temb_dense_0/1[, semb_dense_0/1], stem conv
+        snr = self.snr_conditioning
+        modules = embedding() + (embedding() if snr else [])
+        modules += embedding_denses() + (embedding_denses() if snr else [])
+        modules.append(layers.ddpm_conv(num_channels, nf, 3, generator=g))
         in_ch = nf
         hs_c = [nf]
         for i_level in range(num_resolutions):
@@ -100,52 +114,54 @@ class NCSNpp(nn.Module):
                                      layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
         return layers.from_nhwc(out)
 
-    def forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
-        """Args:
-            x: complex ``[B, 2, F, T]``: channel 0 the diffusion state, channel 1
-               the conditioning spectrogram.
-            time_cond: ``[B]`` diffusion time.
-
-        The network computes in float32: on the card its cuDNN convolutions
-        and matmuls run without TF32, whatever the process-wide setting.
-        """
+    def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,
+                 noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
+        """``noise_cond`` is read when ``snr_conditioning``. The network
+        computes in float32: on the card its cuDNN convolutions and matmuls
+        run without TF32, whatever the process-wide setting."""
         with float32_precision(x.device):
-            return self._forward(x, time_cond)
+            return self._forward_f32(x, time_cond, noise_cond)
 
-    def _forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
+    def _forward_f32(self, x: torch.Tensor, time_cond: torch.Tensor,
+                     noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
         modules = iter(self.all_modules)
         num_resolutions = len(self.ch_mult)
+        snr = self.snr_conditioning
 
         h = torch.stack([x[:, 0].real, x[:, 0].imag, x[:, 1].real, x[:, 1].imag], dim=1)
         h = h.contiguous(memory_format=torch.channels_last)
 
         temb = next(modules)(torch.log(time_cond))
+        semb = next(modules)(torch.log(noise_cond)) if snr else None
         temb = next(modules)(temb)
         temb = next(modules)(F.silu(temb))
+        if snr:
+            semb = next(modules)(semb)
+            semb = next(modules)(F.silu(semb))
 
         input_pyramid = h
         hs = [next(modules)(h)]
         for i_level in range(num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = next(modules)(hs[-1], temb)
+                h = next(modules)(hs[-1], temb, semb)
                 if self.all_resolutions[i_level] in self.attn_resolutions:
                     h = next(modules)(h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = next(modules)(hs[-1], temb)
+                h = next(modules)(hs[-1], temb, semb)
                 input_pyramid = downsample_2d(input_pyramid, layers.FIR_KERNEL, factor=2)
                 h = next(modules)(input_pyramid, h)
                 hs.append(h)
 
         h = hs[-1]
-        h = next(modules)(h, temb)
+        h = next(modules)(h, temb, semb)
         h = next(modules)(h)
-        h = next(modules)(h, temb)
+        h = next(modules)(h, temb, semb)
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = next(modules)(torch.cat([h, hs.pop()], dim=1), temb)
+                h = next(modules)(torch.cat([h, hs.pop()], dim=1), temb, semb)
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = next(modules)(h)
             head = self._pyramid_head(h, next(modules), next(modules))
@@ -154,8 +170,39 @@ class NCSNpp(nn.Module):
             else:
                 pyramid = upsample_2d(pyramid, layers.FIR_KERNEL, factor=2) + head
             if i_level != 0:
-                h = next(modules)(h, temb)
+                h = next(modules)(h, temb, semb)
 
-        h = pyramid / time_cond[:, None, None, None]
+        used_sigmas = noise_cond if snr else time_cond
+        h = pyramid / used_sigmas[:, None, None, None]
         h = self.output_layer(h)
         return torch.complex(h[:, 0], h[:, 1])[:, None]
+
+
+@BackboneRegistry.register("ncsnpp")
+class NCSNpp(NCSNppBase):
+    """NCSN++: ``(x complex [B, 2, F, T], t [B]) -> complex score [B, 1, F, T]``."""
+
+    def forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
+        """Args:
+            x: complex ``[B, 2, F, T]``: channel 0 the diffusion state, channel 1
+               the conditioning spectrogram.
+            time_cond: ``[B]`` diffusion time.
+        """
+        return self._forward(x, time_cond, None)
+
+
+@BackboneRegistry.register("ncsnpp_snr")
+class NCSNppSNR(NCSNppBase):
+    """SNR-conditioned NCSN++: ``(x, t, s) -> complex score``, the output
+    divided by the noise conditioning ``s``."""
+
+    snr_conditioning = True
+
+    def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
+                noise_cond: torch.Tensor) -> torch.Tensor:
+        """Args:
+            x: complex ``[B, 2, F, T]``, as for ``NCSNpp``.
+            time_cond: ``[B]`` diffusion time.
+            noise_cond: ``[B]`` noise level (SNR conditioning).
+        """
+        return self._forward(x, time_cond, noise_cond)

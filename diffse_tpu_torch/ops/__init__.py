@@ -1,1 +1,2 @@
-"""Ops: exponential integral, FIR resampling and the hand-written CUDA kernels."""
+"""Ops: exponential integral, FIR resampling, the fused bias + LeakyReLU and
+the hand-written CUDA kernels."""

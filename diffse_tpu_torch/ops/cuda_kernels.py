@@ -1,10 +1,12 @@
-"""Hand-written CUDA kernels for the GroupNorm -> SiLU (-> conv3x3) chains.
+"""Hand-written CUDA kernels: the GroupNorm -> SiLU (-> conv3x3) chains and
+the fused bias + LeakyReLU.
 
 Port of diffse_tpu/ops/pallas_kernels.py's kernels to Hopper. The CUDA
-sources live in ``diffse_tpu_torch/csrc/``; they are compiled with ``nvcc``
-into a shared library with a plain C interface at first use (keyed on a hash
-of the sources, under ``build/kernels/`` of the checkout) and called through
-ctypes on PyTorch's current stream.
+sources live in ``diffse_tpu_torch/csrc/``; at first use each is compiled
+with its own ``nvcc`` (all at once) and the objects are linked into one
+shared library with a plain C interface (keyed on a hash of the sources,
+under ``build/kernels/`` of the checkout), called through ctypes on
+PyTorch's current stream.
 
 Every wrapper keeps the JAX signature and layout (NHWC activations, HWIO
 weights) and dispatches on the device of its input:
@@ -25,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -39,9 +42,9 @@ from ..utils import float32_precision
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
-launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
+launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0, "fused_bias_leaky_relu": 0}
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +103,18 @@ def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
     return out.to(x.dtype).contiguous()
 
 
+def fused_bias_leaky_relu_reference(x, bias, negative_slope: float = 0.2,
+                                    scale: float = math.sqrt(2.0)):
+    """Plain version of K4 (``_fused_bias_lrelu_kernel``, pallas_kernels.py:208):
+    ``where(v >= 0, v, negative_slope * v) * scale`` with ``v = x + bias`` on
+    the trailing (channel) axis, in float32, returned in x's dtype. ``bias``:
+    ``[C]`` or None."""
+    v = x.float()
+    if bias is not None:
+        v = v + bias.float()
+    return (torch.where(v >= 0, v, v * negative_slope) * scale).to(x.dtype)
+
+
 # ------------------------------------------------------------------ the library
 
 
@@ -111,7 +126,9 @@ def _library():
     lib.diffse_gn_stats_ab.argtypes = [p, p, p, p, p, i, i, i, i, f, p]
     lib.diffse_gn_apply.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.diffse_gn_silu_conv3x3.argtypes = [p, p, p, p, p, i, p, f, p, i, i, i, i, i, p]
-    for fn in (lib.diffse_gn_stats_ab, lib.diffse_gn_apply, lib.diffse_gn_silu_conv3x3):
+    lib.diffse_fused_bias_lrelu.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, p]
+    for fn in (lib.diffse_gn_stats_ab, lib.diffse_gn_apply, lib.diffse_gn_silu_conv3x3,
+               lib.diffse_fused_bias_lrelu):
         fn.restype = ctypes.c_int
     return lib
 
@@ -139,18 +156,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds) -> None:
+    """Start every command at once, wait for all; raise on the first failure."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{' '.join(cmd)} ({proc.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+
+
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` for sm_90a unless the library for these sources
+    """Compile ``csrc/*.cu`` for sm_90a, one ``nvcc`` per source in parallel,
+    and link them into one library, unless the library for these sources
     already exists. Returns the library's path."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, path)
     return path
 
@@ -280,4 +316,50 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             _stream(x.device)),
             "gn_silu_conv3x3")
     launch_counts["gn_silu_conv3x3"] += 1
+    return out
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                          negative_slope: float = 0.2,
+                          scale: float = math.sqrt(2.0)) -> torch.Tensor:
+    """``leaky_relu(x + bias, negative_slope) * scale`` over a channels-last
+    ``x [..., C]`` (port of ``fused_bias_leaky_relu_pallas``,
+    pallas_kernels.py:215). ``bias``: ``[C]`` of x's dtype, or None. Float32
+    or bfloat16 in and out, float32 maths."""
+    if not _dispatch_device("fused_bias_leaky_relu", x):
+        return fused_bias_leaky_relu_reference(x, bias, negative_slope, scale)
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_bias_leaky_relu: x is {x.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    if x.ndim == 0:
+        raise ValueError("fused_bias_leaky_relu: x needs a trailing channel axis")
+    c = x.shape[-1]
+    for arg, t in (("x", x), ("bias", bias)):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"fused_bias_leaky_relu: {arg} is on {t.device}, "
+                             f"expected {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"fused_bias_leaky_relu: {arg} is {t.dtype}, x is {x.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_bias_leaky_relu: {arg} must be contiguous")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise RuntimeError(
+                f"fused_bias_leaky_relu: {arg} requires grad; the kernel has no "
+                "backward yet (run under torch.no_grad())")
+    if bias is not None and tuple(bias.shape) != (c,):
+        raise ValueError(f"fused_bias_leaky_relu: bias has shape {tuple(bias.shape)}, "
+                         f"expected ({c},)")
+    lib = _library()
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _check(lib.diffse_fused_bias_lrelu(
+            _ptr(x), _ptr(bias), _ptr(out), x.numel() // c if c else 0, c,
+            _DTYPE_CODES[x.dtype], float(negative_slope), float(scale),
+            _stream(x.device)), "fused_bias_leaky_relu")
+    launch_counts["fused_bias_leaky_relu"] += 1
     return out

@@ -1,5 +1,12 @@
 from .stft import StftConfig, hann_window, istft, stft
-from .spec import SpecTransformConfig, pad_spec, spec_back, spec_fwd, width_bucket
+from .spec import (
+    SpecTransformConfig,
+    pad_spec,
+    pad_spec_16,
+    spec_back,
+    spec_fwd,
+    width_bucket,
+)
 
 __all__ = [
     "StftConfig",
@@ -10,5 +17,6 @@ __all__ = [
     "spec_fwd",
     "spec_back",
     "pad_spec",
+    "pad_spec_16",
     "width_bucket",
 ]

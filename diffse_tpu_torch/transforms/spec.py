@@ -51,13 +51,23 @@ def spec_back(spec: torch.Tensor, cfg: SpecTransformConfig = SpecTransformConfig
     return spec
 
 
-def pad_spec(y: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the time (last) axis to a multiple of 64: the NCSN++ U-Net
-    downsamples six times."""
-    num_pad = (64 - y.shape[-1] % 64) % 64
+def _pad_time_axis(y: torch.Tensor, multiple: int) -> torch.Tensor:
+    num_pad = (multiple - y.shape[-1] % multiple) % multiple
     if num_pad == 0:
         return y
     return F.pad(y, (0, num_pad))
+
+
+def pad_spec(y: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the time (last) axis to a multiple of 64: the NCSN++ U-Net
+    downsamples six times."""
+    return _pad_time_axis(y, 64)
+
+
+def pad_spec_16(y: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the time (last) axis to a multiple of 16: SNRNet's input
+    contract (16-frame clusters)."""
+    return _pad_time_axis(y, 16)
 
 
 def width_bucket(t_orig: int, hop_length: int):

@@ -1,5 +1,6 @@
-"""The port's NCSN++ against the JAX package's, weights carried over by the
-bridge (``diffse_tpu_torch.convert.state_dict_from_jax``).
+"""The port's NCSN++ (and its SNR-conditioned variant) against the JAX
+package's, weights carried over by the bridge
+(``diffse_tpu_torch.convert.state_dict_from_jax``).
 
 The JAX side runs the configuration whose maths the port's kernels follow:
 ``use_pallas_groupnorm=True, fuse_pyramid=True`` (its Pallas GroupNorm+SiLU
@@ -8,6 +9,8 @@ parity is held to 1e-5 relative to max|ref|.
 """
 
 import copy
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,9 +20,11 @@ import torch
 
 from diffse_tpu.models.layers import GaussianFourierProjection as JaxGFP
 from diffse_tpu.models.ncsnpp import NCSNpp as JaxNCSNpp
-from diffse_tpu_torch.convert import load_converter, state_dict_from_jax
+from diffse_tpu.models.ncsnpp import NCSNppSNR as JaxNCSNppSNR
+from diffse_tpu_torch import convert
+from diffse_tpu_torch.convert import state_dict_from_jax
 from diffse_tpu_torch.models import layers
-from diffse_tpu_torch.models.ncsnpp import NCSNpp
+from diffse_tpu_torch.models.ncsnpp import NCSNpp, NCSNppSNR
 from diffse_tpu_torch.ops import cuda_kernels as ck
 
 torch.set_num_threads(2)
@@ -39,15 +44,22 @@ DEEP_ARCH = dict(nf=16, ch_mult=(1, 1, 2, 2, 2, 2, 2), num_res_blocks=2,
                  attn_resolutions=(16,), image_size=64)
 
 
-def random_jax_params(arch, seed, frames=64):
-    """A seeded random flax param tree of the JAX NCSN++ (shapes from
-    ``jax.eval_shape`` of its init, so nothing is compiled). Kernels are
-    drawn at 1/sqrt(fan_in), GroupNorm scales near 1, biases small: every
-    path is live, where the default init zeroes every block's last conv and
-    every pyramid head."""
+def jax_param_shapes(arch, frames=64, snr=False):
+    """The JAX NCSN++'s (or NCSNppSNR's) param tree as shapes, from
+    ``jax.eval_shape`` of its init, so nothing is compiled."""
     x = jnp.zeros((1, 2, 256, frames), jnp.complex64)
     t = jnp.ones((1,), jnp.float32)
-    shapes = jax.eval_shape(JaxNCSNpp(**arch).init, jax.random.PRNGKey(0), x, t)["params"]
+    if snr:
+        return jax.eval_shape(JaxNCSNppSNR(**arch).init, jax.random.PRNGKey(0), x, t, t)["params"]
+    return jax.eval_shape(JaxNCSNpp(**arch).init, jax.random.PRNGKey(0), x, t)["params"]
+
+
+def random_jax_params(arch, seed, frames=64, snr=False):
+    """A seeded random flax param tree of the JAX NCSN++ (or NCSNppSNR).
+    Kernels are drawn at 1/sqrt(fan_in), GroupNorm scales near 1, biases
+    small: every path is live, where the default init zeroes every block's
+    last conv and every pyramid head."""
+    shapes = jax_param_shapes(arch, frames, snr)
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
@@ -75,6 +87,16 @@ def _inputs(seed, batch, frames, freqs=256):
     return x, t
 
 
+def load_tools_converter():
+    """The JAX side's converter, ``tools/convert_torch_checkpoint.py``, by path
+    (numpy only at module level)."""
+    path = Path(__file__).resolve().parents[1] / "tools" / "convert_torch_checkpoint.py"
+    spec = importlib.util.spec_from_file_location("convert_torch_checkpoint", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_state_dict_matches_converter_walk(jax_params):
     """The port's all_modules indices are the converter's: the bridged
     state_dict loads with strict=True, and every key and shape agrees."""
@@ -84,9 +106,81 @@ def test_state_dict_matches_converter_walk(jax_params):
     for k, v in model.state_dict().items():
         assert tuple(sd[k].shape) == tuple(v.shape), k
     model.load_state_dict(sd, strict=True)
-    corr = load_converter().ncsnpp_correspondence(**ARCH)
+    corr = load_tools_converter().ncsnpp_correspondence(**ARCH)
     assert corr[-1][0] == "output_layer"
     assert len(model.all_modules) == int(corr[-2][0].split(".")[1]) + 1
+
+
+@pytest.mark.parametrize("arch", [{}, ARCH], ids=["production", "tiny"])
+def test_walk_matches_tools_walk(arch):
+    """The port's own copy of the walk gives the tools walk's keys and arrays,
+    for the production 65M arch and the tiny one."""
+    shapes = jax_param_shapes(arch)
+    offset = [0]
+
+    def fill(leaf):  # distinct values, so a wrong transpose shows
+        n = int(np.prod(leaf.shape))
+        offset[0] += n
+        return (np.arange(n, dtype=np.float32) + offset[0] - n).reshape(leaf.shape)
+
+    params = jax.tree_util.tree_map(fill, shapes)
+    tools = load_tools_converter()
+    corr = convert.ncsnpp_correspondence(**arch)
+    assert corr == tools.ncsnpp_correspondence(**arch)
+    ours = convert.convert_flax_to_state_dict(params, corr)
+    ref = tools.convert_flax_to_state_dict(params, tools.ncsnpp_correspondence(**arch))
+    assert list(ours) == list(ref)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+
+
+def _flax_leaf_paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flax_leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,)
+
+
+@pytest.mark.parametrize("arch", [{}, ARCH], ids=["production", "tiny"])
+def test_snr_walk_covers_the_flax_tree(arch):
+    """The SNR walk reads every leaf of NCSNppSNR's flax tree exactly once,
+    and emits exactly the port's NCSNppSNR state_dict keys and shapes."""
+    shapes = jax_param_shapes(arch, snr=True)
+    corr = convert.ncsnpp_correspondence(**arch, snr_conditioning=True)
+    read = []
+    for _, flax_path, _ in corr:
+        node = shapes
+        for p in flax_path:
+            node = node[p]
+        read += [flax_path + (k,) for k in node if not isinstance(node[k], dict)]
+    assert sorted(read) == sorted(_flax_leaf_paths(shapes))
+    model_sd = NCSNppSNR(**arch).state_dict()
+    keys = set()
+    for prefix, flax_path, kind in corr:
+        node = shapes
+        for p in flax_path:
+            node = node[p]
+        keys |= {f"{prefix}.{name}" for name in convert._flax_to_torch_tensors(
+            kind, {k: np.zeros(v.shape) for k, v in node.items()})}
+    assert keys == set(model_sd)
+
+
+def test_snr_forward_matches_jax():
+    """NCSNppSNR (dual embedding, semb into every block's first conv bias or
+    after its Conv_0, output / noise level) on the tiny arch, 1e-5."""
+    params = random_jax_params(ARCH, seed=12, snr=True)
+    x, t = _inputs(13, 2, 64)
+    s = np.asarray([0.07, 0.6], np.float32)
+    ref = np.asarray(jax.jit(JaxNCSNppSNR(**ARCH, **JAX_FLAGS).apply)(
+        {"params": params}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(s)))
+    model = NCSNppSNR(**ARCH)
+    model.load_state_dict(state_dict_from_jax(params, **ARCH, snr_conditioning=True),
+                          strict=True)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(s)).numpy()
+    assert out.shape == ref.shape == (2, 1, 256, 64)
+    assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) < 1e-5
 
 
 def test_forward_matches_jax(jax_params):
@@ -99,7 +193,7 @@ def test_forward_matches_jax(jax_params):
     ck.reset_launch_counts()
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(t)).numpy()
-    assert ck.launch_counts == {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
+    assert not any(ck.launch_counts.values())
     assert out.shape == ref.shape == (batch, 1, 256, 64)
     assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) < 1e-5
 
@@ -186,4 +280,23 @@ def test_forward_matches_jax_65m():
     model.load_state_dict(state_dict_from_jax(params), strict=True)
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(t)).numpy()
-    assert np.max(np.abs(out - ref)) / np.max(np.abs(ref)) < 1e-5
+    err = np.max(np.abs(out - ref)) / np.max(np.abs(ref))
+    print(f"65M NCSN++ forward, port vs JAX: relative error {err:.3e}")
+    assert err < 1e-5
+
+
+@pytest.mark.slow
+def test_snr_forward_matches_jax_65m():
+    """The full-width SNR-conditioned NCSN++ at F=256, T=64."""
+    params = random_jax_params({}, seed=3, snr=True)
+    x, t = _inputs(6, 1, 64)
+    s = np.asarray([0.2], np.float32)
+    ref = np.asarray(jax.jit(JaxNCSNppSNR(**JAX_FLAGS).apply)(
+        {"params": params}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(s)))
+    model = NCSNppSNR()
+    model.load_state_dict(state_dict_from_jax(params, snr_conditioning=True), strict=True)
+    with torch.no_grad():
+        out = model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(s)).numpy()
+    err = np.max(np.abs(out - ref)) / np.max(np.abs(ref))
+    print(f"65M NCSNppSNR forward, port vs JAX: relative error {err:.3e}")
+    assert err < 1e-5

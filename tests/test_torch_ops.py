@@ -131,11 +131,47 @@ def test_randn_like_is_complex_standard_normal():
     assert torch.equal(z, again)
 
 
+_BRIDGE_WITHOUT_JAX = """
+import os, sys
+import numpy as np
+import diffse_tpu_torch.models.score_model, diffse_tpu_torch.ops.cuda_kernels
+import diffse_tpu_torch.ops.fused_act, diffse_tpu_torch.models.snr_model
+from diffse_tpu_torch import convert
+from diffse_tpu_torch.models.ncsnpp import NCSNppSNR
+
+# a flax-shaped tree made from the port's own module, then bridged back
+arch = dict(nf=4, ch_mult=(1, 1), num_res_blocks=1, attn_resolutions=(16,), image_size=32)
+model_sd = {k: v.numpy() for k, v in NCSNppSNR(**arch).state_dict().items()}
+axes = {"conv": (2, 3, 1, 0), "linear": (1, 0)}
+params = {}
+for prefix, path, kind in convert.ncsnpp_correspondence(**arch, snr_conditioning=True):
+    node = params
+    for p in path:
+        node = node.setdefault(p, {})
+    for name, value in model_sd.items():
+        if name.startswith(prefix + "."):
+            leaf = name[len(prefix) + 1:]
+            if kind in axes and leaf == "weight":
+                node["kernel"] = value.transpose(axes[kind])
+            elif kind == "groupnorm" and leaf == "weight":
+                node["scale"] = value
+            else:
+                node[leaf] = value
+sd = convert.state_dict_from_jax(params, **arch, snr_conditioning=True)
+NCSNppSNR(**arch).load_state_dict(sd, strict=True)
+
+bad = [m for m in sys.modules if m in ('jax', 'flax', 'diffse_tpu')
+       or m.startswith(('jax.', 'flax.', 'diffse_tpu.'))]
+assert not bad, bad
+outside = [os.path.join(REPO, d) + os.sep for d in ("tools", "diffse_tpu")]
+files = [getattr(m, "__file__", None) or "" for m in list(sys.modules.values())]
+bad = [f for f in files if os.path.abspath(f).startswith(tuple(outside))]
+assert not bad, bad
+"""
+
+
 def test_port_imports_no_jax():
-    """Importing the port loads neither JAX nor any module of the JAX package."""
-    code = ("import sys; import diffse_tpu_torch.models.score_model, "
-            "diffse_tpu_torch.ops.cuda_kernels, diffse_tpu_torch.convert; "
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'diffse_tpu') "
-            "or m.startswith(('jax.', 'flax.', 'diffse_tpu.'))]; "
-            "assert not bad, bad")
+    """Importing the port, and bridging a state_dict with its own converter,
+    loads neither JAX nor any module of the JAX package or of ``tools/``."""
+    code = f"REPO = {REPO!r}\n" + _BRIDGE_WITHOUT_JAX
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
