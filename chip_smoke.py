@@ -10,7 +10,10 @@ Phases, each of which must pass:
 2. Hold each GroupNorm kernel to its plain PyTorch version on the card (TF32
    off for cuDNN and matmul) at the main path's shapes; print errors, median
    times over CUDA events, the bound and, where one PyTorch call computes
-   the same function, that call's time.
+   the same function, that call's time. For the conv, print its launch plan
+   (``conv_plan``) and both bounds: float32 on the CUDA cores and 3xTF32 on
+   the tensor cores, which the kernel uses and is held to. The statistics
+   pass is timed alone too, beside ``torch.var_mean`` over the grouped view.
 2b. The same for the fused bias + LeakyReLU kernel at [1,256,64,128],
    [16,512] and [3,7,5,6] (C=6: the scalar path) in float32 (atol = rtol =
    1e-6) and [1,256,64,128] in bfloat16 (within 1 bfloat16 ulp of the plain
@@ -42,8 +45,9 @@ torch's defaults (cuDNN allows TF32), as a user's process would: the port
 keeps its own convs, matmuls and LSTM in float32.
 
 The line before the last is a JSON object of the kernels (times in ms; the
-bound is the larger of bytes over 3.35 TB/s and float32 operations over
-67 TFLOP/s, the H100 SXM's peaks); the last line is
+bound is the larger of bytes over 3.35 TB/s and operations over their peak:
+the conv's products in 3xTF32, three TF32 products each, over 495 TFLOP/s,
+other float32 work over 67 TFLOP/s, the H100 SXM's peaks); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or any phase fails.
 """
@@ -76,12 +80,16 @@ K1_SHAPES = [  # (B, H, W, Cin, Cout, skip)
     (1, 128, 32, 384, 128, False),
     (1, 256, 64, 128, 4, False),
 ]
-K2_SHAPES = [  # the deep levels at T=64, then at T=192 (odd widths, the concat)
+K2_SHAPES = [  # the deep levels at T=64, then at T=192 (odd widths, the concat), then
+    # the middle levels at T=128 and 192, latency-bound like the deep ones
     (1, 16, 4, 256, 256, False), (1, 8, 2, 256, 256, False), (1, 4, 1, 256, 256, False),
     (1, 16, 12, 512, 256, False), (1, 8, 6, 256, 256, True), (1, 4, 3, 256, 256, False),
+    (1, 32, 16, 256, 256, False), (1, 32, 24, 256, 256, False), (1, 64, 32, 256, 256, False),
 ]
 FORWARD_FRAMES = (64, 128, 192)
 K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256)]
+# the statistics pass alone: K3's shapes, the largest map (T=192) and a small one
+STATS_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256), (1, 256, 192, 128), (1, 16, 12, 256)]
 K4_SHAPES = [((1, 256, 64, 128), "float32"), ((16, 512), "float32"), ((3, 7, 5, 6), "float32"),
              ((1, 256, 64, 128), "bfloat16")]
 # K4, kernel vs plain version: float32 is the same few operations in the same
@@ -102,6 +110,7 @@ SNAP_MARGIN = 1e-4
 # tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 
 
 def median_ms(torch, fn, reps=20, warmup=3):
@@ -118,21 +127,6 @@ def median_ms(torch, fn, reps=20, warmup=3):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def queued_ms(torch, fn, reps=50):
-    """Device time of one call: ``reps`` calls enqueued behind a sleep on the
-    card, so they run back to back whatever the host's launch overhead."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than the host takes to enqueue
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound(flops, nbytes):
     """The least time the card could take: ``(ms, "bytes" | "operations")``."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
@@ -140,25 +134,45 @@ def bound(flops, nbytes):
 
 
 def conv_work(b, h, w, cin, cout, skip):
-    """K1's operations and bytes: the conv's multiply-adds, ~9 operations per
-    input element (statistics, affine, SiLU) and 3 per output element
-    (bias, skip, scale); x, the GroupNorm affine, the weights, the bias,
-    the skip and the output, each moved once, in float32."""
-    flops = 2 * b * h * w * 9 * cin * cout + 9 * b * h * w * cin + 3 * b * h * w * cout
-    nbytes = 4 * (b * h * w * cin + 2 * cin + 9 * cin * cout + b * cout
+    """K1's operations and bytes: the conv's multiply-adds (the taps that
+    touch the map), ~9 operations per input element (statistics, affine,
+    SiLU) and 3 per output element (bias, skip, scale); x, the GroupNorm
+    affine, the weights, the bias, the skip and the output, each moved once,
+    in float32. Returns (matmul flops, other flops, bytes)."""
+    taps = (3 if h > 1 else 1) * (3 if w > 1 else 1)
+    matmul = 2 * b * h * w * taps * cin * cout
+    other = 9 * b * h * w * cin + 3 * b * h * w * cout
+    nbytes = 4 * (b * h * w * cin + 2 * cin + taps * cin * cout + b * cout
                   + (2 if skip else 1) * b * h * w * cout)
-    return flops, nbytes
+    return matmul, other, nbytes
+
+
+def conv_bounds(b, h, w, cin, cout, skip):
+    """The conv's two bounds, ``{"f32": (ms, by), "tf32x3": (ms, by)}``: all
+    its operations in float32 on the CUDA cores, or its products as three
+    TF32 products each on the tensor cores (the kernel's way) with the rest
+    in float32."""
+    matmul, other, nbytes = conv_work(b, h, w, cin, cout, skip)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def pick(by_ops):
+        return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+    return {"f32": pick((matmul + other) / F32_FLOPS * 1e3),
+            "tf32x3": pick((3 * matmul / TF32_FLOPS + other / F32_FLOPS) * 1e3)}
 
 
 def timing(torch, fn, plain, library=None):
     """Per-call and queued times of the kernel, its plain version and the
     library call."""
+    from diffse_tpu_torch.utils import queued_ms
+
     out = {"ms": median_ms(torch, fn), "plain_ms": median_ms(torch, plain),
-           "device_ms": queued_ms(torch, fn), "plain_device_ms": queued_ms(torch, plain),
+           "device_ms": queued_ms(fn), "plain_device_ms": queued_ms(plain),
            "library_ms": None, "library_device_ms": None}
     if library is not None:
         out["library_ms"] = median_ms(torch, library)
-        out["library_device_ms"] = queued_ms(torch, library)
+        out["library_device_ms"] = queued_ms(library)
     return out
 
 
@@ -200,10 +214,17 @@ def check_kernels(torch, ck, dev):
         ok = torch.allclose(out, ref, **KERNEL_TOL)
         times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw),
                        lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
-        bound_ms, bound_by = bound(*conv_work(b, h, w, cin, cout, with_skip))
+        bounds = conv_bounds(b, h, w, cin, cout, with_skip)
+        bound_ms, bound_by = bounds["tf32x3"]
+        plan = ck.conv_plan(b, h, w, cin, cout)
+        bm, bn, _, instruction = ck.CONV_CONFIGS[plan.config][:4]
         name = f"gn_silu_conv3x3 {[b, h, w, cin]}->{cout}{' +skip' if with_skip else ''}"
         print(f"{name}: max_abs_err {err:.3e} rel {rel:.3e} ok {ok} | "
-              f"{describe(times, bound_ms, bound_by)}")
+              f"{describe(times, bound_ms, bound_by)} [held to 3xTF32; float32 CUDA-core "
+              f"bound {bounds['f32'][0]:.4f} ms ({bounds['f32'][1]})] | plan: {instruction} "
+              f"3xTF32, {bm}x{bn} block, tile {plan.th}x{plan.tw}, grid {plan.grid} = "
+              f"{plan.ctas} CTAs, K split {plan.splits} x {plan.units_per_split} of "
+              f"{plan.units} units, {plan.smem_bytes} B shared")
         r = result["gn_silu_conv3x3"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if (b, h, w, cin, cout, with_skip) == (1, 256, 64, 128, 128, True):
@@ -242,6 +263,29 @@ def check_kernels(torch, ck, dev):
                 r.update(times, bound_ms=bound_ms, bound_by=bound_by)
             if not ok:
                 failures.append(name)
+    for shape in STATS_SHAPES:
+        b, h, w, c = shape
+        x = t(rng.standard_normal(shape))
+        sc = t(1 + 0.1 * rng.standard_normal(c))
+        bi = t(0.1 * rng.standard_normal(c))
+        groups = min(c // 4, 32)
+        out = ck.gn_stats_ab(x, sc, bi, groups)
+        ref = ck.gn_stats_ab_reference(x, sc, bi, groups, 1e-6)
+        torch.cuda.synchronize()
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        ok = all(torch.allclose(o, r, **KERNEL_TOL) for o, r in zip(out, ref))
+        xg = x.view(b, h * w, groups, c // groups)
+        times = timing(torch, lambda: ck.gn_stats_ab(x, sc, bi, groups),
+                       lambda: ck.gn_stats_ab_reference(x, sc, bi, groups, 1e-6),
+                       lambda: torch.var_mean(xg, dim=(1, 3)))
+        # x in, a and b out; a square and two sums per element
+        bound_ms, bound_by = bound(3 * x.numel(), 4 * (x.numel() + 2 * b * c))
+        parts, chunk = ck.stats_plan(b, h * w, c)
+        name = f"gn_stats_ab {list(shape)}"
+        print(f"{name}: max_abs_err {err:.3e} ok {ok} | {describe(times, bound_ms, bound_by)} "
+              f"| plan: {parts} x {b} blocks of {chunk} positions")
+        if not ok:
+            failures.append(name)
     if failures:
         raise AssertionError(f"kernels disagree with their plain versions: {failures}")
     return result

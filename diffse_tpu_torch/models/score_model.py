@@ -40,7 +40,7 @@ from ..transforms import (
     stft,
     width_bucket,
 )
-from ..utils import randn_like
+from ..utils import model_device, randn_like
 from . import ncsnpp  # noqa: F401  (registers the "ncsnpp" and "ncsnpp_snr" backbones)
 from .shared import BackboneRegistry
 from .snr_model import snr_from_normalized_wav
@@ -127,7 +127,8 @@ class ScoreModel:
         backbone_kwargs: keywords of the backbone (e.g. NCSNpp's nf, ch_mult).
         sde_kwargs: keywords of the SDE.
         device: where the backbone's (and SNRNet's) weights live and
-            enhancement runs.
+            enhancement runs: the card unless given (``"cpu"`` for the CPU);
+            raises when there is no CUDA device.
         generator: CPU generator for the backbone's initial weights.
         snr_model: the SNRNet (``models.snrnet``) that ``snr_conditioned="true"``
             estimates the SNR with, moved to ``device``; needed unless every
@@ -135,13 +136,13 @@ class ScoreModel:
     """
 
     def __init__(self, config: ScoreModelConfig, backbone_kwargs: Optional[dict] = None,
-                 sde_kwargs: Optional[dict] = None, device="cpu",
+                 sde_kwargs: Optional[dict] = None, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  snr_model: Optional[torch.nn.Module] = None):
         if config.window != "hann":
             raise NotImplementedError(f"window {config.window!r} is not ported yet")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = model_device(device)
         backbone_cls = BackboneRegistry.get_by_name(config.backbone)
         self.backbone = backbone_cls(**(backbone_kwargs or {}), generator=generator)
         self.backbone = self.backbone.to(self.device).eval()

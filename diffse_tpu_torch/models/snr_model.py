@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from ..transforms import StftConfig, hann_window, pad_spec_16, stft
+from ..utils import model_device
 from .snrnet import SNRNet
 
 
@@ -49,18 +50,19 @@ class SNRModel:
 
     Args:
         config: hyperparameters.
-        device: where SNRNet's weights live and estimation runs.
+        device: where SNRNet's weights live and estimation runs: the card
+            unless given (``"cpu"`` for the CPU); raises without a CUDA device.
         dnn: an SNRNet to use (moved to ``device``); a fresh one when None.
     """
 
     _complex_to_2ch = staticmethod(complex_to_2ch)
 
-    def __init__(self, config: SNRModelConfig = SNRModelConfig(), device="cpu",
+    def __init__(self, config: SNRModelConfig = SNRModelConfig(), device="cuda",
                  dnn: Optional[SNRNet] = None):
         if config.window != "hann":
             raise NotImplementedError(f"window {config.window!r} is not ported yet")
         self.cfg = config
-        self.device = torch.device(device)
+        self.device = model_device(device)
         self.dnn = (dnn if dnn is not None else SNRNet()).to(self.device).eval()
         self.stft_cfg = StftConfig(n_fft=config.n_fft, hop_length=config.hop_length,
                                    window=config.window)

@@ -142,7 +142,7 @@ def _model_pair(jax_params, model_type, sigma_max, snr_conditioned="false",
                             JaxSNRNet(), {"params": snr_params}))
     cfg = ScoreModelConfig(**{f: getattr(jax_cfg, f) for f in ScoreModelConfig.__dataclass_fields__})
     ours = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=dict(SDE_KWARGS, N=30),
-                      snr_model=None if snr_params is None else port_snrnet(snr_params))
+                      device="cpu", snr_model=None if snr_params is None else port_snrnet(snr_params))
     ours.backbone.load_state_dict(
         state_dict_from_jax(jax_params, **ARCH, snr_conditioning=backbone == "ncsnpp_snr"),
         strict=True)
@@ -267,7 +267,7 @@ def test_noise_cond_follows_the_backbone_not_its_name():
         cfg = ScoreModelConfig(backbone=backbone, sde="bbed", model_type="sebridge_v2",
                                snr_conditioned="true")
         models[backbone] = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS,
-                                      generator=torch.Generator().manual_seed(2))
+                                      device="cpu", generator=torch.Generator().manual_seed(2))
         assert models[backbone].backbone_takes_noise_cond is takes
     rng = np.random.default_rng(9)
     x, y = (torch.from_numpy(_cspec(rng, SPEC_SHAPE, 0.3)) for _ in range(2))
@@ -280,7 +280,7 @@ def test_noise_cond_follows_the_backbone_not_its_name():
 def test_enhance_snr_fixed_is_not_for_inference():
     cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v3",
                            snr_conditioned="fixed")
-    model = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS)
+    model = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS, device="cpu")
     y = _noisy_wav(8)
     with pytest.raises(NotImplementedError):
         model.enhance(y, y)
@@ -291,10 +291,27 @@ def test_enhance_keeps_length_and_seed(length):
     """Host padding to the width bucket and back; a generator makes the run
     reproducible."""
     cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed")
-    model = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS,
+    model = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS, device="cpu",
                        generator=torch.Generator().manual_seed(0))
     y = _noisy_wav(3)[:, :length] if length <= T_ORIG else np.tile(_noisy_wav(3), 2)[:, :length]
     a = model.enhance(y, y, generator=torch.Generator().manual_seed(1), N=2)
     b = model.enhance(y, y, generator=torch.Generator().manual_seed(1), N=2)
     assert a.shape == (length,) and np.isfinite(a).all()
     np.testing.assert_array_equal(a, b)
+
+
+def test_score_model_runs_on_the_card_unless_told(monkeypatch):
+    """``ScoreModel`` defaults to the card; without one, the default raises
+    and nothing falls back to the CPU. ``device="cpu"`` works as before."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v2")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS, device="cuda")
+    model = ScoreModel(cfg, backbone_kwargs=ARCH, sde_kwargs=SDE_KWARGS, device="cpu")
+    assert model.device == torch.device("cpu")
+    assert next(model.backbone.parameters()).device.type == "cpu"
+    y = _noisy_wav(5)
+    out = model.enhance(y, y, noise=lambda like: torch.zeros_like(like))
+    assert out.shape == (y.shape[-1],) and np.isfinite(out).all()

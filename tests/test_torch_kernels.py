@@ -118,12 +118,30 @@ def cuda():
     return torch.device("cuda")
 
 
+# The main path's conv shapes: the large levels (wgmma; at T=192 with all of
+# K in one block), the deep ones (K split across blocks), the latency-bound
+# middle levels, [1,16,12,256]->256 whose split does not divide K, a W=1 head
+# (dead taps, Cout=4), and the wgmma kernel on partial tiles (H, W not
+# multiples of the tile), a batch of two and an uneven split.
+GPU_CONV_SHAPES = [(1, 256, 64, 128, 128), (1, 256, 192, 128, 128), (1, 128, 32, 384, 128),
+                   (1, 256, 64, 128, 4),
+                   (1, 16, 4, 256, 256), (1, 8, 2, 256, 256), (1, 4, 1, 256, 256),
+                   (1, 16, 12, 512, 256), (1, 8, 6, 256, 256), (1, 4, 3, 256, 256),
+                   (1, 32, 16, 256, 256), (1, 32, 24, 256, 256), (1, 64, 32, 256, 256),
+                   (1, 16, 12, 256, 256), (1, 4, 1, 256, 4), (1, 5, 96, 128, 128),
+                   (2, 8, 64, 128, 128), (1, 5, 40, 64, 128)]
+
+
+def test_gpu_conv_shapes_include_an_uneven_split():
+    plans = [ck.conv_plan(b, h, w, cin, cout) for b, h, w, cin, cout in GPU_CONV_SHAPES]
+    assert any(p.splits > 1 and p.units % p.units_per_split for p in plans)
+    assert any(p.splits == 1 for p in plans)
+    instructions = {ck.CONV_CONFIGS[p.config][3:5] for p in plans}
+    assert {("wgmma", 32), ("mma.sync", 0)} <= instructions
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(1, 256, 64, 128, 128), (1, 128, 32, 384, 128),
-                                   (1, 256, 64, 128, 4), (1, 16, 4, 256, 256),
-                                   (1, 8, 2, 256, 256), (1, 4, 1, 256, 256),
-                                   (1, 16, 12, 512, 256), (1, 8, 6, 256, 256),
-                                   (1, 4, 3, 256, 256)])
+@pytest.mark.parametrize("shape", GPU_CONV_SHAPES)
 @pytest.mark.parametrize("with_skip", [False, True])
 def test_gn_silu_conv3x3_kernel_matches_plain(cuda, shape, with_skip):
     arrays = _chain_inputs(np.random.default_rng(2), *shape, with_skip)
@@ -155,6 +173,41 @@ def test_groupnorm_silu_kernel_matches_plain(cuda, shape, apply_silu):
     torch.cuda.synchronize()
     assert ck.launch_counts["groupnorm_silu"] == 1
     np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 256, 192, 128), (1, 4, 3, 256), (3, 16, 4, 384),
+                                   (2, 128, 64, 256)])
+def test_gn_stats_kernel_matches_plain_and_repeats(cuda, shape):
+    """The statistics pass alone, against its plain version, and the same
+    bits on every run (its partial sums are folded in a fixed order)."""
+    rng = np.random.default_rng(5)
+    c = shape[-1]
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    groups = min(c // 4, 32)
+    a, b = ck.gn_stats_ab(x, scale, bias, groups)
+    ref_a, ref_b = ck.gn_stats_ab_reference(x, scale, bias, groups, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a, ref_a, **TOL)
+    torch.testing.assert_close(b, ref_b, **TOL)
+    for _ in range(3):
+        a2, b2 = ck.gn_stats_ab(x, scale, bias, groups)
+        assert torch.equal(a, a2) and torch.equal(b, b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 16, 12, 512, 256), (1, 256, 64, 128, 128)])
+def test_gn_silu_conv3x3_kernel_repeats_bitwise(cuda, shape):
+    """Split-K partial sums are added in split order, not by atomics: every
+    run gives the same bits."""
+    arrays = _chain_inputs(np.random.default_rng(6), *shape, True)
+    x, gs, gb, wk, bt, skip = [a.to(cuda) for a in _torch(*arrays)]
+    first = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32, skip=skip, skip_coef=0.5)
+    for _ in range(3):
+        again = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32, skip=skip, skip_coef=0.5)
+        assert torch.equal(first, again)
 
 
 @pytest.mark.gpu

@@ -127,14 +127,14 @@ def test_estimate_snr_matches_jax(snr_params):
     ref = np.asarray(jax_model.estimate_snr(jnp.asarray(y)))
     ours = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v3",
                                        snr_conditioned="true"),
-                      backbone_kwargs=TINY_ARCH, snr_model=port_snrnet(snr_params))
+                      backbone_kwargs=TINY_ARCH, device="cpu", snr_model=port_snrnet(snr_params))
     out = ours.estimate_snr(y).numpy()
     assert out.shape == ref.shape == (2,)
     np.testing.assert_allclose(out, ref, rtol=1e-5)
 
     jax_snr = JaxSNRModel()
     ref = np.asarray(jax_snr.estimate_from_wav({"params": snr_params}, jnp.asarray(y)))
-    out = SNRModel(dnn=port_snrnet(snr_params)).estimate_from_wav(y).numpy()
+    out = SNRModel(device="cpu", dnn=port_snrnet(snr_params)).estimate_from_wav(y).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5)
     spec2 = np.random.default_rng(2).standard_normal((1, 1, 256, 16)).astype(np.complex64)
     np.testing.assert_array_equal(
@@ -171,3 +171,15 @@ def test_noise_mag_matches_jax():
             score_model.noise_mag(torch.from_numpy(a), torch.from_numpy(b), mode).numpy(),
             np.asarray(jax_score_model.noise_mag(jnp.asarray(a), jnp.asarray(b), mode)),
             rtol=1e-6)
+
+
+def test_snr_model_runs_on_the_card_unless_told(monkeypatch):
+    """``SNRModel`` defaults to the card; without one, the default raises and
+    nothing falls back to the CPU. ``device="cpu"`` works as before."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SNRModel()
+    model = SNRModel(device="cpu")
+    assert next(model.dnn.parameters()).device.type == "cpu"
+    est = model.estimate_from_wav(_noisy_wavs(3, 1, 20 * 128))
+    assert est.shape == (1,) and torch.isfinite(est).all()

@@ -38,7 +38,7 @@ from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig  # 
 STEPS = 30  # PC steps, two forwards each
 
 FAMILIES = (
-    ("port: gn_silu_conv3x3", ("gn_silu_conv3x3_kernel",)),
+    ("port: gn_silu_conv3x3", ("gn_silu_conv3x3", "conv_split_reduce_kernel")),
     ("port: groupnorm stats", ("gn_stats_ab_kernel",)),
     ("port: groupnorm apply", ("gn_apply_kernel",)),
     ("conv (cuDNN/other)", ("conv", "implicit", "winograd", "fprop", "dgrad", "xmma", "cudnn")),
