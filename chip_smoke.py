@@ -38,6 +38,28 @@ Phases, each of which must pass:
    81/28 launches per forward, one forward per utterance. Then one
    ``sebridge_v2_snr`` call on the 65M ``ncsnpp_snr``, checked the same way.
    Each path's launch counts are reset before it and read after it.
+6. The bf16 kernels (the trunk of ``NCSNpp(dtype="bf16")``): each against its
+   plain version on the card at phase 2's shapes and at bench.py's batch of
+   16 at 64 frames (the large level with and without skip, the deep levels,
+   the heads; GroupNorm bf16 -> bf16 and bf16 -> float32; the statistics
+   pass), within one bfloat16 ulp but on at most ``BF16_SHARE`` of the
+   elements (``bf16_agreement``), with times, bounds (products over the bf16
+   tensor-core peak) and library times.
+7. The 65M ``NCSNpp(dtype="bf16", fuse_pyramid=True)`` at B=1, T=64 on the
+   card, with redrawn weights and with the network's own seeded
+   initialisation: the whole forward against the CPU and against the float32
+   forward on the card with the same weights (the card-vs-CPU gap below
+   ``BF16_GAP_RATIO`` of that bf16-vs-float32 gap), 81/28 launches per
+   forward; with redrawn weights also each block, attention and Combine of
+   the card's forward run again on the CPU from the card's inputs (within
+   ``BF16_MODULE_ULPS``).
+8. bench.py's program (bench.py:147-160) from the port's modules: 16
+   utterances of 64 frames, each row normalised by its max-abs, STFT,
+   ``spec_fwd``, ``pad_spec``, 30 reverse_diffusion + ald steps, ``to_audio``,
+   times the norm, with the bf16 trunk and with the float32 trunk on the same
+   weights and noise draws: wall, device kernel time (``torch.profiler``),
+   idle share and launches for each, both outputs finite, and their gap;
+   4860/1680 kernel launches per batch in bf16.
 
 Phase 2 runs with TF32 off for cuDNN and matmul (the plain version's cuDNN
 conv would otherwise be the less accurate side); phases 3 to 5 run with
@@ -47,7 +69,8 @@ keeps its own convs, matmuls and LSTM in float32.
 The line before the last is a JSON object of the kernels (times in ms; the
 bound is the larger of bytes over 3.35 TB/s and operations over their peak:
 the conv's products in 3xTF32, three TF32 products each, over 495 TFLOP/s,
-other float32 work over 67 TFLOP/s, the H100 SXM's peaks); the last line is
+or in bf16 over 989 TFLOP/s, other float32 work over 67 TFLOP/s, the H100
+SXM's peaks), the bf16 instantiations as kernels of their own; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or any phase fails.
 """
@@ -111,6 +134,42 @@ SNAP_MARGIN = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
+
+# bf16 kernels (phase 6): phase 2's conv shapes, then bench.py's batch of 16
+# at 64 frames: the large level (with and without skip), the 384-channel
+# concat, the heads, a W = 8 level (wgmma in bf16) and the deep levels (K
+# split across blocks).
+BF16_K1_SHAPES = K1_SHAPES + K2_SHAPES + [
+    (16, 256, 64, 128, 128, False), (16, 256, 64, 128, 128, True), (16, 128, 32, 384, 128, False),
+    (16, 256, 64, 128, 4, False), (16, 32, 8, 512, 256, False),
+    (16, 16, 4, 256, 256, False), (16, 8, 2, 256, 256, False),
+    (16, 4, 1, 256, 256, False), (16, 16, 4, 512, 256, False), (16, 8, 2, 256, 256, True),
+    (16, 4, 1, 256, 4, False)]
+BF16_K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256), (16, 256, 64, 128), (16, 16, 4, 256)]
+BF16_STATS_SHAPES = [(1, 256, 64, 128), (16, 256, 64, 128), (16, 16, 4, 256)]
+BF16_REPORT_CONV = (16, 256, 64, 128, 128, True)
+BF16_REPORT_K3 = (16, 256, 64, 128)
+# bf16 kernel vs plain version, both summing in float32 in other orders: one
+# bfloat16 ulp, but where a sum cancels far below its terms (there the
+# terms' float32 rounding is many ulps of the result) on at most this share
+# of the elements, which stay within one ulp of the largest output.
+BF16_SHARE = 1e-3
+# bf16 forward (phase 7), each module of the card's forward run on the CPU
+# from the card's inputs: a block chains two convs, and where an input of
+# the second differs by one ulp its bf16 roundings may go the other way, so
+# small outputs may be several of their own ulps off; every element within
+# this many ulps of the module's largest output (the worst module measured
+# 2 on an H100; a wrong tap, channel or rounding point gives tens).
+BF16_MODULE_ULPS = 4
+# bf16 forward, card vs CPU: cuDNN's bf16 convs and the kernels sum in other
+# orders than the CPU, so some bf16 roundings go the other way, and each
+# grows through the depth like any other bf16 rounding: the gap stays below
+# bf16's own gap from float32 (this share of it), not far below it.
+BF16_GAP_RATIO = 1.0
+BENCH_BATCH = 16
+BENCH_FRAMES = 64
+BENCH_STEPS = 30
 
 
 def median_ms(torch, fn, reps=20, warmup=3):
@@ -133,33 +192,36 @@ def bound(flops, nbytes):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def conv_work(b, h, w, cin, cout, skip):
+def conv_work(b, h, w, cin, cout, skip, act_bytes=4):
     """K1's operations and bytes: the conv's multiply-adds (the taps that
     touch the map), ~9 operations per input element (statistics, affine,
     SiLU) and 3 per output element (bias, skip, scale); x, the GroupNorm
     affine, the weights, the bias, the skip and the output, each moved once,
-    in float32. Returns (matmul flops, other flops, bytes)."""
+    the activations (x, skip, out) at ``act_bytes`` an element, the rest in
+    float32. Returns (matmul flops, other flops, bytes)."""
     taps = (3 if h > 1 else 1) * (3 if w > 1 else 1)
     matmul = 2 * b * h * w * taps * cin * cout
     other = 9 * b * h * w * cin + 3 * b * h * w * cout
-    nbytes = 4 * (b * h * w * cin + 2 * cin + taps * cin * cout + b * cout
-                  + (2 if skip else 1) * b * h * w * cout)
+    nbytes = (act_bytes * (b * h * w * cin + (2 if skip else 1) * b * h * w * cout)
+              + 4 * (2 * cin + taps * cin * cout + b * cout))
     return matmul, other, nbytes
 
 
-def conv_bounds(b, h, w, cin, cout, skip):
-    """The conv's two bounds, ``{"f32": (ms, by), "tf32x3": (ms, by)}``: all
-    its operations in float32 on the CUDA cores, or its products as three
-    TF32 products each on the tensor cores (the kernel's way) with the rest
-    in float32."""
-    matmul, other, nbytes = conv_work(b, h, w, cin, cout, skip)
+def conv_bounds(b, h, w, cin, cout, skip, act_bytes=4):
+    """The conv's bounds, ``{"f32": (ms, by), "tf32x3": (ms, by), "bf16":
+    (ms, by)}``: all its operations in float32 on the CUDA cores, its
+    products as three TF32 products each on the tensor cores (the float32
+    kernel's way), or as bf16 products (the bf16 kernel's way), the rest in
+    float32."""
+    matmul, other, nbytes = conv_work(b, h, w, cin, cout, skip, act_bytes)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
 
     def pick(by_ops):
         return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
     return {"f32": pick((matmul + other) / F32_FLOPS * 1e3),
-            "tf32x3": pick((3 * matmul / TF32_FLOPS + other / F32_FLOPS) * 1e3)}
+            "tf32x3": pick((3 * matmul / TF32_FLOPS + other / F32_FLOPS) * 1e3),
+            "bf16": pick((matmul / BF16_FLOPS + other / F32_FLOPS) * 1e3)}
 
 
 def timing(torch, fn, plain, library=None):
@@ -337,6 +399,127 @@ def check_fused_act(torch, ck, dev):
         raise AssertionError(f"fused_bias_leaky_relu disagrees with its plain version: "
                              f"{failures}")
     return record
+
+
+def bf16_agreement(torch, out, ref):
+    """``(ok, share, max_abs_err)``: ``out`` within one bfloat16 ulp of
+    ``ref`` but on at most ``BF16_SHARE`` of the elements (``share``), which
+    stay within one ulp of ``ref``'s largest magnitude."""
+    ref64, diff = ref.double(), (out.double() - ref.double()).abs()
+    spacing = torch.exp2(torch.floor(torch.log2(ref64.abs().clamp_min(2.0 ** -126))) - 7)
+    share = (diff > spacing).double().mean().item()
+    top = torch.exp2(torch.floor(torch.log2(ref64.abs().max().clamp_min(2.0 ** -126))) - 7)
+    err = diff.max().item()
+    return share <= BF16_SHARE and err <= top.item(), share, err
+
+
+def check_bf16_kernels(torch, ck, dev):
+    """Phase 6: the bf16 instantiations against their plain versions.
+    Returns their records at bench.py's shapes."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(6)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev, dtype)
+
+    result = {"gn_silu_conv3x3": {"max_abs_err": 0.0}, "groupnorm_silu": {"max_abs_err": 0.0}}
+    failures = []
+    for b, h, w, cin, cout, with_skip in BF16_K1_SHAPES:
+        x = t(rng.standard_normal((b, h, w, cin)), torch.bfloat16)
+        gs = t(1 + 0.1 * rng.standard_normal(cin))
+        gb = t(0.1 * rng.standard_normal(cin))
+        wk = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
+        bt = t(0.1 * rng.standard_normal((b, cout)))
+        skip = t(rng.standard_normal((b, h, w, cout)), torch.bfloat16) if with_skip else None
+        groups = min(cin // 4, 32)
+        args = (x, gs, gb, wk, bt, groups)
+        kw = dict(skip=skip, skip_coef=1 / np.sqrt(2.0))
+        out = ck.groupnorm_silu_conv3x3(*args, **kw)
+        ref = ck.groupnorm_silu_conv3x3_reference(*args, **kw)
+        torch.cuda.synchronize()
+        ok, share, err = bf16_agreement(torch, out, ref)
+        ok = ok and out.dtype == torch.bfloat16
+        times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw),
+                       lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
+        bound_ms, bound_by = conv_bounds(b, h, w, cin, cout, with_skip, act_bytes=2)["bf16"]
+        plan = ck.conv_plan(b, h, w, cin, cout, torch.bfloat16)
+        bm, bn, _, instruction = ck.CONV_CONFIGS[plan.config][:4]
+        name = f"gn_silu_conv3x3 bf16 {[b, h, w, cin]}->{cout}{' +skip' if with_skip else ''}"
+        print(f"{name}: max_abs_err {err:.3e}, share beyond 1 bf16 ulp {share:.2e} (limit "
+              f"{BF16_SHARE}) ok {ok} | {describe(times, bound_ms, bound_by)} | plan: "
+              f"{instruction} bf16, {bm}x{bn} block, tile {plan.th}x{plan.tw}, grid {plan.grid} = "
+              f"{plan.ctas} CTAs, K split {plan.splits} x {plan.units_per_split} of {plan.units} "
+              f"units, {plan.smem_bytes} B shared")
+        r = result["gn_silu_conv3x3"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if (b, h, w, cin, cout, with_skip) == BF16_REPORT_CONV:
+            r.update(times, bound_ms=bound_ms, bound_by=bound_by)
+        if not ok:
+            failures.append(name)
+    for shape in BF16_K3_SHAPES:
+        b, h, w, c = shape
+        x = t(2 * rng.standard_normal(shape) + 1, torch.bfloat16)
+        sc = t(1 + 0.1 * rng.standard_normal(c))
+        bi = t(0.1 * rng.standard_normal(c))
+        groups = min(c // 4, 32)
+        for apply_silu, out_dtype in ((True, torch.bfloat16), (False, torch.bfloat16),
+                                      (False, torch.float32)):
+            kw = dict(apply_silu=apply_silu, out_dtype=out_dtype)
+            out = ck.groupnorm_silu(x, sc, bi, groups, **kw)
+            ref = ck.groupnorm_silu_reference(x, sc, bi, groups, **kw)
+            torch.cuda.synchronize()
+            if out_dtype == torch.bfloat16:
+                ok, share, err = bf16_agreement(torch, out, ref)
+                detail = f"share beyond 1 bf16 ulp {share:.2e} (limit {BF16_SHARE})"
+            else:
+                ok = torch.allclose(out, ref, **KERNEL_TOL)
+                err, detail = (out - ref).abs().max().item(), f"atol = rtol = {KERNEL_TOL['atol']}"
+            ok = ok and out.dtype == out_dtype
+            # GroupNorm alone on bf16 is one PyTorch call (bf16 affine parameters)
+            library = None if apply_silu or out_dtype != torch.bfloat16 else (
+                lambda: F.group_norm(x.permute(0, 3, 1, 2), groups, sc.bfloat16(), bi.bfloat16(),
+                                     eps=1e-6))
+            times = timing(torch, lambda: ck.groupnorm_silu(x, sc, bi, groups, **kw),
+                           lambda: ck.groupnorm_silu_reference(x, sc, bi, groups, **kw), library)
+            out_bytes = 2 if out_dtype == torch.bfloat16 else 4
+            bound_ms, bound_by = bound((9 if apply_silu else 5) * x.numel(),
+                                       (2 + out_bytes) * x.numel() + 8 * c)
+            name = (f"groupnorm_silu bf16 {list(shape)} silu={apply_silu} -> "
+                    f"{str(out_dtype).split('.')[-1]}")
+            print(f"{name}: max_abs_err {err:.3e}, {detail} ok {ok} | "
+                  f"{describe(times, bound_ms, bound_by)}")
+            r = result["groupnorm_silu"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if shape == BF16_REPORT_K3 and apply_silu:
+                r.update(times, bound_ms=bound_ms, bound_by=bound_by)
+            if not ok:
+                failures.append(name)
+    for shape in BF16_STATS_SHAPES:
+        b, h, w, c = shape
+        x = t(rng.standard_normal(shape), torch.bfloat16)
+        sc = t(1 + 0.1 * rng.standard_normal(c))
+        bi = t(0.1 * rng.standard_normal(c))
+        groups = min(c // 4, 32)
+        out = ck.gn_stats_ab(x, sc, bi, groups)
+        ref = ck.gn_stats_ab_reference(x, sc, bi, groups, 1e-6)
+        torch.cuda.synchronize()
+        err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+        ok = all(torch.allclose(o, r, **KERNEL_TOL) for o, r in zip(out, ref))
+        xg = x.view(b, h * w, groups, c // groups)
+        times = timing(torch, lambda: ck.gn_stats_ab(x, sc, bi, groups),
+                       lambda: ck.gn_stats_ab_reference(x, sc, bi, groups, 1e-6),
+                       lambda: torch.var_mean(xg, dim=(1, 3)))
+        bound_ms, bound_by = bound(3 * x.numel(), 2 * x.numel() + 8 * b * c)
+        parts, chunk = ck.stats_plan(b, h * w, c)
+        name = f"gn_stats_ab bf16 {list(shape)}"
+        print(f"{name}: max_abs_err {err:.3e} ok {ok} | {describe(times, bound_ms, bound_by)} "
+              f"| plan: {parts} x {b} blocks of {chunk} positions")
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"bf16 kernels disagree with their plain versions: {failures}")
+    return result
 
 
 def redraw_weights(torch, model, seed):
@@ -611,6 +794,165 @@ def run_snr_path(torch, ck, dev):
     return {"sebridge_v3_snr": v3_counts, "sebridge_v2_snr": v2_counts}
 
 
+def relative_gap(out, ref):
+    """max |out - ref| / max |ref|, on the CPU."""
+    out, ref = out.detach().cpu(), ref.detach().cpu()
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def check_bf16_forward(torch, ck, dev):
+    """Phase 7: the 65M bf16 NCSN++ at B=1, T=64, card vs CPU and vs the
+    float32 forward on the card. Returns the launch counts per forward."""
+    from diffse_tpu_torch.models import layers
+    from diffse_tpu_torch.models.ncsnpp import NCSNpp
+
+    rng = np.random.default_rng(12)
+    shape = (1, 2, 256, BENCH_FRAMES)
+    x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64))
+    t = torch.tensor([0.5])
+    xd, td = x.to(dev), t.to(dev)
+    failures, counts = [], None
+    for label, redraw in (("redrawn weights", True), ("own initialisation", False)):
+        model = NCSNpp(dtype="bf16", fuse_pyramid=True, generator=torch.Generator().manual_seed(8))
+        if redraw:
+            redraw_weights(torch, model, seed=9)
+        cpu = copy.deepcopy(model).eval()
+        f32 = NCSNpp(generator=torch.Generator().manual_seed(8))
+        f32.load_state_dict(model.state_dict())
+        f32 = f32.to(dev).eval()
+        card = model.to(dev).eval()
+        records, hooks = [], []
+        if redraw:  # every block, attention and Combine's inputs and output
+            for i, m in enumerate(card.all_modules):
+                if isinstance(m, (layers.ResnetBlockBigGANpp, layers.AttnBlockpp, layers.Combine)):
+                    hooks.append(m.register_forward_hook(
+                        lambda mod, args, out, i=i: records.append((i, args, out))))
+        with torch.no_grad():
+            ck.reset_launch_counts()
+            out16 = card(xd, td)
+            torch.cuda.synchronize()
+            counts = dict(ck.launch_counts)
+            for hook in hooks:
+                hook.remove()
+            out32 = f32(xd, td)
+            ref = cpu(x, t)
+            ms16 = median_ms(torch, lambda: card(xd, td), reps=5, warmup=1)
+            ms32 = median_ms(torch, lambda: f32(xd, td), reps=5, warmup=1)
+            worst_share, worst_ulps = 0.0, 0.0  # share beyond one of its own ulps
+            for i, args, out in records:
+                mref = cpu.all_modules[i](*[a.cpu() if torch.is_tensor(a) else a for a in args])
+                diff = (out.cpu().double() - mref.double()).abs()
+                spacing = torch.exp2(torch.floor(torch.log2(
+                    mref.double().abs().clamp_min(2.0 ** -126))) - 7)
+                top = torch.exp2(torch.floor(torch.log2(mref.double().abs().max())) - 7)
+                share, ulps = (diff > spacing).double().mean().item(), (diff.max() / top).item()
+                worst_share, worst_ulps = max(worst_share, share), max(worst_ulps, ulps)
+                if ulps > BF16_MODULE_ULPS or out.dtype != torch.bfloat16:
+                    failures.append(f"module {i} ({type(cpu.all_modules[i]).__name__}): share "
+                                    f"{share:.2e} beyond 1 ulp, {ulps:.2f} ulps at its max, "
+                                    f"{out.dtype}")
+        gap_cpu, gap_f32 = relative_gap(out16, ref), relative_gap(out16, out32)
+        ratio, limit = gap_cpu / gap_f32, BF16_GAP_RATIO
+        print(f"bf16 NCSN++ forward ({label}, F=256 T={BENCH_FRAMES}): card vs CPU "
+              f"max|diff|/max|ref| {gap_cpu:.3e}; bf16 vs float32 on the card {gap_f32:.3e}; "
+              f"ratio {ratio:.3f} (limit {limit:.3f}); forward {ms16:.2f} ms bf16, {ms32:.2f} ms "
+              f"float32 on the card; launches per forward {counts}")
+        if records:
+            print(f"  {len(records)} modules of the card's forward run on the CPU from the card's "
+                  f"inputs: worst error {worst_ulps:.2f} bf16 ulps of the module's largest "
+                  f"output (limit {BF16_MODULE_ULPS}); worst share of elements beyond one of "
+                  f"their own ulps {worst_share:.2e}")
+        if out16.dtype != torch.complex64 or not torch.isfinite(torch.view_as_real(out16)).all():
+            failures.append(f"{label}: output {out16.dtype}, not finite or not complex64")
+        if ratio > limit:
+            failures.append(f"{label}: card vs CPU {gap_cpu:.3e} is {ratio:.3f} of the bf16 gap")
+        if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}:
+            failures.append(f"{label}: launch counts per forward {counts}, expected 81 and 28")
+        del card, cpu, f32, records
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts
+
+
+def run_bf16_program(torch, ck, dev):
+    """Phase 8: bench.py's batch-16 program with the bf16 and the float32
+    trunk. Returns the bf16 run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.sampling import get_pc_sampler
+    from diffse_tpu_torch.transforms import pad_spec, spec_fwd
+    from diffse_tpu_torch.utils import randn_like
+
+    cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed",
+                           snr_conditioned="false", sigma_max=0.5)
+    sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=BENCH_STEPS)
+    models = {name: ScoreModel(cfg, backbone_kwargs=kw, sde_kwargs=sde_kwargs, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+              for name, kw in (("bf16", dict(dtype="bf16", fuse_pyramid=True)),
+                               ("float32", {}))}
+    models["float32"].backbone.load_state_dict(models["bf16"].backbone.state_dict())
+    audio_len = (BENCH_FRAMES - 1) * cfg.hop_length
+    y = torch.from_numpy((np.random.default_rng(0).standard_normal((BENCH_BATCH, audio_len))
+                          * 0.1).astype(np.float32)).to(dev)
+
+    @torch.no_grad()
+    def program(model, seed):
+        gen = torch.Generator(dev).manual_seed(seed)
+        norm = torch.max(torch.abs(y), dim=-1, keepdim=True).values
+        Y = pad_spec(spec_fwd(model._stft(y / norm), model.spec_cfg)[:, None])
+        sampler = get_pc_sampler("reverse_diffusion", "ald", sde=model.sde,
+                                 score_fn=model.forward, Y=Y,
+                                 noise=lambda like: randn_like(like, gen), eps=cfg.t_eps,
+                                 snr=0.5, corrector_steps=1)
+        sample, _ = sampler()
+        return model.to_audio(sample[:, 0]) * norm
+
+    outs, counts, failures = {}, {}, []
+    for name, model in models.items():
+        program(model, 1)  # warm-up
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[name] = program(model, 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = dict(ck.launch_counts)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            program(model, 2)
+            torch.cuda.synchronize()
+            wall_profiled = time.perf_counter() - t0
+        device_us, launches = 0.0, 0
+        for avg in prof.key_averages():
+            if avg.device_type == torch.autograd.DeviceType.CUDA and avg.self_device_time_total > 0:
+                device_us += avg.self_device_time_total
+                launches += avg.count
+        out = outs[name]
+        finite = bool(torch.isfinite(out).all())
+        idle = (f"{1 - device_us / 1e6 / wall:.3f}" if device_us > 0
+                else "not measured (the profiler recorded no device time)")
+        print(f"bench program, {name} trunk: {BENCH_BATCH} x {BENCH_FRAMES} frames, "
+              f"{2 * BENCH_STEPS} forwards: wall {wall:.3f} s ({BENCH_BATCH * audio_len / SR / wall:.2f}"
+              f" s of audio per s); profiled wall {wall_profiled:.3f} s, device kernel time "
+              f"{device_us / 1e6:.3f} s, idle share {idle}; {launches} device kernel launches; "
+              f"kernel wrapper launches {counts[name]}; output {tuple(out.shape)} finite {finite}")
+        if tuple(out.shape) != (BENCH_BATCH, audio_len) or not finite:
+            failures.append(f"{name}: output {tuple(out.shape)}, finite {finite}")
+    gap = relative_gap(outs["bf16"], outs["float32"])
+    print(f"bench program: bf16 vs float32 trunk, same weights and noise draws: "
+          f"max|diff|/max|ref| {gap:.3e}")
+    expected = {"gn_silu_conv3x3": 81 * 2 * BENCH_STEPS, "groupnorm_silu": 28 * 2 * BENCH_STEPS,
+                "fused_bias_leaky_relu": 0}
+    for name in models:
+        if counts[name] != expected:
+            failures.append(f"{name}: launch counts {counts[name]}, expected {expected}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return counts["bf16"]
+
+
 def main() -> int:
     try:
         import torch
@@ -644,7 +986,10 @@ def main() -> int:
                         ("fused_act", lambda: check_fused_act(torch, ck, dev)),
                         ("forward", lambda: check_forward(torch, ck, dev)),
                         ("enhance", lambda: run_main_path(torch, ck, dev)),
-                        ("snr", lambda: run_snr_path(torch, ck, dev))):
+                        ("snr", lambda: run_snr_path(torch, ck, dev)),
+                        ("bf16_kernels", lambda: check_bf16_kernels(torch, ck, dev)),
+                        ("bf16_forward", lambda: check_bf16_forward(torch, ck, dev)),
+                        ("bf16_program", lambda: run_bf16_program(torch, ck, dev))):
         t0 = time.time()
         try:
             results[name] = phase()
@@ -657,11 +1002,14 @@ def main() -> int:
     if not ok:
         return 1
 
-    # launches on each main path, each counted from zero
+    # launches on each main path, each counted from zero: the float32 paths,
+    # and the bf16 trunk's (one forward; bench.py's batch-16 program)
     paths = {"bbed_pc+sebridge_v2": results["enhance"][0], **results["snr"]}
+    bf16_paths = {"bf16_forward": results["bf16_forward"],
+                  "bf16_bench_program": results["bf16_program"]}
 
-    def launches(kernel):
-        by_path = {path: counts[kernel] for path, counts in paths.items()}
+    def launches(kernel, by=paths):
+        by_path = {path: counts[kernel] for path, counts in by.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     gn_source = {"route": "cuda", "source": "diffse_tpu_torch/csrc/gn_kernels.cu"}
@@ -673,6 +1021,13 @@ def main() -> int:
         {"name": "groupnorm_silu", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
          **launches("groupnorm_silu"), **results["kernels"]["groupnorm_silu"]},
+        {"name": "gn_silu_conv3x3_bf16", **gn_source,
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:269",
+         "also_replaces": "diffse_tpu/ops/pallas_kernels.py:350",
+         **launches("gn_silu_conv3x3", bf16_paths), **results["bf16_kernels"]["gn_silu_conv3x3"]},
+        {"name": "groupnorm_silu_bf16", **gn_source,
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
+         **launches("groupnorm_silu", bf16_paths), **results["bf16_kernels"]["groupnorm_silu"]},
         {"name": "fused_bias_leaky_relu", "route": "cuda",
          "source": "diffse_tpu_torch/csrc/fused_act.cu",
          "replaces": "diffse_tpu/ops/pallas_kernels.py:208",

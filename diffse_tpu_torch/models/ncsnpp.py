@@ -13,6 +13,14 @@ GroupNorm chains run through the CUDA kernels (models/layers.py); the 7
 output-pyramid heads run GroupNorm -> SiLU -> conv3x3(->4 channels) as one
 ``groupnorm_silu_conv3x3`` each. Maps are NCHW in channels_last memory.
 
+``dtype="bf16"`` is the JAX package's bf16 trunk (its ``use_pallas_groupnorm``
+and ``fuse_pyramid`` path): the parameters and the state_dict stay float32;
+the stem conv takes the float32 spectrogram and gives bfloat16; every block,
+attention and Combine runs in bfloat16 (models/layers.py says where float32
+stays); each pyramid head runs the fused kernel on the bf16 map with a bf16
+output, cast to float32; the pyramid's sum and FIR upsample, the division by
+the noise level and ``output_layer`` are float32.
+
 The SNR-conditioned variant (``NCSNppSNR``) is the same network with a second
 Gaussian-Fourier embedding, of the noise level, fed through its own two dense
 layers into every residual block (``Dense_1``), and the output divided by the
@@ -29,7 +37,7 @@ import torch.nn.functional as F
 
 from ..ops.cuda_kernels import groupnorm_silu_conv3x3
 from ..ops.fir import downsample_2d, upsample_2d
-from ..utils import float32_precision
+from ..utils import float32_precision, trunk_dtype
 from . import layers
 from .shared import BackboneRegistry
 
@@ -42,8 +50,16 @@ class NCSNppBase(nn.Module):
 
     def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 2, 2, 2),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
-                 image_size: int = 256, generator: Optional[torch.Generator] = None):
+                 image_size: int = 256, dtype: Optional[str] = None,
+                 fuse_pyramid: bool = True, generator: Optional[torch.Generator] = None):
+        """``dtype``: the trunk's compute dtype, None (float32) or "bf16".
+        ``fuse_pyramid`` names the JAX package's flag; the port always runs
+        the pyramid heads fused (one kernel each) and takes no other value."""
         super().__init__()
+        if not fuse_pyramid:
+            raise ValueError("the port runs the output pyramid's heads fused only "
+                             "(fuse_pyramid=True)")
+        self.compute_dtype = trunk_dtype(dtype)
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.attn_resolutions = tuple(attn_resolutions)
@@ -56,7 +72,8 @@ class NCSNppBase(nn.Module):
 
         def resblock(in_ch, out_ch=None, up=False, down=False):
             return layers.ResnetBlockBigGANpp(in_ch, out_ch, temb_dim, up=up, down=down,
-                                              semb_dim=semb_dim, generator=g)
+                                              semb_dim=semb_dim, generator=g,
+                                              dtype=self.compute_dtype)
 
         def attn(ch):
             return layers.AttnBlockpp(ch, generator=g)
@@ -108,22 +125,23 @@ class NCSNppBase(nn.Module):
 
     @staticmethod
     def _pyramid_head(h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
-        """GroupNorm -> SiLU -> conv3x3 to 4 channels, one fused kernel."""
+        """GroupNorm -> SiLU -> conv3x3 to 4 channels, one fused kernel in h's
+        dtype; the head's output as float32."""
         bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
         out = groupnorm_silu_conv3x3(layers.to_nhwc(h), gn.weight, gn.bias,
                                      layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
-        return layers.from_nhwc(out)
+        return layers.from_nhwc(out).float()
 
     def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,
                  noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
-        """``noise_cond`` is read when ``snr_conditioning``. The network
-        computes in float32: on the card its cuDNN convolutions and matmuls
-        run without TF32, whatever the process-wide setting."""
+        """``noise_cond`` is read when ``snr_conditioning``. What the network
+        computes in float32 runs on the card without TF32 in its cuDNN
+        convolutions and matmuls, whatever the process-wide setting."""
         with float32_precision(x.device):
-            return self._forward_f32(x, time_cond, noise_cond)
+            return self._forward_trunk(x, time_cond, noise_cond)
 
-    def _forward_f32(self, x: torch.Tensor, time_cond: torch.Tensor,
-                     noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
+    def _forward_trunk(self, x: torch.Tensor, time_cond: torch.Tensor,
+                       noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
         modules = iter(self.all_modules)
         num_resolutions = len(self.ch_mult)
         snr = self.snr_conditioning
@@ -140,7 +158,7 @@ class NCSNppBase(nn.Module):
             semb = next(modules)(F.silu(semb))
 
         input_pyramid = h
-        hs = [next(modules)(h)]
+        hs = [layers.conv(next(modules), h, self.compute_dtype)]
         for i_level in range(num_resolutions):
             for _ in range(self.num_res_blocks):
                 h = next(modules)(hs[-1], temb, semb)

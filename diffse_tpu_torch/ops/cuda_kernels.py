@@ -9,7 +9,10 @@ under ``build/kernels/`` of the checkout), called through ctypes on
 PyTorch's current stream.
 
 Every wrapper keeps the JAX signature and layout (NHWC activations, HWIO
-weights) and dispatches on the device of its input:
+weights). The GroupNorm chains take float32 or bfloat16 activations (the
+bf16 trunk, ``NCSNpp(dtype="bf16")``) with float32 parameters, statistics
+and accumulation, as the Pallas kernels do. Each wrapper dispatches on the
+device of its input:
 
   - a CPU tensor takes the plain PyTorch version beside the kernel (the same
     maths as the Pallas kernel's jnp reference);
@@ -62,9 +65,13 @@ def reset_launch_counts() -> None:
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232448       # bytes of shared memory one block can use
-CONV_BK = 8               # input channels per K chunk (csrc kBK)
+CONV_BK = 8               # input channels per K chunk in float32 (csrc kBK)
+CONV_BK_BF16 = 16         # ... in bfloat16: one k16 product (csrc ConvTypes<bf16>)
 CONV_STAGES = 3           # depth of the conv's cp.async ring (csrc kStages)
 CONV_ACT_FLOATS = 16      # floats per position of the activated tile (csrc kActFloats)
+# The activation types the GroupNorm kernels take, by the code the C entry
+# points switch on.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The conv kernel's instantiations, by the id the C entry point switches on:
 # (BM positions, BN output channels, threads, instruction, tile width: 0 for
 # any, else the wgmma kernel's fixed TW, with 128 / TW rows, stages of the
@@ -72,10 +79,14 @@ CONV_ACT_FLOATS = 16      # floats per position of the activated tile (csrc kAct
 CONV_CONFIGS = ((64, 64, 128, "mma.sync", 0, 3, 2), (128, 8, 256, "mma.sync", 0, 3, 2),
                 (128, 128, 256, "wgmma", 32, 2, 1))
 CONV_MMA, CONV_MMA_HEAD, CONV_WGMMA = range(3)
-# Rows of at least this many positions take the wgmma kernel (half its
-# 32-position row tile): narrower maps run faster on mma.sync's smaller tiles
-# (tools/conv_plan_sweep.py).
+# Float32 rows of at least this many positions take the wgmma kernel (half
+# its 32-position row tile): narrower maps run faster on mma.sync's smaller
+# tiles (tools/conv_plan_sweep.py).
 CONV_WGMMA_MIN_W = 16
+# In bf16 the wgmma kernel (one block per SM) is the faster from 8 positions
+# a row, at one utterance and at bench.py's 16 (tools/conv_plan_sweep.py
+# --dtype bf16); narrower rows gain at 16 utterances and lose at one.
+CONV_WGMMA_MIN_W_BF16 = 8
 REDUCE_THREADS = 256      # csrc kReduceThreads
 STATS_THREADS = 512       # csrc kStatsThreads
 STATS_MIN_ELEMS = 8192    # elements a statistics block reads at the least
@@ -86,9 +97,18 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _weight_row_stride(bn: int) -> int:
-    """csrc ``weight_row_stride``: 8 mod 32, so B fragments miss bank conflicts."""
-    return bn + (8 - bn % 32 + 32) % 32
+def conv_bk(dtype: torch.dtype = torch.float32) -> int:
+    """Input channels per K chunk of the conv for activations of ``dtype``:
+    32 bytes of each position either way."""
+    return CONV_BK_BF16 if dtype == torch.bfloat16 else CONV_BK
+
+
+def _weight_row_stride(bn: int, dtype: torch.dtype = torch.float32) -> int:
+    """csrc ``weight_row_stride``: the staged (float32) weight rows' stride,
+    8 mod 32 for the TF32 fragments (rows t), 4 mod 32 for the bf16 ones (rows
+    2t), so that a warp's fragment loads miss bank conflicts."""
+    mod = 4 if dtype == torch.bfloat16 else 8
+    return bn + (mod - bn % 32 + 32) % 32
 
 
 def conv_taps(h: int, w: int) -> int:
@@ -97,12 +117,16 @@ def conv_taps(h: int, w: int) -> int:
 
 
 def conv_smem_bytes(bn: int, th: int, tw: int, taps: int, stages: int = CONV_STAGES,
-                    act_bufs: int = 2) -> int:
-    """csrc ``conv_smem_bytes``: the cp.async ring of ``stages`` (raw x halo
-    and weights per stage) and ``act_bufs`` activated halo tiles, hi and lo."""
+                    act_bufs: int = 2, dtype: torch.dtype = torch.float32) -> int:
+    """csrc ``conv_smem_bytes``: the cp.async ring of ``stages`` (raw x halo,
+    32 bytes a position, and float32 weights per stage) and ``act_bufs``
+    activated halo tiles (float32 hi and lo, 64 bytes a position; bfloat16,
+    32 bytes)."""
     halo = (th + 2) * (tw + 2)
-    return 4 * (stages * (halo * CONV_BK + taps * CONV_BK * _weight_row_stride(bn))
-                + act_bufs * halo * CONV_ACT_FLOATS)
+    bk = conv_bk(dtype)
+    act_bytes = 32 if dtype == torch.bfloat16 else 4 * CONV_ACT_FLOATS
+    return (stages * (halo * 32 + 4 * taps * bk * _weight_row_stride(bn, dtype))
+            + act_bufs * halo * act_bytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,28 +164,30 @@ def _tile_sizes(n: int, limit: int):
     return sorted(sizes)
 
 
-def conv_config(h: int, w: int, cout: int) -> int:
+def conv_config(h: int, w: int, cout: int, dtype: torch.dtype = torch.float32) -> int:
     """The instantiation for an ``h x w`` map and ``cout``: the narrow
     ``mma.sync`` block for the Cout <= 8 heads; ``wgmma`` where all nine taps
-    touch the map and a row has ``CONV_WGMMA_MIN_W`` positions or more; else
-    the 64x64 ``mma.sync`` block."""
+    touch the map and a row has ``CONV_WGMMA_MIN_W`` positions or more
+    (``CONV_WGMMA_MIN_W_BF16`` for bf16 activations); else the 64x64
+    ``mma.sync`` block."""
     if cout <= 8:
         return CONV_MMA_HEAD
-    if conv_taps(h, w) == 9 and w >= CONV_WGMMA_MIN_W:
+    min_w = CONV_WGMMA_MIN_W_BF16 if dtype == torch.bfloat16 else CONV_WGMMA_MIN_W
+    if conv_taps(h, w) == 9 and w >= min_w:
         return CONV_WGMMA
     return CONV_MMA
 
 
 def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
-                   fill: int = 1) -> ConvPlan:
+                   fill: int = 1, dtype: torch.dtype = torch.float32) -> ConvPlan:
     """The plan of instantiation ``config`` for ``[b, h, w, cin] -> cout``
-    that aims at ``fill * SMS`` blocks: the position tile with the fewest
-    tiles (then the smallest halo) among those whose K split can reach that
-    many, and K cut into as many splits as it takes (one, when the tiles
-    alone reach it, or when ``fill`` is 0)."""
+    with activations of ``dtype`` that aims at ``fill * SMS`` blocks: the
+    position tile with the fewest tiles (then the smallest halo) among those
+    whose K split can reach that many, and K cut into as many splits as it
+    takes (one, when the tiles alone reach it, or when ``fill`` is 0)."""
     bm, bn, _, _, fixed_tw, stages, act_bufs = CONV_CONFIGS[config]
     taps = conv_taps(h, w)
-    units = (cin // CONV_BK) * taps
+    units = (cin // conv_bk(dtype)) * taps
     n_tiles = _cdiv(cout, bn)
     target = fill * SMS
 
@@ -180,16 +206,17 @@ def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
         config=config, th=th, tw=tw, tiles_h=tiles_h, tiles_w=tiles_w, n_tiles=n_tiles,
         units=units, units_per_split=per, splits=splits,
         grid=(b * tiles_h * tiles_w, n_tiles, splits),
-        smem_bytes=conv_smem_bytes(bn, th, tw, taps, stages, act_bufs),
+        smem_bytes=conv_smem_bytes(bn, th, tw, taps, stages, act_bufs, dtype),
         reduce_blocks=max(1, min(_cdiv(total4, REDUCE_THREADS), 8 * SMS)))
 
 
 @functools.lru_cache(maxsize=None)
-def conv_plan(b: int, h: int, w: int, cin: int, cout: int) -> ConvPlan:
-    """The launch plan of ``gn_silu_conv3x3`` for ``[b, h, w, cin] -> cout``:
-    ``conv_config``'s instantiation, with a tile and K split that give every
-    SM a block (``make_conv_plan``)."""
-    return make_conv_plan(b, h, w, cin, cout, conv_config(h, w, cout))
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
+              dtype: torch.dtype = torch.float32) -> ConvPlan:
+    """The launch plan of ``gn_silu_conv3x3`` for ``[b, h, w, cin] -> cout``
+    with activations of ``dtype``: ``conv_config``'s instantiation, with a
+    tile and K split that give every SM a block (``make_conv_plan``)."""
+    return make_conv_plan(b, h, w, cin, cout, conv_config(h, w, cout, dtype), dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -210,16 +237,20 @@ def stats_plan(b: int, hw: int, c: int) -> tuple:
 def gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups: int, eps: float):
     """Per-(batch, channel) affine ``a, b`` with ``normalized = x*a + b``.
 
-    Same maths as ``_gn_stats_ab`` (pallas_kernels.py:314): float32
-    statistics over (spatial, channels of the group), variance as
-    E[x^2] - mu^2. x is NHWC; returns two ``[B, C]`` float32 tensors."""
+    The maths of ``_gn_stats_ab`` (pallas_kernels.py:314): statistics over
+    (spatial, channels of the group), variance as E[x^2] - mu^2, float32
+    ``a, b``. The sums, mean, variance and 1/sqrt(var + eps) are taken in
+    float64 and rounded to float32, as the statistics kernel folds its sums:
+    so the bf16 kernels' activations round where this version's do. x is
+    NHWC; returns two ``[B, C]`` float32 tensors."""
     bsz, h, w, c = x.shape
     cg = c // num_groups
-    xg = x.float().reshape(bsz, h * w, num_groups, cg)
-    mean = xg.mean(dim=(1, 3))
-    var = (xg * xg).mean(dim=(1, 3)) - mean * mean
-    rstd = torch.rsqrt(var + eps)
-    mean_c = mean.repeat_interleave(cg, dim=1)
+    xg = x.double().reshape(bsz, h * w, num_groups, cg)
+    n = h * w * cg
+    mean = xg.sum(dim=(1, 3)) / n
+    var = (xg * xg).sum(dim=(1, 3)) / n - mean * mean
+    rstd = (1.0 / torch.sqrt(var + eps)).float()
+    mean_c = mean.float().repeat_interleave(cg, dim=1)
     rstd_c = rstd.repeat_interleave(cg, dim=1)
     a = rstd_c * gn_scale.float()[None, :]
     b = gn_bias.float()[None, :] - mean_c * a
@@ -227,14 +258,15 @@ def gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups: int, eps: float):
 
 
 def groupnorm_silu_reference(x, scale, bias, num_groups: int, eps: float = 1e-6,
-                             apply_silu: bool = True):
+                             apply_silu: bool = True, out_dtype: Optional[torch.dtype] = None):
     """Plain version of K3 (``_groupnorm_silu_kernel``, pallas_kernels.py:46):
-    GroupNorm with E[x^2]-mu^2 statistics, optional SiLU, input dtype out."""
+    GroupNorm with ``gn_stats_ab_reference``'s statistics, optional SiLU, in
+    float32, rounded once to ``out_dtype`` (x's dtype when None)."""
     a, b = gn_stats_ab_reference(x, scale, bias, num_groups, eps)
     out = x.float() * a[:, None, None, :] + b[:, None, None, :]
     if apply_silu:
         out = out * torch.sigmoid(out)
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
 def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
@@ -243,12 +275,21 @@ def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
     """Plain version of K1/K2 (``_gn_silu_conv3x3_reference``,
     pallas_kernels.py:330): ``[skip +] conv3x3_SAME(SiLU(x*a+b)) + bias_total``,
     the sum scaled by ``skip_coef`` when ``skip`` is given. NHWC in and out,
-    HWIO weights; zero padding applies to the activated map."""
+    HWIO weights; zero padding applies to the activated map.
+
+    The products run in x's dtype: for bfloat16 x (``compute_dtype`` bf16 in
+    the JAX package) the float32 activation and the weights are each rounded
+    to bfloat16 (to nearest even) and their products summed in float32 (exact
+    products, so the float32 conv computes them); bias, skip and scale in
+    float32; one rounding to bfloat16 at the end."""
     a, b = gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups, eps)
     v = x.float() * a[:, None, None, :] + b[:, None, None, :]
     act = (v * torch.sigmoid(v)).permute(0, 3, 1, 2)
+    w = w.float()
+    if x.dtype != torch.float32:
+        act, w = act.to(x.dtype).float(), w.to(x.dtype).float()
     with float32_precision(x.device):
-        out = F.conv2d(act, w.float().permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+        out = F.conv2d(act, w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
     out = out + bias_total.float()[:, None, None, :]
     if skip is not None:
         out = (skip.float() + out) * skip_coef
@@ -280,9 +321,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points' argument and return types on ``lib``, a
     build of ``csrc/*.cu``; returns ``lib``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.diffse_gn_stats_ab.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
-    lib.diffse_gn_apply.argtypes = [p, p, p, p, i, i, i, i, p]
-    lib.diffse_gn_silu_conv3x3.argtypes = [p, p, p, p, p, i, p, f, p, p, i, i, i, i, i,
+    lib.diffse_gn_stats_ab.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
+    lib.diffse_gn_apply.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
+    lib.diffse_gn_silu_conv3x3.argtypes = [p, i, p, p, p, p, i, p, f, p, p, i, i, i, i, i,
                                            *[i] * 12, p]
     lib.diffse_fused_bias_lrelu.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, p]
     for fn in (lib.diffse_gn_stats_ab, lib.diffse_gn_apply, lib.diffse_gn_silu_conv3x3,
@@ -362,14 +403,19 @@ def _stream(device: torch.device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _require_kernel_inputs(name: str, device: torch.device, **tensors) -> None:
+def _require_kernel_inputs(name: str, device: torch.device, dtypes: dict, **tensors) -> None:
+    """Check what the kernel takes: each tensor on ``device``, contiguous,
+    16-byte aligned, not needing grad, and of the dtype ``dtypes`` names for
+    it (the activations' dtype, or float32 for parameters and biases)."""
     for arg, t in tensors.items():
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes float32")
+        want = dtypes.get(arg, torch.float32)
+        if t.dtype != want:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                            f"{str(want).removeprefix('torch.')} there")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if t.data_ptr() % 16:
@@ -378,6 +424,12 @@ def _require_kernel_inputs(name: str, device: torch.device, **tensors) -> None:
             raise RuntimeError(
                 f"{name}: {arg} requires grad; the kernel has no backward yet "
                 "(run under torch.no_grad())")
+
+
+def _activation_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: x is {x.dtype}; the kernel takes float32 or bfloat16")
+    return x.dtype
 
 
 def _dispatch_device(name: str, x: torch.Tensor) -> bool:
@@ -412,18 +464,19 @@ def _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps):
     partial = torch.empty((bsz, num_groups, parts, 2), device=x.device, dtype=torch.float64)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     counters = _ticket_counters(x.device, stream, bsz)
-    _check(lib.diffse_gn_stats_ab(_ptr(x), _ptr(gn_scale), _ptr(gn_bias), _ptr(partial),
-                                  _ptr(counters), _ptr(a), _ptr(b), bsz, h * w, c,
-                                  num_groups, parts, chunk, float(eps),
-                                  ctypes.c_void_p(stream)), "gn_stats_ab")
+    _check(lib.diffse_gn_stats_ab(_ptr(x), _DTYPE_CODES[x.dtype], _ptr(gn_scale),
+                                  _ptr(gn_bias), _ptr(partial), _ptr(counters), _ptr(a),
+                                  _ptr(b), bsz, h * w, c, num_groups, parts, chunk,
+                                  float(eps), ctypes.c_void_p(stream)), "gn_stats_ab")
     return a, b
 
 
 def gn_stats_ab(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
                 num_groups: int, eps: float = 1e-6):
     """The statistics pass alone (the first launch of both chains): the
-    per-(batch, channel) affine ``a, b`` of ``gn_stats_ab_reference``. Not
-    counted in ``launch_counts``: it is part of the two wrappers below."""
+    per-(batch, channel) float32 affine ``a, b`` of ``gn_stats_ab_reference``,
+    from float32 or bfloat16 ``x``. Not counted in ``launch_counts``: it is
+    part of the two wrappers below."""
     if not _dispatch_device("gn_stats_ab", x):
         return gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups, eps)
     _check_stats_inputs("gn_stats_ab", x, gn_scale, gn_bias, num_groups)
@@ -432,31 +485,43 @@ def gn_stats_ab(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
 
 
 def _check_stats_inputs(name, x, scale, bias, num_groups):
-    c = x.shape[-1]
-    if c % num_groups or c % 4 or c > 4 * STATS_THREADS:
+    """The statistics pass reads 16 bytes a load: 4 float32 or 8 bfloat16
+    channels; C up to 2048 either way."""
+    dtype = _activation_dtype(name, x)
+    c, vec = x.shape[-1], 16 // x.element_size()
+    if c % num_groups or c % vec or c > 4 * STATS_THREADS:
         raise ValueError(f"{name}: C={c} must divide into {num_groups} groups, be a "
-                         f"multiple of 4 and at most {4 * STATS_THREADS}")
-    _require_kernel_inputs(name, x.device, x=x, scale=scale, bias=bias)
+                         f"multiple of {vec} and at most {4 * STATS_THREADS}")
+    _require_kernel_inputs(name, x.device, {"x": dtype}, x=x, scale=scale, bias=bias)
 
 
 # ------------------------------------------------------------------- wrappers
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                   num_groups: int, eps: float = 1e-6,
-                   apply_silu: bool = True) -> torch.Tensor:
+                   num_groups: int, eps: float = 1e-6, apply_silu: bool = True,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """GroupNorm (+SiLU) over NHWC ``x`` (port of ``groupnorm_silu_pallas``,
-    pallas_kernels.py:117). ``scale``, ``bias``: ``[C]``."""
+    pallas_kernels.py:117). ``x``: float32 or bfloat16; ``scale``, ``bias``:
+    ``[C]`` float32. Float32 statistics and maths; the output is x's dtype,
+    or ``out_dtype`` (float32 for a bfloat16 x: flax's GroupNorm promotes a
+    bf16 input to float32, as the attention blocks' norm does)."""
+    out_dtype = out_dtype or x.dtype
     if not _dispatch_device("groupnorm_silu", x):
-        return groupnorm_silu_reference(x, scale, bias, num_groups, eps, apply_silu)
+        return groupnorm_silu_reference(x, scale, bias, num_groups, eps, apply_silu,
+                                        out_dtype)
     bsz, h, w, c = x.shape
     _check_stats_inputs("groupnorm_silu", x, scale, bias, num_groups)
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"groupnorm_silu: out_dtype {out_dtype} for x of {x.dtype}; "
+                        "the kernel writes x's dtype or float32")
     lib = _library()
     with torch.cuda.device(x.device):
         a, b = _stats_ab(lib, x, scale, bias, num_groups, eps)
-        out = torch.empty_like(x)
-        _check(lib.diffse_gn_apply(_ptr(x), _ptr(a), _ptr(b), _ptr(out), bsz, h * w,
-                                   c, int(apply_silu), _stream(x.device)),
+        out = torch.empty(x.shape, device=x.device, dtype=out_dtype)
+        _check(lib.diffse_gn_apply(_ptr(x), _DTYPE_CODES[x.dtype], _ptr(a), _ptr(b),
+                                   _ptr(out), _DTYPE_CODES[out_dtype], bsz, h * w, c,
+                                   int(apply_silu), _stream(x.device)),
                "groupnorm_silu")
     launch_counts["groupnorm_silu"] += 1
     return out
@@ -472,23 +537,29 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
     of its regimes.
 
     Args:
-        x: ``[B, H, W, Cin]``; gn_scale, gn_bias: ``[Cin]``.
-        w: ``[3, 3, Cin, Cout]`` (HWIO).
-        bias_total: ``[B, Cout]`` conv bias plus any per-batch conditioning;
-            a ``[Cout]`` bias expanded over the batch (row stride 0) is taken
-            as it is, without a copy.
-        skip: optional ``[B, H, W, Cout]`` residual.
+        x: ``[B, H, W, Cin]``, float32 or bfloat16 (the products run in x's
+            dtype, accumulated in float32); gn_scale, gn_bias: ``[Cin]``.
+        w: ``[3, 3, Cin, Cout]`` (HWIO), float32 (rounded to bfloat16 in the
+            kernel for a bfloat16 x).
+        bias_total: ``[B, Cout]`` float32 conv bias plus any per-batch
+            conditioning; a ``[Cout]`` bias expanded over the batch (row
+            stride 0) is taken as it is, without a copy.
+        skip: optional ``[B, H, W, Cout]`` residual, of x's dtype.
+
+    Returns ``[B, H, W, Cout]`` of x's dtype.
     """
     if not _dispatch_device("gn_silu_conv3x3", x):
         return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
                                                 num_groups, eps, skip, skip_coef)
+    dtype = _activation_dtype("gn_silu_conv3x3", x)
+    bk = conv_bk(dtype)
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (3, 3, cin, cout):
         raise ValueError(f"gn_silu_conv3x3: w has shape {tuple(w.shape)}, "
                          f"expected (3, 3, {cin}, Cout)")
-    if cin % CONV_BK or cout % 4 or cin % num_groups or cin > 4 * STATS_THREADS:
-        raise ValueError(f"gn_silu_conv3x3: Cin={cin} must be a multiple of {CONV_BK} and "
+    if cin % bk or cout % 4 or cin % num_groups or cin > 4 * STATS_THREADS:
+        raise ValueError(f"gn_silu_conv3x3: Cin={cin} must be a multiple of {bk} and "
                          f"of {num_groups} groups and at most {4 * STATS_THREADS}, "
                          f"Cout={cout} a multiple of 4")
     if tuple(bias_total.shape) != (bsz, cout):
@@ -500,17 +571,19 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
     if skip is not None and tuple(skip.shape) != (bsz, h, wd, cout):
         raise ValueError("gn_silu_conv3x3: skip must be [B, H, W, Cout]")
     bias_rows = bias_total[0] if bias_row_stride == 0 else bias_total
-    _require_kernel_inputs("gn_silu_conv3x3", x.device, x=x, gn_scale=gn_scale,
-                           gn_bias=gn_bias, w=w, bias_total=bias_rows, skip=skip)
-    plan = conv_plan(bsz, h, wd, cin, cout)
+    _require_kernel_inputs("gn_silu_conv3x3", x.device, {"x": dtype, "skip": dtype}, x=x,
+                           gn_scale=gn_scale, gn_bias=gn_bias, w=w, bias_total=bias_rows,
+                           skip=skip)
+    plan = conv_plan(bsz, h, wd, cin, cout, dtype)
     lib = _library()
     with torch.cuda.device(x.device):
         a, b = _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps)
-        out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=torch.float32)
+        out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=dtype)
         partial = None if plan.splits == 1 else torch.empty(
             (plan.splits, bsz * h * wd, cout), device=x.device, dtype=torch.float32)
         _check(lib.diffse_gn_silu_conv3x3(
-            _ptr(x), _ptr(a), _ptr(b), _ptr(w), _ptr(bias_rows), bias_row_stride,
+            _ptr(x), _DTYPE_CODES[dtype], _ptr(a), _ptr(b), _ptr(w), _ptr(bias_rows),
+            bias_row_stride,
             _ptr(skip), float(skip_coef), _ptr(out), _ptr(partial), bsz, h, wd, cin, cout,
             plan.config, plan.th, plan.tw, plan.tiles_w, plan.tiles_h * plan.tiles_w,
             plan.units_per_split, plan.splits, *plan.grid, plan.smem_bytes,
@@ -518,9 +591,6 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             "gn_silu_conv3x3")
     launch_counts["gn_silu_conv3x3"] += 1
     return out
-
-
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,

@@ -1,7 +1,9 @@
 """The GroupNorm kernels' shapes on the main path: every ``gn_silu_conv3x3``
 and ``groupnorm_silu`` call of one forward of the 65M NCSN++ (F=256), at
 T=64 frames; at T=128 and T=192 every width W scales by 2 and 3, and the
-calls per forward stay the same.
+calls per forward stay the same. The batch and the activations' dtype come
+from the run (``RUNS``): the float32 enhance paths take one utterance at a
+time, the bf16 trunk one utterance or bench.py's batch of 16 at 64 frames.
 
 The launch plans are held to these shapes on the CPU
 (tests/test_torch_conv_plan.py) and timed at them on the card
@@ -9,7 +11,15 @@ The launch plans are held to these shapes on the CPU
 
 from __future__ import annotations
 
+import torch
+
 FRAMES = (64, 128, 192)
+# bench.py's program: 16 utterances of 64 frames through the bf16 trunk
+BENCH_BATCH = 16
+BENCH_FRAMES = 64
+# (batch, frames, activation dtype) of the main path's forwards
+RUNS = [(1, 64, torch.float32), (1, 128, torch.float32), (1, 192, torch.float32),
+        (1, 64, torch.bfloat16), (BENCH_BATCH, BENCH_FRAMES, torch.bfloat16)]
 
 # (H, W, Cin, Cout, calls per forward) of gn_silu_conv3x3, with and without skip
 CONV_SHAPES_T64 = [

@@ -5,13 +5,18 @@ input dilation, so the input is zero-stuffed explicitly: each sample is
 followed by ``up - 1`` zeros in both spatial dims, which is also why the JAX
 version's right pad is ``pad1 + up - 1`` on the dilated input (those trailing
 zeros are already here). Negative padding crops. The filter is a true
-convolution, i.e. a correlation with the flipped kernel, run depthwise.
+convolution, i.e. a correlation with the flipped kernel, run depthwise, in
+x's dtype: a bfloat16 map gives a bfloat16 map, summed in float32 and rounded
+once, as ``lax.conv`` on bfloat16 does (the [1,3,3,1] kernel's taps are exact
+in bfloat16).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..utils import round_once
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
@@ -33,4 +38,4 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
         x = z
     x = F.pad(x, (pad0, pad1, pad0, pad1))
     weight = torch.flip(kernel.to(x), (0, 1))[None, None].repeat(c, 1, 1, 1)
-    return F.conv2d(x, weight, stride=down, groups=c)
+    return round_once(lambda a, k: F.conv2d(a, k, stride=down, groups=c), x, weight)

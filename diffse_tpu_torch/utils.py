@@ -1,5 +1,5 @@
 """Small shared helpers (the model device, random sampling, broadcasting,
-device timing, float32 precision)."""
+device timing, float32 precision, bfloat16 arithmetic)."""
 
 from __future__ import annotations
 
@@ -66,3 +66,28 @@ def float32_precision(device):
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def trunk_dtype(dtype) -> torch.dtype:
+    """The network's compute dtype from the JAX package's ``dtype`` keyword:
+    None, "float32" or "f32" for float32; "bf16" or "bfloat16" for bfloat16
+    (a torch dtype is taken as it is)."""
+    if dtype in (None, "float32", "f32", torch.float32):
+        return torch.float32
+    if dtype in ("bf16", "bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unsupported compute dtype {dtype!r}: float32 or bf16")
+
+
+def round_once(fn, *tensors: torch.Tensor) -> torch.Tensor:
+    """``fn(*tensors)`` (a convolution or a matrix product) in the tensors'
+    dtype, its products summed in float32 and the result rounded to that
+    dtype once, as XLA computes a bfloat16 convolution or dot. On the card
+    cuDNN and cuBLAS run bfloat16 that way; on the CPU ``fn`` runs in float32
+    on the bfloat16 values (exact products) and the result is rounded, since
+    torch's CPU bfloat16 convolution rounds otherwise. Float32 tensors go
+    through ``fn`` as they are."""
+    dtype = tensors[0].dtype
+    if dtype == torch.float32 or tensors[0].device.type != "cpu":
+        return fn(*tensors)
+    return fn(*(t.float() for t in tensors)).to(dtype)

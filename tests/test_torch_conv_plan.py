@@ -2,10 +2,11 @@
 
 ``conv_plan`` and ``stats_plan`` (diffse_tpu_torch/ops/cuda_kernels.py) are
 pure functions of the shapes. These tests hold them at every shape the 65M
-NCSN++ forward runs at T = 64, 128 and 192 frames, and emulate in torch what
-the CUDA kernels compute block by block under those plans: the conv's 3xTF32
-split and its K splits added in order, and the statistics pass's partial sums
-folded in part order. The kernels themselves run only on the card
+NCSN++ forward runs at T = 64, 128 and 192 frames in float32, and in bfloat16
+at T = 64 for one utterance and bench.py's batch of 16, and emulate in torch
+what the CUDA kernels compute block by block under those plans: the conv's
+3xTF32 split (or its bf16 products) and its K splits added in order, and the
+statistics pass's partial sums folded in part order. The kernels themselves run only on the card
 (tests/test_torch_kernels.py, ``-m gpu``)."""
 
 import numpy as np
@@ -14,8 +15,8 @@ import torch
 import torch.nn.functional as F
 
 from diffse_tpu_torch.ops import cuda_kernels as ck
-from diffse_tpu_torch.ops.main_path_shapes import (CONV_SHAPES_T64, FRAMES, GN_SHAPES_T64,
-                                                   at_frames)
+from diffse_tpu_torch.ops.main_path_shapes import (BENCH_BATCH, BENCH_FRAMES, CONV_SHAPES_T64,
+                                                   FRAMES, GN_SHAPES_T64, RUNS, at_frames)
 
 torch.set_num_threads(2)
 
@@ -28,13 +29,13 @@ DEEP_HW = 64 * 32
 
 CONV_CASES = [(t, s[:4]) for t in FRAMES for s in at_frames(t, CONV_SHAPES_T64)]
 GN_CASES = [(t, s) for t in FRAMES for s in at_frames(t, GN_SHAPES_T64)]
+# the bf16 trunk's runs: (batch, frames) and every conv shape of a forward
+BF16_CONV_CASES = [(b, t, s[:4]) for b, t, dtype in RUNS if dtype == torch.bfloat16
+                   for s in at_frames(t, CONV_SHAPES_T64)]
 
 
-@pytest.mark.parametrize("frames,shape", CONV_CASES,
-                         ids=[f"T{t}-{'x'.join(map(str, s))}" for t, s in CONV_CASES])
-def test_conv_plan_fills_the_card_and_covers_once(frames, shape):
-    h, w, cin, cout = shape
-    plan = ck.conv_plan(1, h, w, cin, cout)
+def _check_conv_plan(b, h, w, cin, cout, dtype):
+    plan = ck.conv_plan(b, h, w, cin, cout, dtype)
     bm, bn = ck.CONV_CONFIGS[plan.config][:2]
     assert plan.ctas >= ck.SMS or plan.splits == 1
     if h * w <= DEEP_HW:
@@ -50,17 +51,39 @@ def test_conv_plan_fills_the_card_and_covers_once(frames, shape):
     for n in range(plan.n_tiles):
         cols[n * bn:(n + 1) * bn] += 1
     assert (cols == 1).all()
-    assert plan.units == cin // ck.CONV_BK * ck.conv_taps(h, w)
+    assert plan.units == cin // ck.conv_bk(dtype) * ck.conv_taps(h, w)
     units = np.zeros(plan.units, int)
     for z in range(plan.splits):
         units[z * plan.units_per_split:(z + 1) * plan.units_per_split] += 1
     assert (units == 1).all()
-    assert plan.grid == (plan.tiles_h * plan.tiles_w, plan.n_tiles, plan.splits)
+    assert plan.grid == (b * plan.tiles_h * plan.tiles_w, plan.n_tiles, plan.splits)
     # the shared memory fits, and is what the kernel carves
     stages, act_bufs = ck.CONV_CONFIGS[plan.config][5:]
     assert plan.smem_bytes == ck.conv_smem_bytes(bn, plan.th, plan.tw, ck.conv_taps(h, w),
-                                                 stages, act_bufs)
+                                                 stages, act_bufs, dtype)
     assert plan.smem_bytes <= ck.SMEM_LIMIT
+    return plan
+
+
+@pytest.mark.parametrize("frames,shape", CONV_CASES,
+                         ids=[f"T{t}-{'x'.join(map(str, s))}" for t, s in CONV_CASES])
+def test_conv_plan_fills_the_card_and_covers_once(frames, shape):
+    _check_conv_plan(1, *shape, torch.float32)
+
+
+@pytest.mark.parametrize("batch,frames,shape", BF16_CONV_CASES,
+                         ids=[f"B{b}-T{t}-{'x'.join(map(str, s))}" for b, t, s in BF16_CONV_CASES])
+def test_conv_plan_bf16_fills_the_card_and_covers_once(batch, frames, shape):
+    """The bf16 trunk's plans: K units of 16 channels (one k16 product a
+    tap), the float32 weights' ring in shared memory, at one utterance and
+    at bench.py's batch of 16."""
+    plan = _check_conv_plan(batch, *shape, torch.bfloat16)
+    h, w, cin, cout = shape
+    assert plan.config == ck.conv_config(h, w, cout, torch.bfloat16)
+    if batch == BENCH_BATCH and frames == BENCH_FRAMES and h * w >= 64 * 16 and cout > 8:
+        # 16 utterances give the large levels' trunk convs blocks enough
+        # without a K split
+        assert plan.splits == 1
 
 
 @pytest.mark.parametrize("h,w,cout,config", [
@@ -73,6 +96,19 @@ def test_conv_config_by_map_and_cout(h, w, cout, config):
     nine taps the wgmma kernel; the rest (a map of height 1 too) mma.sync."""
     assert ck.conv_config(h, w, cout) == config
     assert ck.conv_plan(1, h, w, 256, cout).config == config
+
+
+@pytest.mark.parametrize("h,w,cout,config", [
+    (4, 1, 256, ck.CONV_MMA), (8, 2, 256, ck.CONV_MMA), (16, 4, 256, ck.CONV_MMA),
+    (32, 8, 256, ck.CONV_WGMMA), (16, 8, 512, ck.CONV_WGMMA), (64, 16, 256, ck.CONV_WGMMA),
+    (256, 64, 4, ck.CONV_MMA_HEAD)])
+def test_conv_config_bf16(h, w, cout, config):
+    """In bf16 the wgmma kernel takes rows from 8 positions (the float32
+    rule's 16 picks mma.sync at W = 8)."""
+    assert ck.conv_config(h, w, cout, torch.bfloat16) == config
+    assert ck.conv_plan(1, h, w, 256, cout, torch.bfloat16).config == config
+    if w == 8:
+        assert ck.conv_config(h, w, cout) == ck.CONV_MMA
 
 
 @pytest.mark.parametrize("fill", [0, 1, 2])
@@ -97,8 +133,17 @@ def test_make_conv_plan_aims_at_fill_blocks_per_sm(shape, fill):
 def test_stats_plan_covers_once(frames, shape):
     """The parts cover the positions once; small maps take one block, large
     maps many more blocks than (batch x groups)."""
-    h, w, c = shape
-    parts, chunk = ck.stats_plan(1, h * w, c)
+    _check_stats_plan(1, *shape)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES_T64, ids=["x".join(map(str, s)) for s in GN_SHAPES_T64])
+def test_stats_plan_covers_once_at_the_bench_batch(shape):
+    """bench.py's batch of 16 at 64 frames: one row of parts per utterance."""
+    _check_stats_plan(BENCH_BATCH, *shape)
+
+
+def _check_stats_plan(b, h, w, c):
+    parts, chunk = ck.stats_plan(b, h * w, c)
     assert parts * chunk >= h * w > (parts - 1) * chunk
     assert parts <= ck.STATS_MAX_PARTS
     if h * w * c <= ck.STATS_MIN_ELEMS:
@@ -139,12 +184,12 @@ def _activated(x, gs, gb, groups):
     return v / (1 + torch.exp(-v))
 
 
-def _emulate_conv(act, wk, bt, skip, coef, plan, products):
+def _emulate_conv(act, wk, bt, skip, coef, plan, products, bk=ck.CONV_BK):
     """What gn_silu_conv3x3_kernel and conv_split_reduce_kernel compute under
     ``plan``, block by block: each block's position tile reads its halo of the
-    zero-padded activated map, walks its K units (live tap, 8-channel chunk)
-    and adds ``products(a, w)`` (float64); the K splits are added in split
-    order, then bias, skip and scale."""
+    zero-padded activated map, walks its K units (live tap, ``bk``-channel
+    chunk) and adds ``products(a, w)`` (float64); the K splits are added in
+    split order, then bias, skip and scale."""
     b, h, w, cin = act.shape
     cout = wk.shape[-1]
     bn = ck.CONV_CONFIGS[plan.config][1]
@@ -167,8 +212,8 @@ def _emulate_conv(act, wk, bt, skip, coef, plan, products):
                 c, l = divmod(u, taps)
                 dy, dx = dy0 + l // nx, dx0 + l % nx
                 a_rows = halo[1 + dy:1 + dy + plan.th, 1 + dx:1 + dx + plan.tw,
-                              c * ck.CONV_BK:(c + 1) * ck.CONV_BK].reshape(-1, ck.CONV_BK)
-                acc += products(a_rows, wpad[dy + 1, dx + 1, c * ck.CONV_BK:(c + 1) * ck.CONV_BK])
+                              c * bk:(c + 1) * bk].reshape(-1, bk)
+                acc += products(a_rows, wpad[dy + 1, dx + 1, c * bk:(c + 1) * bk])
             partial[z, bi, oh0:oh0 + plan.th, ow0:ow0 + plan.tw] = acc.reshape(
                 plan.th, plan.tw, -1)
     out = partial[0]
@@ -230,6 +275,59 @@ def test_split_k_plans_sum_to_the_conv(shape):
     act = _activated(x, gs, gb, 32)
     out = _emulate_conv(act, wk, bt, skip, 0.5, plan, _tf32x3)
     torch.testing.assert_close(out, _exact(act, wk, bt, skip, 0.5), **KERNEL_TOL)
+
+
+def _bf16(a, w):
+    """The bf16 kernels' products: each operand rounded to bfloat16 (to
+    nearest even), products exact, summed in float64 here."""
+    return a.bfloat16().double() @ w.bfloat16().double()
+
+
+def bf16_spacing(v):
+    """The bfloat16 spacing (8 significant bits) at |v|."""
+    return torch.exp2(torch.floor(torch.log2(v.double().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_ulps(out, ref):
+    """|out - ref| in units of ref's bfloat16 spacing, elementwise."""
+    return (out.double() - ref.double()).abs() / bf16_spacing(ref)
+
+
+# bf16 outputs that sum in float32 in another order: within one bfloat16 ulp
+# of each other, except where the sum cancels to far below its terms (there
+# the terms' float32 rounding is many ulps of the result): on at most this
+# share of the elements, which stay within one ulp of the largest output.
+BF16_SHARE = 1e-3
+
+
+def assert_bf16_close(out, ref):
+    ulps = bf16_ulps(out, ref)
+    assert (ulps > 1).double().mean().item() <= BF16_SHARE, ulps.max()
+    assert (out.double() - ref.double()).abs().max() <= bf16_spacing(ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 12, 256, 256, False), (1, 4, 1, 256, 4, False),
+                                   (1, 4, 3, 512, 256, True), (2, 8, 6, 128, 128, True),
+                                   (2, 8, 64, 128, 128, True), (16, 4, 1, 256, 256, True)])
+def test_bf16_split_k_plans_sum_to_the_conv(shape):
+    """The bf16 plans (16-channel K units, split across blocks where K is
+    short; bench.py's batch at the deepest level last) add up to the plain
+    version's conv: the float64 sum of the exact bf16 products, rounded to
+    bfloat16, within one bfloat16 ulp of the plain version's float32 sum
+    rounded once, but where the sum cancels (``assert_bf16_close``)."""
+    b, h, w, cin, cout, with_skip = shape
+    plan = ck.conv_plan(b, h, w, cin, cout, torch.bfloat16)
+    x, gs, gb, wk, bt, skip = _chain_inputs(1, *shape)
+    x = x.bfloat16()
+    skip = None if skip is None else skip.bfloat16()
+    # the plain version's activation, so that only the sums' order differs
+    a, bb = ck.gn_stats_ab_reference(x, gs, gb, 32, 1e-6)
+    v = x.float() * a[:, None, None, :] + bb[:, None, None, :]
+    act = v * torch.sigmoid(v)
+    out = _emulate_conv(act, wk, bt, skip, 0.5, plan, _bf16, bk=ck.CONV_BK_BF16).bfloat16()
+    ref = ck.groupnorm_silu_conv3x3_reference(x, gs, gb, wk, bt, 32, skip=skip, skip_coef=0.5)
+    assert ref.dtype == torch.bfloat16
+    assert_bf16_close(out, ref)
 
 
 def test_split_k_plan_cuts_chunks_unevenly():

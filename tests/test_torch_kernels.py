@@ -4,9 +4,10 @@ On the CPU each wrapper of diffse_tpu_torch/ops/cuda_kernels.py takes its
 plain PyTorch version; those are held to the Pallas kernels of
 diffse_tpu/ops/pallas_kernels.py run in interpret mode, at the shapes of both
 of K1's regimes (row-tiled, and the small-map kernel K2) and of K3, with the
-JAX tests' float32 tolerance (atol = rtol = 2e-4). The tests marked ``gpu``
-launch the CUDA kernels and hold them to the plain versions on the card; they
-skip without one.
+JAX tests' float32 tolerance (atol = rtol = 2e-4); their bf16 versions in
+tests/test_torch_bf16.py. The tests marked ``gpu`` launch the CUDA kernels,
+float32 and bf16, and hold them to the plain versions on the card (bf16:
+``assert_bf16_close``); they skip without one.
 """
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from diffse_tpu.ops.pallas_kernels import (
     groupnorm_silu_pallas,
 )
 from diffse_tpu_torch.ops import cuda_kernels as ck
+from test_torch_conv_plan import assert_bf16_close
 
 torch.set_num_threads(2)
 
@@ -97,6 +99,22 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         ck.groupnorm_silu_conv3x3(x, p, p, torch.empty((3, 3, 16, 16), device="meta"),
                                   torch.empty((1, 16), device="meta"), 4)
+
+
+def test_kernel_input_checks_name_each_dtype():
+    """The wrappers' checks say which dtype each argument takes: the
+    activations (and the skip) float32 or bfloat16, parameters, weights and
+    biases float32."""
+    cpu = torch.device("cpu")
+    x16, p32 = torch.zeros(2, 8, dtype=torch.bfloat16), torch.zeros(8)
+    ck._require_kernel_inputs("k", cpu, {"x": torch.bfloat16}, x=x16, scale=p32)
+    with pytest.raises(TypeError, match="takes float32 there"):
+        ck._require_kernel_inputs("k", cpu, {"x": torch.bfloat16}, x=x16, scale=p32.bfloat16())
+    with pytest.raises(TypeError, match="takes bfloat16 there"):
+        ck._require_kernel_inputs("k", cpu, {"x": torch.bfloat16, "skip": torch.bfloat16},
+                                  x=x16, skip=p32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ck._activation_dtype("k", x16.half())
 
 
 def test_library_path_is_keyed_on_sources():
@@ -210,6 +228,91 @@ def test_gn_silu_conv3x3_kernel_repeats_bitwise(cuda, shape):
         assert torch.equal(first, again)
 
 
+# bf16: the same shapes plus bench.py's batch of 16 at 64 frames (the large
+# level, middle ones, the deep levels and a head) and W = 8 on wgmma.
+GPU_BF16_CONV_SHAPES = GPU_CONV_SHAPES + [
+    (16, 256, 64, 128, 128), (16, 64, 16, 256, 256), (16, 32, 8, 512, 256), (16, 16, 4, 256, 256),
+    (16, 4, 1, 512, 256), (16, 256, 64, 128, 4), (16, 8, 2, 256, 4), (1, 32, 8, 256, 256)]
+
+
+def _bf16_chain_inputs(cuda, shape, with_skip, seed):
+    arrays = _chain_inputs(np.random.default_rng(seed), *shape, with_skip)
+    x, gs, gb, wk, bt, skip = [None if a is None else a.to(cuda) for a in _torch(*arrays)]
+    return x.bfloat16(), gs, gb, wk, bt, None if skip is None else skip.bfloat16()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_BF16_CONV_SHAPES)
+@pytest.mark.parametrize("with_skip", [False, True])
+def test_gn_silu_conv3x3_bf16_kernel_matches_plain(cuda, shape, with_skip):
+    x, gs, gb, wk, bt, skip = _bf16_chain_inputs(cuda, shape, with_skip, 7)
+    groups = min(shape[3] // 4, 32)
+    coef = 1.0 / np.sqrt(2.0)
+    ck.reset_launch_counts()
+    out = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, groups, skip=skip, skip_coef=coef)
+    ref = ck.groupnorm_silu_conv3x3_reference(x, gs, gb, wk, bt, groups, skip=skip,
+                                              skip_coef=coef)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gn_silu_conv3x3"] == 1
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert_bf16_close(out.cpu(), ref.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 256, 64, 128), (1, 128, 32, 256), (2, 16, 4, 384),
+                                   (16, 256, 64, 128), (16, 16, 4, 256)])
+@pytest.mark.parametrize("apply_silu,out_dtype", [(False, torch.bfloat16), (True, torch.bfloat16),
+                                                  (False, torch.float32)])
+def test_groupnorm_silu_bf16_kernel_matches_plain(cuda, shape, apply_silu, out_dtype):
+    """K3 on a bf16 map, out bf16 (the resampling blocks) or float32 (the
+    attention's norm)."""
+    rng = np.random.default_rng(8)
+    c = shape[-1]
+    x = torch.from_numpy((rng.standard_normal(shape) * 2 + 1).astype(np.float32)).to(cuda)
+    x = x.bfloat16()
+    scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    groups = min(c // 4, 32)
+    ck.reset_launch_counts()
+    out = ck.groupnorm_silu(x, scale, bias, groups, apply_silu=apply_silu, out_dtype=out_dtype)
+    ref = ck.groupnorm_silu_reference(x, scale, bias, groups, apply_silu=apply_silu,
+                                      out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["groupnorm_silu"] == 1
+    assert out.dtype == ref.dtype == out_dtype
+    if out_dtype == torch.bfloat16:
+        assert_bf16_close(out.cpu(), ref.cpu())
+    else:
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 256, 192, 128), (1, 4, 3, 256), (16, 256, 64, 128)])
+def test_gn_stats_bf16_kernel_matches_plain_and_repeats(cuda, shape):
+    rng = np.random.default_rng(9)
+    c = shape[-1]
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda).bfloat16()
+    scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32)).to(cuda)
+    groups = min(c // 4, 32)
+    a, b = ck.gn_stats_ab(x, scale, bias, groups)
+    ref_a, ref_b = ck.gn_stats_ab_reference(x, scale, bias, groups, 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a, ref_a, **TOL)
+    torch.testing.assert_close(b, ref_b, **TOL)
+    a2, b2 = ck.gn_stats_ab(x, scale, bias, groups)
+    assert torch.equal(a, a2) and torch.equal(b, b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 16, 12, 512, 256), (16, 256, 64, 128, 128)])
+def test_gn_silu_conv3x3_bf16_kernel_repeats_bitwise(cuda, shape):
+    x, gs, gb, wk, bt, skip = _bf16_chain_inputs(cuda, shape, True, 10)
+    first = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32, skip=skip, skip_coef=0.5)
+    again = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32, skip=skip, skip_coef=0.5)
+    assert torch.equal(first, again)
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_grad_and_bad_inputs(cuda):
     x = torch.randn(1, 8, 8, 128, device=cuda, requires_grad=True)
@@ -218,6 +321,8 @@ def test_kernel_refuses_grad_and_bad_inputs(cuda):
         ck.groupnorm_silu(x, p, p, 32)
     with pytest.raises(TypeError, match="float32"):
         ck.groupnorm_silu(x.detach().double(), p, p, 32)
+    with pytest.raises(TypeError, match="float32"):
+        ck.groupnorm_silu(x.detach().bfloat16(), p.bfloat16(), p, 32)
     with pytest.raises(ValueError, match="contiguous"):
         ck.groupnorm_silu(x.detach().transpose(1, 2), p, p, 32)
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where ``gn_silu_conv3x3``'s time goes in one 65M NCSN++ forward, by level.
 
-    python3 tools/conv_level_times.py [--frames 192] [--repo DIR]
+    python3 tools/conv_level_times.py [--frames 192] [--batch 1] [--dtype float32] [--repo DIR]
 
-Runs one forward of the 65M NCSN++ (F=256, ``--frames`` wide, seeded weights)
-on the card, records every ``gn_silu_conv3x3`` call's shape, then times each
+Runs one forward of the 65M NCSN++ (F=256, ``--frames`` wide, ``--batch``
+utterances, seeded weights; ``--dtype bf16`` for the bf16 trunk, bench.py's
+program is ``--frames 64 --batch 16 --dtype bf16``) on the card, records
+every ``gn_silu_conv3x3`` call's shape and dtype, then times each
 distinct call queued (50 calls back to back behind a device sleep, fresh
 inputs of that shape) and prints, per level (map height), the calls, the
 kernel's device time per forward and the plain version's, and the total.
@@ -32,6 +34,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--frames", type=int, default=192)
+    parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--dtype", choices=("float32", "bf16"), default="float32")
     parser.add_argument("--repo", default=ROOT)
     args = parser.parse_args()
     sys.path.insert(0, ROOT)
@@ -63,22 +67,24 @@ def main() -> int:
         return kernel(x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef)
 
     layers.groupnorm_silu_conv3x3 = ncsnpp.groupnorm_silu_conv3x3 = recording
-    model = ncsnpp.NCSNpp(generator=torch.Generator().manual_seed(0)).to(dev).eval()
-    x = torch.randn((1, 2, 256, args.frames), dtype=torch.complex64, device=dev)
+    trunk = {} if args.dtype == "float32" else {"dtype": args.dtype}  # a parent takes no dtype
+    model = ncsnpp.NCSNpp(generator=torch.Generator().manual_seed(0), **trunk).to(dev).eval()
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    x = torch.randn((args.batch, 2, 256, args.frames), dtype=torch.complex64, device=dev)
     with torch.no_grad():
-        model(x, torch.tensor([0.5], device=dev))
+        model(x, torch.full((args.batch,), 0.5, device=dev))
     torch.cuda.synchronize()
-    print(f"T={args.frames}: {sum(calls.values())} gn_silu_conv3x3 calls, "
-          f"{len(calls)} distinct shapes")
+    print(f"B={args.batch} T={args.frames} {args.dtype}: {sum(calls.values())} gn_silu_conv3x3 "
+          f"calls, {len(calls)} distinct shapes")
 
     rng = np.random.default_rng(0)
     levels = defaultdict(lambda: [0, 0.0, 0.0])
     for (b, h, w, cin, cout, with_skip), n in sorted(calls.items()):
         def t(*shape, scale=1.0):
             return torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
-        xs, gs, gb = t(b, h, w, cin), 1 + t(cin, scale=0.1), t(cin, scale=0.1)
+        xs, gs, gb = t(b, h, w, cin).to(dtype), 1 + t(cin, scale=0.1), t(cin, scale=0.1)
         wk, bt = t(3, 3, cin, cout, scale=0.05), t(b, cout, scale=0.1)
-        skip = t(b, h, w, cout) if with_skip else None
+        skip = t(b, h, w, cout).to(dtype) if with_skip else None
         kw = dict(skip=skip, skip_coef=0.5)
         ms = queued_ms(lambda: kernel(xs, gs, gb, wk, bt, 32, **kw))
         plain = queued_ms(lambda: ck.groupnorm_silu_conv3x3_reference(xs, gs, gb, wk, bt, 32, **kw))
