@@ -43,8 +43,12 @@ Phases, each of which must pass:
    16 at 64 frames (the large level with and without skip, the deep levels,
    the heads; GroupNorm bf16 -> bf16 and bf16 -> float32; the statistics
    pass), within one bfloat16 ulp but on at most ``BF16_SHARE`` of the
-   elements (``bf16_agreement``), with times, bounds (products over the bf16
-   tensor-core peak) and library times.
+   elements (``bf16_agreement``), with each conv shape's plan (the
+   packed-weight ``wgmma.ss`` kernel where the plan sends it, given
+   ``pack_conv_weight_bf16``'s weight as the model gives it), times, bounds
+   (products over the bf16 tensor-core peak) and library times. At bench.py's
+   large levels also cuDNN's bf16 conv alone on the pre-activated input: a
+   yardstick for the product part only, which the port never calls.
 7. The 65M ``NCSNpp(dtype="bf16", fuse_pyramid=True)`` at B=1, T=64 on the
    card, with redrawn weights and with the network's own seeded
    initialisation: the whole forward against the CPU and against the float32
@@ -52,14 +56,16 @@ Phases, each of which must pass:
    ``BF16_GAP_RATIO`` of that bf16-vs-float32 gap), 81/28 launches per
    forward; with redrawn weights also each block, attention and Combine of
    the card's forward run again on the CPU from the card's inputs (within
-   ``BF16_MODULE_ULPS``).
+   ``BF16_MODULE_ULPS``). The bf16 weight casts (``weight_casts``) of the
+   first forward, and none in the next.
 8. bench.py's program (bench.py:147-160) from the port's modules: 16
    utterances of 64 frames, each row normalised by its max-abs, STFT,
    ``spec_fwd``, ``pad_spec``, 30 reverse_diffusion + ald steps, ``to_audio``,
    times the norm, with the bf16 trunk and with the float32 trunk on the same
    weights and noise draws: wall, device kernel time (``torch.profiler``),
    idle share and launches for each, both outputs finite, and their gap;
-   4860/1680 kernel launches per batch in bf16.
+   4860/1680 kernel launches per batch in bf16, the ``wgmma.ss`` kernel's
+   among them, and no bf16 weight cast after the warm-up batch.
 
 Phase 2 runs with TF32 off for cuDNN and matmul (the plain version's cuDNN
 conv would otherwise be the less accurate side); phases 3 to 5 run with
@@ -70,7 +76,8 @@ The line before the last is a JSON object of the kernels (times in ms; the
 bound is the larger of bytes over 3.35 TB/s and operations over their peak:
 the conv's products in 3xTF32, three TF32 products each, over 495 TFLOP/s,
 or in bf16 over 989 TFLOP/s, other float32 work over 67 TFLOP/s, the H100
-SXM's peaks), the bf16 instantiations as kernels of their own; the last line is
+SXM's peaks), the bf16 instantiations as kernels of their own (the
+packed-weight ``wgmma.ss`` kernel apart from the others); the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or any phase fails.
 """
@@ -148,7 +155,8 @@ BF16_K1_SHAPES = K1_SHAPES + K2_SHAPES + [
     (16, 4, 1, 256, 4, False)]
 BF16_K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256), (16, 256, 64, 128), (16, 16, 4, 256)]
 BF16_STATS_SHAPES = [(1, 256, 64, 128), (16, 256, 64, 128), (16, 16, 4, 256)]
-BF16_REPORT_CONV = (16, 256, 64, 128, 128, True)
+BF16_REPORT_CONV = (16, 256, 64, 128, 128, True)   # the wgmma.ss kernel's line
+BF16_REPORT_DEEP = (16, 16, 4, 512, 256, False)    # the other bf16 instantiations'
 BF16_REPORT_K3 = (16, 256, 64, 128)
 # bf16 kernel vs plain version, both summing in float32 in other orders: one
 # bfloat16 ulp, but where a sum cancels far below its terms (there the
@@ -170,6 +178,8 @@ BF16_GAP_RATIO = 1.0
 BENCH_BATCH = 16
 BENCH_FRAMES = 64
 BENCH_STEPS = 30
+# gn_silu_conv3x3's instantiations (ops/cuda_kernels.py CONV_CONFIGS), by id
+CONV_NAMES = ("mma.sync 64x64", "mma.sync 128x8", "wgmma", "wgmma.ss")
 
 
 def median_ms(torch, fn, reps=20, warmup=3):
@@ -418,12 +428,15 @@ def check_bf16_kernels(torch, ck, dev):
     Returns their records at bench.py's shapes."""
     import torch.nn.functional as F
 
+    from diffse_tpu_torch.utils import queued_ms
+
     rng = np.random.default_rng(6)
 
     def t(a, dtype=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev, dtype)
 
-    result = {"gn_silu_conv3x3": {"max_abs_err": 0.0}, "groupnorm_silu": {"max_abs_err": 0.0}}
+    result = {"gn_silu_conv3x3": {"max_abs_err": 0.0}, "gn_silu_conv3x3_ws": {"max_abs_err": 0.0},
+              "groupnorm_silu": {"max_abs_err": 0.0}}
     failures = []
     for b, h, w, cin, cout, with_skip in BF16_K1_SHAPES:
         x = t(rng.standard_normal((b, h, w, cin)), torch.bfloat16)
@@ -435,28 +448,46 @@ def check_bf16_kernels(torch, ck, dev):
         groups = min(cin // 4, 32)
         args = (x, gs, gb, wk, bt, groups)
         kw = dict(skip=skip, skip_coef=1 / np.sqrt(2.0))
-        out = ck.groupnorm_silu_conv3x3(*args, **kw)
+        packed = ck.pack_conv_weight_bf16(wk)  # as a bf16 block keeps it
+        out = ck.groupnorm_silu_conv3x3(*args, **kw, w_packed=packed)
         ref = ck.groupnorm_silu_conv3x3_reference(*args, **kw)
         torch.cuda.synchronize()
         ok, share, err = bf16_agreement(torch, out, ref)
         ok = ok and out.dtype == torch.bfloat16
-        times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw),
+        times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw, w_packed=packed),
                        lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
         bound_ms, bound_by = conv_bounds(b, h, w, cin, cout, with_skip, act_bytes=2)["bf16"]
         plan = ck.conv_plan(b, h, w, cin, cout, torch.bfloat16)
         bm, bn, _, instruction = ck.CONV_CONFIGS[plan.config][:4]
         name = f"gn_silu_conv3x3 bf16 {[b, h, w, cin]}->{cout}{' +skip' if with_skip else ''}"
+        yardstick = ""
+        if b == BENCH_BATCH and plan.config == ck.CONV_WGMMA_SS and h * w >= 64 * 16:
+            # cuDNN's bf16 conv alone, on the input activated and rounded as
+            # the kernel's prologue rounds it: the product part's yardstick
+            a, bb = ck.gn_stats_ab(x, gs, gb, groups)
+            v = x.float() * a[:, None, None, :] + bb[:, None, None, :]
+            act = (v * torch.sigmoid(v)).bfloat16().permute(0, 3, 1, 2)
+            wb = wk.permute(3, 2, 0, 1).bfloat16().contiguous(memory_format=torch.channels_last)
+            conv = lambda: F.conv2d(act, wb, padding=1)  # noqa: E731
+            cudnn_ms, cudnn_queued = median_ms(torch, conv), queued_ms(conv)
+            yardstick = (f" | cuDNN bf16 conv alone on the pre-activated input (yardstick for the "
+                         f"products only, not the same function): {cudnn_ms:.4f} ms (queued "
+                         f"{cudnn_queued:.4f})")
         print(f"{name}: max_abs_err {err:.3e}, share beyond 1 bf16 ulp {share:.2e} (limit "
               f"{BF16_SHARE}) ok {ok} | {describe(times, bound_ms, bound_by)} | plan: "
               f"{instruction} bf16, {bm}x{bn} block, tile {plan.th}x{plan.tw}, grid {plan.grid} = "
               f"{plan.ctas} CTAs, K split {plan.splits} x {plan.units_per_split} of {plan.units} "
-              f"units, {plan.smem_bytes} B shared")
-        r = result["gn_silu_conv3x3"]
+              f"units, {plan.smem_bytes} B shared{yardstick}")
+        r = result["gn_silu_conv3x3_ws" if plan.config == ck.CONV_WGMMA_SS else "gn_silu_conv3x3"]
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if (b, h, w, cin, cout, with_skip) == BF16_REPORT_CONV:
-            r.update(times, bound_ms=bound_ms, bound_by=bound_by)
+        if (b, h, w, cin, cout, with_skip) in (BF16_REPORT_CONV, BF16_REPORT_DEEP):
+            r.update(times, bound_ms=bound_ms, bound_by=bound_by,
+                     plan=f"{instruction} tile {plan.th}x{plan.tw} grid {list(plan.grid)}",
+                     shape=name.split(" ", 2)[2])
         if not ok:
             failures.append(name)
+    if "ms" not in result["gn_silu_conv3x3_ws"]:
+        failures.append(f"{BF16_REPORT_CONV} is not planned on the wgmma.ss kernel")
     for shape in BF16_K3_SHAPES:
         b, h, w, c = shape
         x = t(2 * rng.standard_normal(shape) + 1, torch.bfloat16)
@@ -833,8 +864,15 @@ def check_bf16_forward(torch, ck, dev):
             out16 = card(xd, td)
             torch.cuda.synchronize()
             counts = dict(ck.launch_counts)
+            first_casts = ck.weight_casts["gn_silu_conv3x3"]
             for hook in hooks:
                 hook.remove()
+            ck.reset_launch_counts()  # the next forward: no cast, and which kernels ran
+            card(xd, td)
+            torch.cuda.synchronize()
+            casts, by_config = ck.weight_casts["gn_silu_conv3x3"], list(ck.conv_config_launches)
+            if counts != dict(ck.launch_counts):
+                failures.append(f"{label}: launches {dict(ck.launch_counts)} in the second forward")
             out32 = f32(xd, td)
             ref = cpu(x, t)
             ms16 = median_ms(torch, lambda: card(xd, td), reps=5, warmup=1)
@@ -857,7 +895,9 @@ def check_bf16_forward(torch, ck, dev):
         print(f"bf16 NCSN++ forward ({label}, F=256 T={BENCH_FRAMES}): card vs CPU "
               f"max|diff|/max|ref| {gap_cpu:.3e}; bf16 vs float32 on the card {gap_f32:.3e}; "
               f"ratio {ratio:.3f} (limit {limit:.3f}); forward {ms16:.2f} ms bf16, {ms32:.2f} ms "
-              f"float32 on the card; launches per forward {counts}")
+              f"float32 on the card; launches per forward {counts}, by instantiation "
+              f"{dict(zip(CONV_NAMES, by_config))}; bf16 weight casts: {first_casts} in the "
+              f"first forward, {casts} in the next")
         if records:
             print(f"  {len(records)} modules of the card's forward run on the CPU from the card's "
                   f"inputs: worst error {worst_ulps:.2f} bf16 ulps of the module's largest "
@@ -869,10 +909,22 @@ def check_bf16_forward(torch, ck, dev):
             failures.append(f"{label}: card vs CPU {gap_cpu:.3e} is {ratio:.3f} of the bf16 gap")
         if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}:
             failures.append(f"{label}: launch counts per forward {counts}, expected 81 and 28")
+        if casts != 0 or first_casts == 0:
+            failures.append(f"{label}: {first_casts} bf16 weight casts in the first forward, "
+                            f"{casts} in the next (expected some, then none)")
+        if by_config[ck.CONV_WGMMA_SS] == 0:
+            failures.append(f"{label}: the wgmma.ss kernel did not run")
         del card, cpu, f32, records
     if failures:
         raise AssertionError("; ".join(failures))
-    return counts
+    return {**counts, **conv_launches(ck, by_config)}
+
+
+def conv_launches(ck, by_config):
+    """gn_silu_conv3x3's bf16 launches split between the wgmma.ss kernel and
+    the other instantiations, from ``conv_config_launches``."""
+    ws = by_config[ck.CONV_WGMMA_SS]
+    return {"gn_silu_conv3x3_ws": ws, "gn_silu_conv3x3_other": sum(by_config) - ws}
 
 
 def run_bf16_program(torch, ck, dev):
@@ -919,6 +971,7 @@ def run_bf16_program(torch, ck, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[name] = dict(ck.launch_counts)
+        casts, by_config = ck.weight_casts["gn_silu_conv3x3"], list(ck.conv_config_launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             program(model, 2)
@@ -937,9 +990,17 @@ def run_bf16_program(torch, ck, dev):
               f"{2 * BENCH_STEPS} forwards: wall {wall:.3f} s ({BENCH_BATCH * audio_len / SR / wall:.2f}"
               f" s of audio per s); profiled wall {wall_profiled:.3f} s, device kernel time "
               f"{device_us / 1e6:.3f} s, idle share {idle}; {launches} device kernel launches; "
-              f"kernel wrapper launches {counts[name]}; output {tuple(out.shape)} finite {finite}")
+              f"kernel wrapper launches {counts[name]}, conv by instantiation "
+              f"{dict(zip(CONV_NAMES, by_config))}; bf16 weight casts after the warm-up batch "
+              f"{casts}; output {tuple(out.shape)} finite {finite}")
         if tuple(out.shape) != (BENCH_BATCH, audio_len) or not finite:
             failures.append(f"{name}: output {tuple(out.shape)}, finite {finite}")
+        if casts:
+            failures.append(f"{name}: {casts} bf16 weight casts after the warm-up batch")
+        if name == "bf16":
+            ws_launches = conv_launches(ck, by_config)
+            if ws_launches["gn_silu_conv3x3_ws"] == 0:
+                failures.append("bf16: the wgmma.ss kernel did not run")
     gap = relative_gap(outs["bf16"], outs["float32"])
     print(f"bench program: bf16 vs float32 trunk, same weights and noise draws: "
           f"max|diff|/max|ref| {gap:.3e}")
@@ -950,7 +1011,7 @@ def run_bf16_program(torch, ck, dev):
             failures.append(f"{name}: launch counts {counts[name]}, expected {expected}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return counts["bf16"]
+    return {**counts["bf16"], **ws_launches}
 
 
 def main() -> int:
@@ -1024,7 +1085,12 @@ def main() -> int:
         {"name": "gn_silu_conv3x3_bf16", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:269",
          "also_replaces": "diffse_tpu/ops/pallas_kernels.py:350",
-         **launches("gn_silu_conv3x3", bf16_paths), **results["bf16_kernels"]["gn_silu_conv3x3"]},
+         **launches("gn_silu_conv3x3_other", bf16_paths),
+         **results["bf16_kernels"]["gn_silu_conv3x3"]},
+        {"name": "gn_silu_conv3x3_bf16_wgmma_ss", **gn_source,
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:269",
+         **launches("gn_silu_conv3x3_ws", bf16_paths),
+         **results["bf16_kernels"]["gn_silu_conv3x3_ws"]},
         {"name": "groupnorm_silu_bf16", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
          **launches("groupnorm_silu", bf16_paths), **results["bf16_kernels"]["groupnorm_silu"]},

@@ -77,21 +77,32 @@
 //   - the apply pass reads bf16 and writes bf16 or float32 (the attention's
 //     norm, which flax promotes to float32);
 //   - the conv's K chunk is 16 channels (32 bytes of a position, as in
-//     float32), one k16 product per tap: the prologue computes x*a+b and
-//     SiLU in float32 and rounds each activated element to bf16 once (round
-//     to nearest even), into the same halo tile the taps share; the weights
-//     stay float32 in device memory and in the ring, and each thread rounds
-//     its fragment to bf16 (to nearest even) as it loads it, as the TF32
-//     kernels split theirs. Products on the tensor cores, summed in float32:
-//     wgmma m64n32k16 .f32.bf16.bf16 on the large levels (the tile K-major in
-//     two planes of 8 channels, so a tap is still a shift of the descriptor's
-//     start; one block per SM: the float32 weights of a 16-channel chunk take
-//     76 KB a stage), mma.sync m16n8k16 .bf16 elsewhere. Split-K partials
-//     stay float32; bias, skip and scale are applied in float32 and the
-//     output rounded to bf16 once.
-//   Bound at the large levels by the weights' staging and the prologue
-//   rather than the products (989 TFLOP/s for bf16 against 495 for one TF32
-//   pass); a simple kernel first.
+//     float32), one k16 product per tap; the prologue computes x*a+b and SiLU
+//     in float32 and rounds each activated element to bf16 once (round to
+//     nearest even). Products on the tensor cores, summed in float32; bias,
+//     skip and scale in float32, the output rounded to bf16 once; split-K
+//     partials stay float32.
+//   - The large levels (and bench.py's batch of 16 from W = 8) run
+//     gn_silu_conv3x3_ws_kernel, which replaces K1 (`_gn_silu_conv3x3_kernel`,
+//     pallas_kernels.py:269) there. Its products are 2*B*H*W*9*Cin*Cout
+//     operations over 989 TFLOP/s (0.078 ms at [16,256,64,128]->128), above
+//     the bytes of x, skip and out (0.060 ms over 3.35 TB/s); what stands
+//     between them is staging and the prologue. So the weights are cast to
+//     bf16 once per weight, in the layout wgmma reads from shared memory
+//     (ops/cuda_kernels.py::pack_conv_weight_bf16), and move as one 36 KB bulk
+//     copy per chunk; a block covers 256 flat halo positions (the tile's rows
+//     at pitch W + 2, so that narrow maps fill a wgmma's N) by 128 output
+//     channels, so each staged weight byte feeds 224-256 positions; a
+//     producer warpgroup keeps a 4-stage ring full (mbarriers, no block-wide
+//     barrier per chunk), and the prologue runs on all the block's warps,
+//     the consumers' share after they issue a chunk's wgmmas, into 3
+//     activated tiles, so that it overlaps the tensor cores. Details at the
+//     kernel.
+//   - Elsewhere (the deep levels, the Cout = 4 heads, one utterance's narrow
+//     levels) the float32 kernels' bf16 instantiations: wgmma m64n32k16
+//     .f32.bf16.bf16 (the weights float32 in the ring, each thread rounding
+//     its fragment to bf16 as it loads it; one block per SM, the float32
+//     weights of a chunk taking 76 KB a stage) and mma.sync m16n8k16 .bf16.
 //
 // Each entry point launches on the given stream and returns a cudaError_t
 // (cudaGetLastError after the launches); the Python wrapper raises when it is
@@ -123,11 +134,11 @@ constexpr int kStages = 3;      // depth of the cp.async ring
 constexpr int kActFloats = 16;
 
 // Hooks for tools/trace_conv_phases.py, which builds this file with
-// -DDIFFSE_CONV_TRACE: block (0, 0, 0) of the wgmma kernel records clock64()
-// at the phases of its first 64 chunks, per warpgroup. Without the flag they
-// compile to nothing.
+// -DDIFFSE_CONV_TRACE: block (0, 0, 0) of a wgmma kernel records clock64()
+// at the phases of its first 64 chunks, per warpgroup (row 2: the producer
+// warpgroup of the wgmma.ss kernel). Without the flag they compile to nothing.
 #ifdef DIFFSE_CONV_TRACE
-__device__ long long g_conv_trace[2][64][8];
+__device__ long long g_conv_trace[3][64][8];
 #define CONV_TRACE(k)                                                                  \
   if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 && tid % 128 == 0 && i < 64) \
   g_conv_trace[tid / 128][i][k] = clock64()
@@ -1106,6 +1117,478 @@ gn_silu_conv3x3_wgmma_kernel(const ConvArgs<T> p) {
   }
 }
 
+// ------------------------------------------ bf16 large levels: wgmma.ss kernel
+
+// d += a * b, wgmma m64n256k16 bf16, both operands K-major in shared memory,
+// given by their descriptors
+__device__ __forceinline__ void wgmma_n256_ss(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// smem_desc at a shared-memory address
+__device__ __forceinline__ uint64_t smem_desc_at(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// mbarriers (shared memory, 8 bytes each) and the copies that complete on them
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// arrive, and expect `bytes` more to land (a bulk copy's complete_tx)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// this thread's cp.async copies so far arrive on bar when they have landed
+// (one arrival: the barrier's count includes it)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// bytes (a multiple of 16) from global to shared memory on the copy engine,
+// completing on bar
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// barrier `id` over the first n threads of the block
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// SiLU for the wgmma.ss kernel's prologue, without branches: 1 + exp(-v)
+// (capped below where exp overflows), its reciprocal by rcp.approx and one
+// Newton step (within an ulp of the correctly rounded 1 / y that torch's
+// sigmoid divides out; the general division's slow path is a branch that
+// keeps the compiler from overlapping elements), times v.
+__device__ __forceinline__ float silu_nr(float v) {
+  const float y = fminf(__fadd_rn(1.0f, expf(-v)), 0x1p126f);
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(y));
+  r = __fmaf_rn(__fmaf_rn(-y, r, 1.0f), r, r);
+  return __fmul_rn(v, r);
+}
+
+// The bf16 large-level kernel's sizes. A block computes 128 output channels
+// (two consumer warpgroups of 64) of kWsN flat halo positions (see below), K
+// in chunks of 16 input channels, fed by a producer warpgroup.
+constexpr int kWsN = 256;                          // positions of one wgmma (its N)
+constexpr int kWsBN = 128;                         // output channels of a block
+constexpr int kWsStages = 4;                       // depth of the ring
+constexpr int kWsTiles = 3;                        // activated tiles
+constexpr int kWsConsumers = 256;                  // two warpgroups
+constexpr int kWsProducers = 128;                  // one warpgroup
+constexpr int kWsThreads = kWsConsumers + kWsProducers;
+constexpr int kWsCopies = 7;                       // 16-byte halo copies a producer thread
+constexpr int kWsGroup = 4;                        // prologue words in flight a thread
+constexpr int kWsTileBytes = 9 * 16 * kWsBN * 2;   // a chunk's packed bf16 weights
+constexpr int kWsEpiStride = kWsBN + 4;            // floats a position in the epilogue
+constexpr int kWsEpiGroup = 8;                     // epilogue stores a thread's loads run ahead of
+
+// Positions of the activated flat halo (pitch = tile width + 2): a wgmma's
+// kWsN and the farthest tap's shift (2 rows and 2), in whole core matrices.
+__host__ __device__ inline int ws_halo_len(int pitch) { return (kWsN + 2 * pitch + 2 + 7) / 8 * 8; }
+// Positions between the activated tile's two channel planes: 16 mod 32 words,
+// so that the prologue's stores to both planes miss bank conflicts.
+__host__ __device__ inline int ws_plane(int pitch) { return ws_halo_len(pitch) + 4; }
+// Dynamic shared memory of the wgmma.ss kernel (conv_ws_smem_bytes in Python):
+// the ring (packed weights and raw x halo a stage), the activated tiles, the
+// halo's map offsets and the barriers. The epilogue reuses the ring.
+__host__ __device__ inline int ws_smem_bytes(int pitch) {
+  const int halo = ws_halo_len(pitch);
+  return kWsStages * (kWsTileBytes + halo * 32) + kWsTiles * ws_plane(pitch) * 32 + halo * 4 +
+         (2 * kWsStages + 2 * kWsTiles) * 8;
+}
+static_assert(kWsStages * kWsTileBytes >= kWsN * kWsEpiStride * 4, "the epilogue reuses the ring");
+
+// The wgmma.ss kernel's arguments: ConvArgs<bf16>'s and the packed weights,
+// after w (the kernel reads only w_packed; this is the layout measured, 2-7%
+// faster than the packed pointer in w's place). A struct of its own: the
+// field added to ConvArgs changed the other kernels' code and cost them 3-17%
+// (PERF.md).
+struct WsArgs {
+  const bf16* x;          // [B, H, W, Cin]
+  const float* a;         // [B, Cin] GroupNorm affine
+  const float* b;
+  const float* w;         // the float32 weights
+  const void* w_packed;   // pack_conv_weight_bf16's layout
+  const float* bias;      // row bi at bias + bi * bias_row_stride
+  int bias_row_stride;
+  const bf16* skip;       // [B, H, W, Cout] or null
+  float skip_coef;
+  bf16* out;              // [B, H, W, Cout]
+  float* partial;         // [splits, B*H*W, Cout] when splits > 1
+  int batch, h, wd, cin, cout;
+  int th, tw, tiles_w, tiles_per_image;
+  int units_per_split, splits;
+};
+
+// The bf16 large levels: wgmma m64n256k16 with both operands in shared memory,
+// warp-specialized.
+// - Weights, operand A (M = 64 output channels a warpgroup): packed once per
+//   weight by pack_conv_weight_bf16 (ops/cuda_kernels.py) into the K-major
+//   core matrices of each (Cout tile, chunk): [tap][half][K 8-group][row
+//   8-group][row][8 k] bf16, 36 KB, one bulk copy a stage.
+// - Activations, operand B (N = kWsN positions): the block's tile of th rows
+//   by tw columns is a flat halo of pitch tw + 2. Output (r, c) is flat index
+//   q = r * pitch + c, and tap (dy, dx) reads the activated halo at q + (1 +
+//   dy) * pitch + 1 + dx: one shift of the descriptor's start for all rows, so
+//   one wgmma covers several rows of a narrow map (the two halo columns of
+//   each row are computed and dropped). The tile is K-major in two planes of
+//   8 channels, as in the wgmma kernel.
+// - The producer warpgroup keeps a kWsStages-deep ring full (mbarriers
+//   full / stage_empty): the weights by one bulk copy, the raw x halo by
+//   cp.async (positions outside the map are not read), kWsStages - 2 chunks
+//   ahead of the prologue.
+// - The prologue (x*a+b, SiLU, the SAME zero padding after the activation,
+//   one rounding to bf16) fills kWsTiles activated tiles (act_full /
+//   act_empty), a chunk ahead of the wgmmas. A warp that issues wgmma stalls
+//   while the tensor cores' queue is full, so the producers take a third of
+//   it and the consumer warpgroups the rest: they issue chunk i's nine
+//   wgmmas (chunk i - 1's still in flight), wait for chunk i - 1's and free
+//   its stage and tile, then activate their share of chunk i + 1 while chunk
+//   i's run. A chunk's cost is set by the prologue's throughput on the SM
+//   (tools/trace_conv_phases.py --dtype bf16).
+// - Epilogue: the accumulators through shared memory, [position][Cout]
+//   float32, then 16-byte stores: bias, skip and scale in float32, one
+//   rounding to bf16 (or float32 partial sums when K is split).
+// grid (B * tiles_per_image, ceil(Cout / 128), splits); H > 1, W > 1, th *
+// (tw + 2) <= kWsN, units_per_split whole chunks (a multiple of 9).
+__global__ void __launch_bounds__(kWsThreads, 1)
+gn_silu_conv3x3_ws_kernel(const WsArgs p) {
+  extern __shared__ __align__(128) unsigned char ws_smem[];
+  const int tid = threadIdx.x;
+  const int bi = blockIdx.x / p.tiles_per_image;
+  const int tile = blockIdx.x - bi * p.tiles_per_image;
+  const int oh0 = (tile / p.tiles_w) * p.th;
+  const int ow0 = (tile % p.tiles_w) * p.tw;
+  const int pitch = p.tw + 2;
+  const int halo_real = (p.th + 2) * pitch;
+  const int halo = ws_halo_len(pitch);
+  const int plane = ws_plane(pitch);
+  const int per = p.units_per_split / 9;
+  const int c0 = blockIdx.z * per;
+  const int nchunks = min(p.cin / 16 - c0, per);
+  unsigned char* w_s = ws_smem;                                  // [stages][36 KB]
+  unsigned char* raw_s = w_s + kWsStages * kWsTileBytes;         // [stages][halo][32 B]
+  unsigned char* act_s = raw_s + kWsStages * halo * 32;          // [tiles][2 planes][plane][16 B]
+  int* offs = reinterpret_cast<int*>(act_s + kWsTiles * plane * 32);  // [halo]
+  uint64_t* full = reinterpret_cast<uint64_t*>(offs + halo);     // [stages]
+  uint64_t* stage_empty = full + kWsStages;                      // [stages]
+  uint64_t* act_full = stage_empty + kWsStages;                  // [tiles]
+  uint64_t* act_empty = act_full + kWsTiles;                     // [tiles]
+
+  // the map position (ih * W + iw) of each halo position, -1 outside the map
+  for (int hp = tid; hp < halo; hp += kWsThreads) {
+    int off = -1;
+    if (hp < halo_real) {
+      const int hr = hp / pitch;
+      const int ih = oh0 - 1 + hr;
+      const int iw = ow0 - 1 + (hp - hr * pitch);
+      if (ih >= 0 && ih < p.h && iw >= 0 && iw < p.wd) off = ih * p.wd + iw;
+    }
+    offs[hp] = off;
+  }
+  // the activated tiles' positions past the halo, which the last output
+  // columns' taps read and the prologue never writes: zero
+  for (int e = halo_real * 4 + tid; e < halo * 4; e += kWsThreads) {
+    for (int b = 0; b < kWsTiles; ++b) {
+      uint32_t* as = reinterpret_cast<uint32_t*>(act_s + b * plane * 32);
+      as[e] = 0u;
+      as[plane * 4 + e] = 0u;
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < kWsStages; ++s) {
+      mbar_init(full + s, kWsProducers + 1);  // each producer's cp.async, one expect_tx
+      mbar_init(stage_empty + s, kWsConsumers);
+    }
+    for (int b = 0; b < kWsTiles; ++b) {
+      mbar_init(act_full + b, kWsThreads);
+      mbar_init(act_empty + b, kWsConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // The prologue of chunk i, from its raw stage into activated tile i %
+  // tiles, shared by all the block's threads: slot (the producers 0..127,
+  // the consumers 128..383) takes the words slot + 384k, always of the
+  // channel pair (2j, 2j + 1), j = slot % 8. kWsGroup words a thread loads
+  // before it stores any: the compiler cannot move a load above a store to the
+  // same shared memory, and the elements' exp and reciprocal chains overlap
+  // only this way.
+  auto activate = [&](int i, int slot) {
+    const int jp = slot & 7;
+    const long long ch = static_cast<long long>(bi) * p.cin + (c0 + i) * 16 + 2 * jp;
+    const float a0 = __ldg(p.a + ch), a1 = __ldg(p.a + ch + 1);
+    const float b0 = __ldg(p.b + ch), b1 = __ldg(p.b + ch + 1);
+    const uint32_t* rs = reinterpret_cast<const uint32_t*>(raw_s + (i % kWsStages) * halo * 32);
+    uint32_t* as = reinterpret_cast<uint32_t*>(act_s + (i % kWsTiles) * plane * 32) +
+                   (jp >> 2) * plane * 4 + (jp & 3);
+    for (int e0 = slot; e0 < halo_real * 8; e0 += kWsGroup * kWsThreads) {
+      uint32_t xw[kWsGroup];
+      bool in_map[kWsGroup];
+#pragma unroll
+      for (int u = 0; u < kWsGroup; ++u) {
+        const int e = min(e0 + u * kWsThreads, halo_real * 8 - 1);
+        xw[u] = rs[e];
+        in_map[u] = offs[e >> 3] >= 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kWsGroup; ++u) {
+        const int e = e0 + u * kWsThreads;
+        const float v0 = silu_nr(affine_rn(bf16_lo(xw[u]), a0, b0));
+        const float v1 = silu_nr(affine_rn(bf16_hi(xw[u]), a1, b1));
+        if (e < halo_real * 8) as[(e >> 3) * 4] = in_map[u] ? pack_bf16x2(v0, v1) : 0u;
+      }
+    }
+    fence_proxy_async();
+    mbar_arrive(act_full + i % kWsTiles);
+  };
+
+  if (tid >= kWsConsumers) {  // the producer warpgroup
+    const int pt = tid - kWsConsumers;
+    const bf16* xb = p.x + static_cast<long long>(bi) * p.h * p.wd * p.cin + c0 * 16;
+    const unsigned char* wsrc = static_cast<const unsigned char*>(p.w_packed) +
+                                (static_cast<long long>(blockIdx.y) * (p.cin / 16) + c0) *
+                                    kWsTileBytes;
+    // this thread's 16-byte pieces of the halo (8 channels of a position),
+    // the same every chunk: their offsets in x's batch row, -1 if not read
+    int src[kWsCopies];
+#pragma unroll
+    for (int k = 0; k < kWsCopies; ++k) {
+      const int e = pt + k * kWsProducers;
+      const int off = e < 2 * halo_real ? offs[e >> 1] : -1;
+      src[k] = off >= 0 ? off * p.cin + (e & 1) * 8 : -1;
+    }
+    // chunk j into stage j % kWsStages, once its last user (chunk j - stages) is done
+    auto stage_in = [&](int j) {
+      const int s = j % kWsStages;
+      if (j >= kWsStages) mbar_wait(stage_empty + s, (j / kWsStages - 1) & 1);
+      if (pt == 0) {
+        mbar_arrive_expect_tx(full + s, kWsTileBytes);
+        bulk_copy_g2s(w_s + s * kWsTileBytes, wsrc + static_cast<long long>(j) * kWsTileBytes,
+                      kWsTileBytes, full + s);
+      }
+      unsigned char* rs = raw_s + s * halo * 32;
+#pragma unroll
+      for (int k = 0; k < kWsCopies; ++k) {
+        if (src[k] >= 0) cp_async16(rs + (pt + k * kWsProducers) * 16, xb + src[k] + j * 16, true);
+      }
+      cp_async_arrive_noinc(full + s);
+    };
+    // copies run two chunks ahead of the prologue: stage (i + 2) % 4 was
+    // chunk i - 2's, whose wgmmas are done by the time chunk i is activated
+    for (int j = 0; j < min(kWsStages - 2, nchunks); ++j) stage_in(j);
+    for (int i = 0; i < nchunks; ++i) {
+      CONV_TRACE(0);
+      mbar_wait(full + i % kWsStages, (i / kWsStages) & 1);
+      CONV_TRACE(1);
+      if (i >= kWsTiles) mbar_wait(act_empty + i % kWsTiles, (i / kWsTiles - 1) & 1);
+      CONV_TRACE(2);
+      activate(i, pt);
+      CONV_TRACE(3);
+      if (i + kWsStages - 2 < nchunks) stage_in(i + kWsStages - 2);
+      CONV_TRACE(4);
+    }
+    return;  // every copy it issued has landed: it waited for each chunk's copies
+  }
+
+  // The consumers: warpgroup wg computes output channels wg * 64 .. + 63.
+  // They activate their share of chunk i + 1 while chunk i's wgmmas run
+  // (after the issue, which stalls while the tensor cores' queue is full).
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+  const int slot = tid + kWsProducers;
+  float acc[kWsN / 2];
+#pragma unroll
+  for (int j = 0; j < kWsN / 2; ++j) acc[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kWsN / 2; ++j) fence_operand(acc[j]);
+  const uint32_t w_addr = smem_u32(w_s) + wg * 2048;
+  const uint32_t act_addr = smem_u32(act_s);
+  mbar_wait(full, 0);
+  activate(0, slot);
+  for (int i = 0; i < nchunks; ++i) {
+    const int s = i % kWsStages;
+    const uint32_t wa = w_addr + s * kWsTileBytes;
+    const uint32_t ba = act_addr + (i % kWsTiles) * plane * 32;
+    CONV_TRACE(0);
+    mbar_wait(act_full + i % kWsTiles, (i / kWsTiles) & 1);
+    CONV_TRACE(1);
+    wgmma_fence();
+#pragma unroll
+    for (int l = 0; l < 9; ++l) {
+      // A: tap l's 64 x 16 (LBO: the K 8-groups 1 KB apart; SBO: row groups
+      // 128 B apart); B: the planes, shifted by the tap
+      const uint32_t shift = ((l / 3) * pitch + l % 3) * 16;
+      wgmma_n256_ss(acc, smem_desc_at(wa + l * 4096, 1024, 128),
+                    smem_desc_at(ba + shift, plane * 16, 128));
+    }
+    wgmma_commit();
+    CONV_TRACE(2);
+    if (i > 0) {  // chunk i - 1's wgmmas are done: free its stage and tile
+      wgmma_wait<1>();
+      mbar_arrive(stage_empty + (i - 1) % kWsStages);
+      mbar_arrive(act_empty + (i - 1) % kWsTiles);
+    }
+    CONV_TRACE(3);
+    if (i + 1 < nchunks) {  // while chunk i's wgmmas run
+      const int n1 = i + 1;
+      mbar_wait(full + n1 % kWsStages, (n1 / kWsStages) & 1);
+      if (n1 >= kWsTiles) mbar_wait(act_empty + n1 % kWsTiles, (n1 / kWsTiles - 1) & 1);
+      activate(n1, slot);
+    }
+    CONV_TRACE(4);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < kWsN / 2; ++j) fence_operand(acc[j]);
+  // both warpgroups are done with the ring, which now holds the accumulators
+  named_sync(1, kWsConsumers);
+
+  // Epilogue: [position][Cout] float32. Accumulator j of the m64n256
+  // fragment: row (channel) g + 8 * (j / 2 % 2) of the warp's 16, column
+  // (flat position) 8 * (j / 4) + 2t + j % 2.
+  float* tile_s = reinterpret_cast<float*>(ws_smem);
+  const int m = wg * 64 + warp * 16 + g;
+#pragma unroll
+  for (int cb = 0; cb < kWsN / 8; ++cb) {
+    const int q = cb * 8 + 2 * t;
+    tile_s[q * kWsEpiStride + m] = acc[4 * cb];
+    tile_s[(q + 1) * kWsEpiStride + m] = acc[4 * cb + 1];
+    tile_s[q * kWsEpiStride + m + 8] = acc[4 * cb + 2];
+    tile_s[(q + 1) * kWsEpiStride + m + 8] = acc[4 * cb + 3];
+  }
+  named_sync(1, kWsConsumers);
+  // kWsConsumers threads over (position, 8-channel group): a thread keeps its
+  // group (and its 8 biases), and loads the skip of kWsEpiGroup positions
+  // before it stores any (the compiler cannot move a load above a store
+  // to another array it may alias)
+  constexpr int kGroups = kWsBN / 8;
+  const int grp = tid % kGroups;
+  const int n = blockIdx.y * kWsBN + grp * 8;
+  const long long pos0 = static_cast<long long>(bi) * p.h * p.wd;
+  const int items = p.th * p.tw * kGroups;
+  float bias8[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (p.splits == 1 && n < p.cout) {
+    const float* bt = p.bias + static_cast<long long>(bi) * p.bias_row_stride + n;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) bias8[k] = __ldg(bt + k);
+  }
+  for (int e0 = tid; e0 < items; e0 += kWsEpiGroup * kWsConsumers) {
+    long long off[kWsEpiGroup];
+    int q[kWsEpiGroup];
+    uint4 kv[kWsEpiGroup];
+#pragma unroll
+    for (int u = 0; u < kWsEpiGroup; ++u) {
+      const int pt = (e0 + u * kWsConsumers) / kGroups;
+      const int r = pt / p.tw;
+      const int c = pt - r * p.tw;
+      const int oh = oh0 + r, ow = ow0 + c;
+      const bool ok = e0 + u * kWsConsumers < items && oh < p.h && ow < p.wd && n < p.cout;
+      q[u] = r * pitch + c;
+      off[u] = ok ? (pos0 + oh * p.wd + ow) * p.cout + n : -1;
+      kv[u] = make_uint4(0, 0, 0, 0);
+      if (ok && p.skip != nullptr && p.splits == 1) {
+        kv[u] = __ldg(reinterpret_cast<const uint4*>(p.skip + off[u]));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kWsEpiGroup; ++u) {
+      if (off[u] < 0) continue;
+      const float* src = tile_s + q[u] * kWsEpiStride + grp * 8;
+      const float4 lo = *reinterpret_cast<const float4*>(src);
+      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+      if (p.splits > 1) {
+        float4* dst = reinterpret_cast<float4*>(
+            p.partial + blockIdx.z * static_cast<long long>(p.batch) * p.h * p.wd * p.cout + off[u]);
+        dst[0] = lo;
+        dst[1] = hi;
+        continue;
+      }
+      float v[8] = {lo.x + bias8[0], lo.y + bias8[1], lo.z + bias8[2], lo.w + bias8[3],
+                    hi.x + bias8[4], hi.y + bias8[5], hi.z + bias8[6], hi.w + bias8[7]};
+      if (p.skip != nullptr) {
+        const uint32_t kw[4] = {kv[u].x, kv[u].y, kv[u].z, kv[u].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[2 * k] = (bf16_lo(kw[k]) + v[2 * k]) * p.skip_coef;
+          v[2 * k + 1] = (bf16_hi(kw[k]) + v[2 * k + 1]) * p.skip_coef;
+        }
+      }
+      *reinterpret_cast<uint4*>(p.out + off[u]) =
+          make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                     pack_bf16x2(v[6], v[7]));
+    }
+  }
+}
+
 // out = [(skip +)] sum over splits, in split order, + bias [* skip_coef].
 // partial: [splits, total4] float4; rows of hwc elements per batch row;
 // skip and out of T, 4 values a step.
@@ -1178,6 +1661,25 @@ cudaError_t launch_conv_wgmma(const ConvArgs<T>& p, dim3 grid, int smem_bytes,
   return cudaGetLastError();
 }
 
+cudaError_t launch_conv_ws(const ConvArgs<bf16>& c, const void* w_packed, dim3 grid,
+                           int smem_bytes, cudaStream_t stream) {
+  const WsArgs p{c.x, c.a, c.b, c.w, w_packed, c.bias, c.bias_row_stride, c.skip, c.skip_coef, c.out,
+                 c.partial, c.batch, c.h, c.wd, c.cin, c.cout, c.th, c.tw, c.tiles_w,
+                 c.tiles_per_image, c.units_per_split, c.splits};
+  if (p.w_packed == nullptr || reinterpret_cast<uintptr_t>(p.w_packed) % 16 ||
+      grid.y * kWsBN < static_cast<unsigned>(p.cout) || p.cout % 8 || p.cin % 16 ||
+      p.th * (p.tw + 2) > kWsN || 2 * (p.th + 2) * (p.tw + 2) > kWsCopies * kWsProducers ||
+      p.h < 2 || p.wd < 2 || p.units_per_split % 9 ||
+      smem_bytes < ws_smem_bytes(p.tw + 2) || smem_bytes > kSmemLimit) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(
+      gn_silu_conv3x3_ws_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  gn_silu_conv3x3_ws_kernel<<<grid, kWsThreads, smem_bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int stats_ab(const T* x, const float* scale, const float* bias, double* partial,
              int* counter, float* a, float* b, int batch, int hw, int c, int groups,
@@ -1210,7 +1712,7 @@ int gn_apply(const Tin* x, const float* a, const float* b, Tout* out, int batch,
 
 template <typename T>
 int gn_silu_conv3x3(const T* x, const float* a, const float* b, const float* w,
-                    const float* bias_total, int bias_row_stride, const T* skip,
+                    const void* w_packed, const float* bias_total, int bias_row_stride, const T* skip,
                     float skip_coef, T* out, float* partial, int batch, int h, int wd,
                     int cin, int cout, int config, int th, int tw, int tiles_w,
                     int tiles_per_image, int units_per_split, int splits, int grid_x,
@@ -1234,6 +1736,13 @@ int gn_silu_conv3x3(const T* x, const float* a, const float* b, const float* w,
     case 0: err = launch_conv<T, 64, 64, 2, 2>(p, grid, smem_bytes, st); break;
     case 1: err = launch_conv<T, 128, 8, 8, 1>(p, grid, smem_bytes, st); break;
     case 2: err = launch_conv_wgmma<T, 32>(p, grid, smem_bytes, st); break;
+    case 3:
+      if constexpr (std::is_same<T, bf16>::value) {
+        err = launch_conv_ws(p, w_packed, grid, smem_bytes, st);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
@@ -1285,7 +1794,7 @@ int diffse_gn_apply(const void* x, int in_dtype, const float* a, const float* b,
 // The plan's config ids, in the order of CONV_CONFIGS in ops/cuda_kernels.py;
 // x, skip and out of the dtype's type.
 int diffse_gn_silu_conv3x3(const void* x, int dtype, const float* a, const float* b,
-                           const float* w, const float* bias_total,
+                           const float* w, const void* w_packed, const float* bias_total,
                            int bias_row_stride, const void* skip,
                            float skip_coef, void* out, float* partial,
                            int batch, int h, int wd, int cin, int cout,
@@ -1295,13 +1804,13 @@ int diffse_gn_silu_conv3x3(const void* x, int dtype, const float* a, const float
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return gn_silu_conv3x3(static_cast<const float*>(x), a, b, w, bias_total,
+      return gn_silu_conv3x3(static_cast<const float*>(x), a, b, w, w_packed, bias_total,
                              bias_row_stride, static_cast<const float*>(skip), skip_coef,
                              static_cast<float*>(out), partial, batch, h, wd, cin, cout,
                              config, th, tw, tiles_w, tiles_per_image, units_per_split,
                              splits, grid_x, grid_y, grid_z, smem_bytes, reduce_blocks, st);
     case 1:
-      return gn_silu_conv3x3(static_cast<const bf16*>(x), a, b, w, bias_total,
+      return gn_silu_conv3x3(static_cast<const bf16*>(x), a, b, w, w_packed, bias_total,
                              bias_row_stride, static_cast<const bf16*>(skip), skip_coef,
                              static_cast<bf16*>(out), partial, batch, h, wd, cin, cout,
                              config, th, tw, tiles_w, tiles_per_image, units_per_split,

@@ -31,7 +31,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda_kernels import groupnorm_silu, groupnorm_silu_conv3x3
+from ..ops.cuda_kernels import (CONV_BK_BF16, groupnorm_silu, groupnorm_silu_conv3x3,
+                                pack_conv_weight_bf16)
 from ..ops.fir import downsample_2d, upsample_2d
 from ..utils import round_once
 
@@ -235,7 +236,9 @@ class ResnetBlockBigGANpp(nn.Module):
 
     ``dtype`` is the block's compute dtype: its input is cast to it, and in
     bfloat16 the whole block runs in it (the dense layers too, whose output
-    goes into the fused chain's float32 bias)."""
+    goes into the fused chain's float32 bias). A bfloat16 plain block keeps
+    its two fused convs' weights packed in bf16 for the kernel
+    (``packed_weight``), outside the state_dict."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int], temb_dim: int, up: bool = False,
                  down: bool = False, semb_dim: Optional[int] = None,
@@ -259,6 +262,27 @@ class ResnetBlockBigGANpp(nn.Module):
         if not (up or down):  # both convs run inside the fused kernel
             hwio_memory_(self.Conv_0)
             hwio_memory_(self.Conv_1)
+        # conv name -> ((device, data_ptr, _version), weight, packed): a plain
+        # attribute, so not in the state_dict
+        self._packed = {}
+
+    def packed_weight(self, name: str) -> Optional[torch.Tensor]:
+        """``pack_conv_weight_bf16`` of conv ``name``'s weight in a bfloat16
+        block (None in float32, or where Cin is not whole K chunks of 16, which
+        the kernels do not take), packed once and again only when the weight
+        moves or changes: the copy is keyed on the parameter's device,
+        ``data_ptr()`` and ``_version`` (an in-place update or
+        ``load_state_dict`` bumps it), and holds the weight's storage, so that
+        no other tensor takes its address while the key stands."""
+        w = getattr(self, name).weight
+        if self.compute_dtype != torch.bfloat16 or w.shape[1] % CONV_BK_BF16:
+            return None
+        key = (w.device, w.data_ptr(), w._version)
+        cached = self._packed.get(name)
+        if cached is None or cached[0] != key:
+            cached = (key, w.detach(), pack_conv_weight_bf16(conv_hwio(getattr(self, name))))
+            self._packed[name] = cached
+        return cached[2]
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor,
                 semb: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -276,14 +300,15 @@ class ResnetBlockBigGANpp(nn.Module):
             h = groupnorm_silu_conv3x3(
                 x_nhwc, self.GroupNorm_0.weight, self.GroupNorm_0.bias,
                 conv_hwio(self.Conv_0), bias0,
-                self.GroupNorm_0.num_groups, self.GroupNorm_0.eps)
+                self.GroupNorm_0.num_groups, self.GroupNorm_0.eps,
+                w_packed=self.packed_weight("Conv_0"))
             skip = (to_nhwc(conv(self.Conv_2, x, dtype)) if self.Conv_2 is not None
                     else x_nhwc)
             bias1 = self.Conv_1.bias[None, :].expand(batch, self.out_ch)
             out = groupnorm_silu_conv3x3(
                 h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
                 bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps,
-                skip=skip, skip_coef=SKIP_COEF)
+                skip=skip, skip_coef=SKIP_COEF, w_packed=self.packed_weight("Conv_1"))
             return from_nhwc(out)
 
         h = self.GroupNorm_0(x)

@@ -22,7 +22,11 @@ device of its input:
   - anything else raises.
 
 ``launch_counts`` counts each wrapper's kernel launches (nowhere else), so a
-run can show that the model went through the kernels.
+run can show that the model went through the kernels;
+``conv_config_launches`` splits the conv's by instantiation. The bf16
+large-level conv (``wgmma.ss``) reads its weights packed in bf16
+(``pack_conv_weight_bf16``), which the model's blocks keep; ``weight_casts``
+counts the packs made on the card.
 
 The launch plans of the GroupNorm kernels are pure functions of the shapes
 (``conv_plan``, ``stats_plan``), so that the CPU tests can hold them at every
@@ -54,11 +58,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0, "fused_bias_leaky_relu": 0}
+# gn_silu_conv3x3's launches by instantiation (CONV_CONFIGS' ids), so that a run
+# can show which of its kernels the model went through
+conv_config_launches = [0, 0, 0, 0]
+# bf16 weights packed on the card by pack_conv_weight_bf16 (a cast kernel and
+# a copy each): a module packs its weights once, and the conv's wrapper
+# packs them itself when it is not given them
+weight_casts = {"gn_silu_conv3x3": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    """Zero ``launch_counts``, ``conv_config_launches`` and ``weight_casts``."""
+    for counts in (launch_counts, weight_casts):
+        for name in counts:
+            counts[name] = 0
+    conv_config_launches[:] = [0] * len(conv_config_launches)
 
 
 # ------------------------------------------------------------------ launch plans
@@ -75,10 +89,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The conv kernel's instantiations, by the id the C entry point switches on:
 # (BM positions, BN output channels, threads, instruction, tile width: 0 for
 # any, else the wgmma kernel's fixed TW, with 128 / TW rows, stages of the
-# ring, activated tiles).
+# ring, activated tiles). The last, bf16 only, takes the weights packed in
+# bf16 (``pack_conv_weight_bf16``) and both wgmma operands from shared
+# memory; its BM is the flat halo positions of a tile, th * (tw + 2).
 CONV_CONFIGS = ((64, 64, 128, "mma.sync", 0, 3, 2), (128, 8, 256, "mma.sync", 0, 3, 2),
-                (128, 128, 256, "wgmma", 32, 2, 1))
-CONV_MMA, CONV_MMA_HEAD, CONV_WGMMA = range(3)
+                (128, 128, 256, "wgmma", 32, 2, 1), (256, 128, 384, "wgmma.ss", 0, 4, 3))
+CONV_MMA, CONV_MMA_HEAD, CONV_WGMMA, CONV_WGMMA_SS = range(4)
+# The wgmma.ss kernel's packed weights: one (128-channel Cout tile, 16-channel
+# K chunk) is [tap 9][Cout half 2][K 8-group 2][Cout 8-group 8][8][8] bf16
+# (csrc kWsTileBytes / 2 elements), its wgmma A operand's core matrices.
+PACK_TILE = 9 * 16 * 128
+# Tile widths the wgmma.ss plan tries, besides the map's own width, and the
+# 16-byte halo copies of each of its 128 producer threads (csrc kWsCopies).
+CONV_WS_WIDTHS = (8, 16, 24, 32, 48, 64)
+CONV_WS_COPIES = 7
 # Float32 rows of at least this many positions take the wgmma kernel (half
 # its 32-position row tile): narrower maps run faster on mma.sync's smaller
 # tiles (tools/conv_plan_sweep.py).
@@ -129,6 +153,18 @@ def conv_smem_bytes(bn: int, th: int, tw: int, taps: int, stages: int = CONV_STA
             + act_bufs * halo * act_bytes)
 
 
+def conv_ws_smem_bytes(tw: int) -> int:
+    """csrc ``ws_smem_bytes``: the wgmma.ss kernel's shared memory for tiles
+    ``tw`` wide: a ring of ``CONV_CONFIGS``' 4 stages (the packed weights of a
+    chunk, 36 KB, and the raw x halo, 32 bytes a position), 3 activated
+    halos in two planes, the halo's map offsets and the barriers."""
+    bm, _, _, _, _, stages, act_bufs = CONV_CONFIGS[CONV_WGMMA_SS]
+    pitch = tw + 2
+    halo = _cdiv(bm + 2 * pitch + 2, 8) * 8
+    return (stages * (2 * PACK_TILE + 32 * halo) + act_bufs * 32 * (halo + 4) + 4 * halo
+            + 8 * (2 * stages + 2 * act_bufs))
+
+
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
     """How ``gn_silu_conv3x3`` runs one shape: instantiation ``config``
@@ -164,32 +200,76 @@ def _tile_sizes(n: int, limit: int):
     return sorted(sizes)
 
 
-def conv_config(h: int, w: int, cout: int, dtype: torch.dtype = torch.float32) -> int:
-    """The instantiation for an ``h x w`` map and ``cout``: the narrow
+def conv_config(b: int, h: int, w: int, cin: int, cout: int,
+                dtype: torch.dtype = torch.float32) -> int:
+    """The instantiation for ``[b, h, w, cin] -> cout``: the narrow
     ``mma.sync`` block for the Cout <= 8 heads; ``wgmma`` where all nine taps
     touch the map and a row has ``CONV_WGMMA_MIN_W`` positions or more
     (``CONV_WGMMA_MIN_W_BF16`` for bf16 activations); else the 64x64
-    ``mma.sync`` block."""
+    ``mma.sync`` block. In bf16, ``wgmma.ss`` in place of ``wgmma`` where its
+    tiles times its K chunks give every SM a block (one utterance's narrow
+    levels do not: there ``wgmma``'s smaller tiles fill the card)."""
     if cout <= 8:
         return CONV_MMA_HEAD
     min_w = CONV_WGMMA_MIN_W_BF16 if dtype == torch.bfloat16 else CONV_WGMMA_MIN_W
-    if conv_taps(h, w) == 9 and w >= min_w:
-        return CONV_WGMMA
-    return CONV_MMA
+    if conv_taps(h, w) != 9 or w < min_w:
+        return CONV_MMA
+    if dtype == torch.bfloat16 and cout % 8 == 0 and cin % CONV_BK_BF16 == 0:
+        tile = _ws_tiles(b, h, w, cout)[0]
+        if tile[2] * cin // CONV_BK_BF16 >= SMS:
+            return CONV_WGMMA_SS
+    return CONV_WGMMA
+
+
+def _ws_tiles(b: int, h: int, w: int, cout: int):
+    """The wgmma.ss kernel's tiles ``(th, tw, blocks)`` of an ``h x w`` map,
+    fewest blocks first (then the smallest halo): for each width (the map's,
+    or one of ``CONV_WS_WIDTHS`` below it) whose shared memory fits, as many
+    rows as a wgmma's N takes (``th * (tw + 2) <= BM``), spread evenly over
+    the map's height."""
+    bm, bn = CONV_CONFIGS[CONV_WGMMA_SS][:2]
+    tiles = []
+    for tw in sorted({w} | {v for v in CONV_WS_WIDTHS if v < w}):
+        th_max = min(h, bm // (tw + 2))
+        # the producers copy the halo in CONV_WS_COPIES 16-byte pieces each
+        if (th_max < 1 or conv_ws_smem_bytes(tw) > SMEM_LIMIT
+                or 2 * (th_max + 2) * (tw + 2) > CONV_WS_COPIES * 128):
+            continue
+        th = _cdiv(h, _cdiv(h, th_max))
+        tiles.append((th, tw, b * _cdiv(h, th) * _cdiv(w, tw) * _cdiv(cout, bn)))
+    return sorted(tiles, key=lambda t: (t[2], (t[0] + 2) * (t[1] + 2)))
 
 
 def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
-                   fill: int = 1, dtype: torch.dtype = torch.float32) -> ConvPlan:
+                   fill: int = 1, dtype: torch.dtype = torch.float32,
+                   tile: Optional[tuple] = None) -> ConvPlan:
     """The plan of instantiation ``config`` for ``[b, h, w, cin] -> cout``
     with activations of ``dtype`` that aims at ``fill * SMS`` blocks: the
     position tile with the fewest tiles (then the smallest halo) among those
     whose K split can reach that many, and K cut into as many splits as it
-    takes (one, when the tiles alone reach it, or when ``fill`` is 0)."""
+    takes (one, when the tiles alone reach it, or when ``fill`` is 0). The
+    wgmma.ss tiles are ``_ws_tiles``' (or ``tile``, ``(th, tw)``, for the
+    sweep), and its K splits whole chunks."""
     bm, bn, _, _, fixed_tw, stages, act_bufs = CONV_CONFIGS[config]
     taps = conv_taps(h, w)
     units = (cin // conv_bk(dtype)) * taps
     n_tiles = _cdiv(cout, bn)
     target = fill * SMS
+    total4 = b * h * w * cout // 4
+    reduce_blocks = max(1, min(_cdiv(total4, REDUCE_THREADS), 8 * SMS))
+    if config == CONV_WGMMA_SS:  # K split in whole chunks, all nine taps
+        chunks = units // taps
+        tiles = _ws_tiles(b, h, w, cout)
+        if tile is not None:
+            tiles = [(*tile, b * _cdiv(h, tile[0]) * _cdiv(w, tile[1]) * n_tiles)]
+        th, tw, base = next((t for t in tiles if t[2] * chunks >= target), tiles[-1])
+        per = chunks if base >= target else max(1, chunks // _cdiv(target, base))
+        tiles_h, tiles_w = _cdiv(h, th), _cdiv(w, tw)
+        return ConvPlan(
+            config=config, th=th, tw=tw, tiles_h=tiles_h, tiles_w=tiles_w, n_tiles=n_tiles,
+            units=units, units_per_split=per * taps, splits=_cdiv(chunks, per),
+            grid=(b * tiles_h * tiles_w, n_tiles, _cdiv(chunks, per)),
+            smem_bytes=conv_ws_smem_bytes(tw), reduce_blocks=reduce_blocks)
 
     def blocks(tile):
         return b * _cdiv(h, tile[0]) * _cdiv(w, tile[1]) * n_tiles
@@ -200,14 +280,13 @@ def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
     th, tw = next((t for t in tiles if blocks(t) * units >= target), tiles[-1])
     base = blocks((th, tw))
     per = units if base >= target else max(1, units // _cdiv(target, base))
-    total4 = b * h * w * cout // 4
     tiles_h, tiles_w, splits = _cdiv(h, th), _cdiv(w, tw), _cdiv(units, per)
     return ConvPlan(
         config=config, th=th, tw=tw, tiles_h=tiles_h, tiles_w=tiles_w, n_tiles=n_tiles,
         units=units, units_per_split=per, splits=splits,
         grid=(b * tiles_h * tiles_w, n_tiles, splits),
         smem_bytes=conv_smem_bytes(bn, th, tw, taps, stages, act_bufs, dtype),
-        reduce_blocks=max(1, min(_cdiv(total4, REDUCE_THREADS), 8 * SMS)))
+        reduce_blocks=reduce_blocks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,7 +295,8 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
     """The launch plan of ``gn_silu_conv3x3`` for ``[b, h, w, cin] -> cout``
     with activations of ``dtype``: ``conv_config``'s instantiation, with a
     tile and K split that give every SM a block (``make_conv_plan``)."""
-    return make_conv_plan(b, h, w, cin, cout, conv_config(h, w, cout, dtype), dtype=dtype)
+    return make_conv_plan(b, h, w, cin, cout, conv_config(b, h, w, cin, cout, dtype),
+                          dtype=dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -296,6 +376,46 @@ def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
     return out.to(x.dtype).contiguous()
 
 
+def packed_weight_shape(cin: int, cout: int) -> tuple:
+    """Shape of ``pack_conv_weight_bf16``'s output for ``[3, 3, cin, cout]``:
+    (Cout tiles of 128, K chunks of 16, ``PACK_TILE``)."""
+    return (_cdiv(cout, CONV_CONFIGS[CONV_WGMMA_SS][1]), cin // CONV_BK_BF16, PACK_TILE)
+
+
+def pack_conv_weight_bf16(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO float32 conv weight ``[3, 3, Cin, Cout]`` as the wgmma.ss
+    kernel reads it: each weight rounded to bfloat16 to nearest even (what
+    the plain version's ``w.to(torch.bfloat16)`` does, so the products are
+    the same), Cout padded with zeros to whole tiles of 128, laid out per
+    (Cout tile, 16-channel K chunk) as the K-major core matrices of the
+    kernel's shared-memory operand (``PACK_TILE``): one contiguous block a
+    ring stage, moved by one bulk copy. Counted in ``weight_casts`` when it
+    runs on the card. Returns ``packed_weight_shape(Cin, Cout)``, bfloat16."""
+    kh, kw, cin, cout = w.shape
+    if (kh, kw) != (3, 3) or cin % CONV_BK_BF16:
+        raise ValueError(f"pack_conv_weight_bf16: w has shape {tuple(w.shape)}; expected "
+                         f"(3, 3, Cin, Cout) with Cin a multiple of {CONV_BK_BF16}")
+    n_tiles, chunks, _ = packed_weight_shape(cin, cout)
+    with torch.no_grad():
+        wp = torch.zeros((9, cin, n_tiles * 128), device=w.device, dtype=torch.bfloat16)
+        wp[..., :cout] = w.reshape(9, cin, cout)
+        # (tap, chunk, K 8-group, k, Cout tile, half, Cout 8-group, row) ->
+        # (Cout tile, chunk, tap, half, K 8-group, Cout 8-group, row, k)
+        packed = (wp.view(9, chunks, 2, 8, n_tiles, 2, 8, 8).permute(4, 1, 0, 5, 2, 6, 7, 3)
+                  .reshape(n_tiles, chunks, PACK_TILE))
+    if w.device.type == "cuda":
+        weight_casts["gn_silu_conv3x3"] += 1
+    return packed
+
+
+def unpack_conv_weight_bf16(packed: torch.Tensor, cout: int) -> torch.Tensor:
+    """``pack_conv_weight_bf16``'s layout back to the HWIO ``[3, 3, Cin,
+    Cout]`` bfloat16 weight (the plain mapping, for the tests)."""
+    n_tiles, chunks, _ = packed.shape
+    w = packed.view(n_tiles, chunks, 9, 2, 2, 8, 8, 8).permute(2, 1, 4, 7, 0, 3, 5, 6)
+    return w.reshape(3, 3, chunks * CONV_BK_BF16, n_tiles * 128)[..., :cout]
+
+
 def fused_bias_leaky_relu_reference(x, bias, negative_slope: float = 0.2,
                                     scale: float = math.sqrt(2.0)):
     """Plain version of K4 (``_fused_bias_lrelu_kernel``, pallas_kernels.py:208):
@@ -323,7 +443,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.diffse_gn_stats_ab.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i, i, f, p]
     lib.diffse_gn_apply.argtypes = [p, i, p, p, p, i, i, i, i, i, p]
-    lib.diffse_gn_silu_conv3x3.argtypes = [p, i, p, p, p, p, i, p, f, p, p, i, i, i, i, i,
+    lib.diffse_gn_silu_conv3x3.argtypes = [p, i, p, p, p, p, p, i, p, f, p, p, i, i, i, i, i,
                                            *[i] * 12, p]
     lib.diffse_fused_bias_lrelu.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, p]
     for fn in (lib.diffse_gn_stats_ab, lib.diffse_gn_apply, lib.diffse_gn_silu_conv3x3,
@@ -531,7 +651,8 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                            gn_bias: torch.Tensor, w: torch.Tensor,
                            bias_total: torch.Tensor, num_groups: int,
                            eps: float = 1e-6, skip: Optional[torch.Tensor] = None,
-                           skip_coef: float = 1.0) -> torch.Tensor:
+                           skip_coef: float = 1.0,
+                           w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused GroupNorm + SiLU + conv3x3 (+bias [+skip] * skip_coef), the port
     of ``groupnorm_silu_conv3x3_pallas`` (pallas_kernels.py:565) covering both
     of its regimes.
@@ -545,19 +666,28 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             conditioning; a ``[Cout]`` bias expanded over the batch (row
             stride 0) is taken as it is, without a copy.
         skip: optional ``[B, H, W, Cout]`` residual, of x's dtype.
+        w_packed: optional ``pack_conv_weight_bf16(w)``, which the bf16
+            ``wgmma.ss`` instantiation reads; where the plan takes that
+            instantiation and none is given, the wrapper packs ``w`` itself
+            (counted in ``weight_casts``).
 
     Returns ``[B, H, W, Cout]`` of x's dtype.
     """
-    if not _dispatch_device("gn_silu_conv3x3", x):
-        return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
-                                                num_groups, eps, skip, skip_coef)
-    dtype = _activation_dtype("gn_silu_conv3x3", x)
-    bk = conv_bk(dtype)
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
     if tuple(w.shape) != (3, 3, cin, cout):
         raise ValueError(f"gn_silu_conv3x3: w has shape {tuple(w.shape)}, "
                          f"expected (3, 3, {cin}, Cout)")
+    if w_packed is not None and (w_packed.dtype != torch.bfloat16 or cin % CONV_BK_BF16 or
+                                 tuple(w_packed.shape) != packed_weight_shape(cin, cout)):
+        raise ValueError(f"gn_silu_conv3x3: w_packed is {w_packed.dtype} "
+                         f"{tuple(w_packed.shape)}; expected bfloat16 "
+                         f"{packed_weight_shape(cin, cout)} (pack_conv_weight_bf16)")
+    if not _dispatch_device("gn_silu_conv3x3", x):
+        return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
+                                                num_groups, eps, skip, skip_coef)
+    dtype = _activation_dtype("gn_silu_conv3x3", x)
+    bk = conv_bk(dtype)
     if cin % bk or cout % 4 or cin % num_groups or cin > 4 * STATS_THREADS:
         raise ValueError(f"gn_silu_conv3x3: Cin={cin} must be a multiple of {bk} and "
                          f"of {num_groups} groups and at most {4 * STATS_THREADS}, "
@@ -575,6 +705,13 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                            gn_scale=gn_scale, gn_bias=gn_bias, w=w, bias_total=bias_rows,
                            skip=skip)
     plan = conv_plan(bsz, h, wd, cin, cout, dtype)
+    if plan.config != CONV_WGMMA_SS:
+        w_packed = None
+    elif w_packed is None:
+        w_packed = pack_conv_weight_bf16(w)
+    else:
+        _require_kernel_inputs("gn_silu_conv3x3", x.device, {"w_packed": torch.bfloat16},
+                               w_packed=w_packed)
     lib = _library()
     with torch.cuda.device(x.device):
         a, b = _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps)
@@ -582,14 +719,15 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
         partial = None if plan.splits == 1 else torch.empty(
             (plan.splits, bsz * h * wd, cout), device=x.device, dtype=torch.float32)
         _check(lib.diffse_gn_silu_conv3x3(
-            _ptr(x), _DTYPE_CODES[dtype], _ptr(a), _ptr(b), _ptr(w), _ptr(bias_rows),
-            bias_row_stride,
+            _ptr(x), _DTYPE_CODES[dtype], _ptr(a), _ptr(b), _ptr(w), _ptr(w_packed),
+            _ptr(bias_rows), bias_row_stride,
             _ptr(skip), float(skip_coef), _ptr(out), _ptr(partial), bsz, h, wd, cin, cout,
             plan.config, plan.th, plan.tw, plan.tiles_w, plan.tiles_h * plan.tiles_w,
             plan.units_per_split, plan.splits, *plan.grid, plan.smem_bytes,
             plan.reduce_blocks, _stream(x.device)),
             "gn_silu_conv3x3")
     launch_counts["gn_silu_conv3x3"] += 1
+    conv_config_launches[plan.config] += 1
     return out
 
 

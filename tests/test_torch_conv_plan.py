@@ -59,8 +59,13 @@ def _check_conv_plan(b, h, w, cin, cout, dtype):
     assert plan.grid == (b * plan.tiles_h * plan.tiles_w, plan.n_tiles, plan.splits)
     # the shared memory fits, and is what the kernel carves
     stages, act_bufs = ck.CONV_CONFIGS[plan.config][5:]
-    assert plan.smem_bytes == ck.conv_smem_bytes(bn, plan.th, plan.tw, ck.conv_taps(h, w),
-                                                 stages, act_bufs, dtype)
+    if plan.config == ck.CONV_WGMMA_SS:
+        # a wgmma's N covers the tile's rows at pitch tw + 2; K split in chunks
+        assert plan.th * (plan.tw + 2) <= bm and plan.units_per_split % 9 == 0
+        assert plan.smem_bytes == ck.conv_ws_smem_bytes(plan.tw)
+    else:
+        assert plan.smem_bytes == ck.conv_smem_bytes(bn, plan.th, plan.tw, ck.conv_taps(h, w),
+                                                     stages, act_bufs, dtype)
     assert plan.smem_bytes <= ck.SMEM_LIMIT
     return plan
 
@@ -75,11 +80,13 @@ def test_conv_plan_fills_the_card_and_covers_once(frames, shape):
                          ids=[f"B{b}-T{t}-{'x'.join(map(str, s))}" for b, t, s in BF16_CONV_CASES])
 def test_conv_plan_bf16_fills_the_card_and_covers_once(batch, frames, shape):
     """The bf16 trunk's plans: K units of 16 channels (one k16 product a
-    tap), the float32 weights' ring in shared memory, at one utterance and
-    at bench.py's batch of 16."""
+    tap), the weights' ring in shared memory (packed bf16 for wgmma.ss), at
+    one utterance and at bench.py's batch of 16, every one with a block for
+    every SM."""
     plan = _check_conv_plan(batch, *shape, torch.bfloat16)
     h, w, cin, cout = shape
-    assert plan.config == ck.conv_config(h, w, cout, torch.bfloat16)
+    assert plan.config == ck.conv_config(batch, h, w, cin, cout, torch.bfloat16)
+    assert plan.ctas >= ck.SMS, plan
     if batch == BENCH_BATCH and frames == BENCH_FRAMES and h * w >= 64 * 16 and cout > 8:
         # 16 utterances give the large levels' trunk convs blocks enough
         # without a K split
@@ -94,21 +101,26 @@ def test_conv_plan_bf16_fills_the_card_and_covers_once(batch, frames, shape):
 def test_conv_config_by_map_and_cout(h, w, cout, config):
     """The heads take the narrow block; rows of 16 or more positions with all
     nine taps the wgmma kernel; the rest (a map of height 1 too) mma.sync."""
-    assert ck.conv_config(h, w, cout) == config
+    assert ck.conv_config(1, h, w, 256, cout) == config
     assert ck.conv_plan(1, h, w, 256, cout).config == config
 
 
 @pytest.mark.parametrize("h,w,cout,config", [
     (4, 1, 256, ck.CONV_MMA), (8, 2, 256, ck.CONV_MMA), (16, 4, 256, ck.CONV_MMA),
-    (32, 8, 256, ck.CONV_WGMMA), (16, 8, 512, ck.CONV_WGMMA), (64, 16, 256, ck.CONV_WGMMA),
+    (32, 8, 256, ck.CONV_WGMMA), (16, 8, 512, ck.CONV_WGMMA), (64, 16, 256, ck.CONV_WGMMA_SS),
     (256, 64, 4, ck.CONV_MMA_HEAD)])
 def test_conv_config_bf16(h, w, cout, config):
-    """In bf16 the wgmma kernel takes rows from 8 positions (the float32
-    rule's 16 picks mma.sync at W = 8)."""
-    assert ck.conv_config(h, w, cout, torch.bfloat16) == config
+    """In bf16 the wgmma kernels take rows from 8 positions (the float32
+    rule's 16 picks mma.sync at W = 8): at one utterance the packed-weight
+    wgmma.ss kernel where its 256-position tiles and 16-channel K chunks
+    give every SM a block, else the wgmma kernel's smaller tiles; at 16
+    utterances wgmma.ss from W = 8."""
+    assert ck.conv_config(1, h, w, 256, cout, torch.bfloat16) == config
     assert ck.conv_plan(1, h, w, 256, cout, torch.bfloat16).config == config
     if w == 8:
-        assert ck.conv_config(h, w, cout) == ck.CONV_MMA
+        assert ck.conv_config(1, h, w, 256, cout) == ck.CONV_MMA
+    if config in (ck.CONV_WGMMA, ck.CONV_WGMMA_SS):
+        assert ck.conv_config(BENCH_BATCH, h, w, 256, cout, torch.bfloat16) == ck.CONV_WGMMA_SS
 
 
 @pytest.mark.parametrize("fill", [0, 1, 2])
@@ -118,7 +130,7 @@ def test_make_conv_plan_aims_at_fill_blocks_per_sm(shape, fill):
     """One K split for fill 0; otherwise at least fill x SMS blocks, from the
     tiles alone or by splitting K (the tile shrinks when K is too short)."""
     b, h, w, cin, cout = shape
-    plan = ck.make_conv_plan(b, h, w, cin, cout, ck.conv_config(h, w, cout), fill)
+    plan = ck.make_conv_plan(b, h, w, cin, cout, ck.conv_config(b, h, w, cin, cout), fill)
     if fill == 0:
         assert plan.splits == 1 and plan.units_per_split == plan.units
     else:

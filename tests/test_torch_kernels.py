@@ -313,6 +313,39 @@ def test_gn_silu_conv3x3_bf16_kernel_repeats_bitwise(cuda, shape):
     assert torch.equal(first, again)
 
 
+# the wgmma.ss kernel on ragged tiles, W = 8, 16 and 64, Cout of two tiles and
+# of part of one (tests/test_torch_weight_pack.py emulates the same plans)
+GPU_WS_SHAPES = [(1, 30, 8, 32, 128), (2, 15, 16, 32, 256), (1, 9, 64, 32, 64),
+                 (1, 4, 20, 32, 136), (2, 19, 64, 128, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", GPU_WS_SHAPES)
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("fill", [0, 1])
+def test_gn_silu_conv3x3_ws_kernel_matches_plain(cuda, monkeypatch, shape, with_skip, fill):
+    """The packed-weight bf16 kernel under its plans with one K split and K
+    split to fill the card, given the packed weight and packing it itself
+    (counted in ``weight_casts``): the same bits either way."""
+    b, h, w, cin, cout = shape
+    plan = ck.make_conv_plan(b, h, w, cin, cout, ck.CONV_WGMMA_SS, fill, torch.bfloat16)
+    monkeypatch.setattr(ck, "conv_plan", lambda *args: plan)
+    x, gs, gb, wk, bt, skip = _bf16_chain_inputs(cuda, shape, with_skip, 11)
+    groups = min(cin // 4, 32)
+    ck.reset_launch_counts()
+    packed = ck.pack_conv_weight_bf16(wk)
+    out = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, groups, skip=skip, skip_coef=0.5,
+                                    w_packed=packed)
+    again = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, groups, skip=skip, skip_coef=0.5)
+    ref = ck.groupnorm_silu_conv3x3_reference(x, gs, gb, wk, bt, groups, skip=skip,
+                                              skip_coef=0.5)
+    torch.cuda.synchronize()
+    assert ck.conv_config_launches[ck.CONV_WGMMA_SS] == 2
+    assert ck.weight_casts["gn_silu_conv3x3"] == 2
+    assert torch.equal(out, again)
+    assert_bf16_close(out.cpu(), ref.cpu())
+
+
 @pytest.mark.gpu
 def test_kernel_refuses_grad_and_bad_inputs(cuda):
     x = torch.randn(1, 8, 8, 128, device=cuda, requires_grad=True)

@@ -8,8 +8,10 @@ utterances, seeded weights; ``--dtype bf16`` for the bf16 trunk, bench.py's
 program is ``--frames 64 --batch 16 --dtype bf16``) on the card, records
 every ``gn_silu_conv3x3`` call's shape and dtype, then times each
 distinct call queued (50 calls back to back behind a device sleep, fresh
-inputs of that shape) and prints, per level (map height), the calls, the
-kernel's device time per forward and the plain version's, and the total.
+inputs of that shape; in bf16 with the weight packed once, as the model's
+blocks keep it, where the checkout has ``pack_conv_weight_bf16``) and
+prints, per level (map height), the calls, the kernel's device time per
+forward and the plain version's, and the total.
 ``--repo`` imports the timed ``diffse_tpu_torch`` from another checkout (for
 instance the parent commit unpacked under ``build/``, which ``.gitignore``
 lists), so that two versions of the kernel can be timed on one card in one
@@ -62,9 +64,10 @@ def main() -> int:
     kernel = ck.groupnorm_silu_conv3x3
 
     def recording(x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
-                  skip_coef=1.0):
+                  skip_coef=1.0, **packed):
         calls[(*x.shape, w.shape[-1], skip is not None)] += 1
-        return kernel(x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef)
+        return kernel(x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef,
+                      **packed)
 
     layers.groupnorm_silu_conv3x3 = ncsnpp.groupnorm_silu_conv3x3 = recording
     trunk = {} if args.dtype == "float32" else {"dtype": args.dtype}  # a parent takes no dtype
@@ -86,7 +89,9 @@ def main() -> int:
         wk, bt = t(3, 3, cin, cout, scale=0.05), t(b, cout, scale=0.1)
         skip = t(b, h, w, cout).to(dtype) if with_skip else None
         kw = dict(skip=skip, skip_coef=0.5)
-        ms = queued_ms(lambda: kernel(xs, gs, gb, wk, bt, 32, **kw))
+        packed = ({"w_packed": ck.pack_conv_weight_bf16(wk)}
+                  if dtype == torch.bfloat16 and hasattr(ck, "pack_conv_weight_bf16") else {})
+        ms = queued_ms(lambda: kernel(xs, gs, gb, wk, bt, 32, **kw, **packed))
         plain = queued_ms(lambda: ck.groupnorm_silu_conv3x3_reference(xs, gs, gb, wk, bt, 32, **kw))
         print(f"  [{b},{h},{w},{cin}]->{cout}{' +skip' if with_skip else ''} x{n}: "
               f"{ms:.4f} ms queued (plain {plain:.4f})")

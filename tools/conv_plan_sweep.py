@@ -12,7 +12,9 @@ bf16 for the bf16 trunk; bench.py's program is ``--frames 64 --batch 16
 --dtype bf16``), times queued (``utils.queued_ms``) the plan ``conv_plan``
 picks and, for every instantiation that can run the shape,
 ``make_conv_plan``'s plans with one K split and aiming at one and two blocks
-per SM. Each plan is held to the plain version first (float32: 2e-4; bf16:
+per SM; for bf16's packed-weight ``wgmma.ss`` kernel (given its weight
+packed once, as the model keeps it) every tile width it tries, each at its
+tallest tile and at about half that height, with those K splits. Each plan is held to the plain version first (float32: 2e-4; bf16:
 one bf16 ulp of the largest output). Prints per shape the picked plan's time
 and the fastest's, then the summary: per width, the conv's time per forward
 under the picked plans and under the fastest, and, per instantiation, the
@@ -58,13 +60,28 @@ def agree(out, ref) -> bool:
     return bool((out.float() - ref.float()).abs().max() <= 2.0 ** -7 * ref.float().abs().max())
 
 
-def configs_for(h: int, w: int, cout: int):
+def configs_for(h: int, w: int, cout: int, dtype=torch.float32):
     """The instantiations that can run an ``h x w`` map to ``cout``."""
     if cout <= 8:
         return [ck.CONV_MMA_HEAD]
     if ck.conv_taps(h, w) == 9:
-        return [ck.CONV_MMA, ck.CONV_WGMMA]
+        ws = dtype == torch.bfloat16 and w >= 8 and cout % 8 == 0 and ck._ws_tiles(1, h, w, cout)
+        return [ck.CONV_MMA, ck.CONV_WGMMA] + ([ck.CONV_WGMMA_SS] if ws else [])
     return [ck.CONV_MMA]
+
+
+def ws_plans(b, h, w, cin, cout):
+    """The wgmma.ss kernel's plans at each tile width it tries: the tallest
+    tile and one of about half its height, each with one K split and aiming
+    at one and two blocks per SM."""
+    plans = set()
+    for th, tw, _ in ck._ws_tiles(b, h, w, cout):
+        for rows in {th, max(1, th // 2)}:
+            rows = -(-h // -(-h // rows))
+            for fill in (0, 1, 2):
+                plans.add(ck.make_conv_plan(b, h, w, cin, cout, ck.CONV_WGMMA_SS, fill,
+                                            torch.bfloat16, tile=(rows, tw)))
+    return plans
 
 
 def describe(plan: dict) -> str:
@@ -124,16 +141,21 @@ def sweep_conv(frames_list, dev, batch=1, dtype=torch.float32):
             bt = torch.zeros((batch, cout), device=dev)
             ref = ck.groupnorm_silu_conv3x3_reference(x, gs, gb, wk, bt, 32)
             pick = picked_plan(batch, h, w, cin, cout, dtype)
+            configs = configs_for(h, w, cout, dtype)
             plans = {pick} | {ck.make_conv_plan(batch, h, w, cin, cout, cfg, fill, dtype)
-                              for cfg in configs_for(h, w, cout) for fill in (0, 1, 2)}
+                              for cfg in configs if cfg != ck.CONV_WGMMA_SS for fill in (0, 1, 2)}
+            if ck.CONV_WGMMA_SS in configs:
+                plans |= ws_plans(batch, h, w, cin, cout)
+            packed = ck.pack_conv_weight_bf16(wk) if dtype == torch.bfloat16 else None
             timed = []
             for plan in plans:
                 ck.conv_plan = lambda *a, _p=plan: _p
                 try:
-                    out = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32)
+                    out = ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32, w_packed=packed)
                     if not agree(out, ref):
                         raise AssertionError(f"{(h, w, cin, cout)} plan {plan} disagrees")
-                    ms = queued_ms(lambda: ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32))
+                    ms = queued_ms(lambda: ck.groupnorm_silu_conv3x3(x, gs, gb, wk, bt, 32,
+                                                                     w_packed=packed))
                 finally:
                     ck.conv_plan = picked_plan
                 timed.append({"shape": [batch, h, w, cin, cout], "dtype": str(dtype),
