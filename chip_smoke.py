@@ -27,9 +27,17 @@ Phases, each of which must pass:
    gn_silu_conv3x3, 28 groupnorm_silu per forward).
 4. The main path: ``ScoreModel.enhance`` through ``bbed_pc`` (30 PC steps,
    60 forwards) on 3 synthetic utterances with the default initialisation,
-   plus one ``sebridge_v2`` call with redrawn weights, with the launch counts
-   reset before and read after. Outputs must be finite and of the input's
-   length; the ``sebridge_v2`` waveform must match the same call on the CPU.
+   each as its captured program (one per width bucket: an eager warm-up run
+   and the capture on the bucket's first call, a replay after), plus one
+   ``sebridge_v2`` call with redrawn weights (eager: its noise comes from a
+   callable), with the launch counts reset before and read after: 81 x 60 /
+   28 x 60 per program, recorded at its capture (a replay does not pass
+   through the wrappers), and the wrappers' counts over the path (each
+   program's warm-up and capture, and the eager forward); from these, the
+   kernel runs on the card (``card_runs``: a capture runs nothing, a replay
+   runs what its capture recorded). Outputs must be
+   finite and of the input's length; the ``sebridge_v2`` waveform must match
+   the same call on the CPU.
 5. The SNR path, the paper's single-NFE mode: ``sebridge_v3_snr`` on the 65M
    ``ncsnpp`` (redrawn weights, fixed_snr 0.17783) with a redrawn SNRNet, on
    phase 4's utterances. SNRNet's output on the card against the CPU (1e-5
@@ -38,6 +46,18 @@ Phases, each of which must pass:
    81/28 launches per forward, one forward per utterance. Then one
    ``sebridge_v2_snr`` call on the 65M ``ncsnpp_snr``, checked the same way.
    Each path's launch counts are reset before it and read after it.
+5b. The captured programs (``capture.Program`` under
+   ``ScoreModel._enhance_graph``) against the eager path on the same
+   generator state, in float32: ``bbed_pc`` on phase 4's utterances and
+   ``sebridge_v3_snr`` on phase 5's (redrawn weights), each waveform within
+   ``GRAPH_TOL`` of max|eager| and whether they are bitwise equal, the wall
+   per utterance graphed (a replay) and eager beside phase 4's and the 1-NFE
+   walls of earlier runs, each bucket's first call (warm-up, capture, replay)
+   and the card memory its program keeps; then ``torch.cuda.set_sync_debug_mode("error")``
+   through the eager ``bbed_pc`` program and through a replay (the copy of
+   the result to the host is outside), and the synchronising operations of
+   a whole ``enhance`` counted in "warn" mode (the final copy is the one).
+   Each model's kernel runs on the card over the phase.
 6. The bf16 kernels (the trunk of ``NCSNpp(dtype="bf16")``): each against its
    plain version on the card at phase 2's shapes and at bench.py's batch of
    16 at 64 frames (the large level with and without skip, the deep levels,
@@ -56,16 +76,24 @@ Phases, each of which must pass:
    ``BF16_GAP_RATIO`` of that bf16-vs-float32 gap), 81/28 launches per
    forward; with redrawn weights also each block, attention and Combine of
    the card's forward run again on the CPU from the card's inputs (within
-   ``BF16_MODULE_ULPS``). The bf16 weight casts (``weight_casts``) of the
-   first forward, and none in the next.
+   ``BF16_MODULE_ULPS``). The bf16 weight casts (``weight_casts``: the fused
+   convs' packed weights, the cuDNN convs' and dense layers' bf16 copies)
+   of the first forward, and none in the next.
 8. bench.py's program (bench.py:147-160) from the port's modules: 16
    utterances of 64 frames, each row normalised by its max-abs, STFT,
    ``spec_fwd``, ``pad_spec``, 30 reverse_diffusion + ald steps, ``to_audio``,
    times the norm, with the bf16 trunk and with the float32 trunk on the same
-   weights and noise draws: wall, device kernel time (``torch.profiler``),
-   idle share and launches for each, both outputs finite, and their gap;
-   4860/1680 kernel launches per batch in bf16, the ``wgmma.ss`` kernel's
-   among them, and no bf16 weight cast after the warm-up batch.
+   weights, captured as one program each (``capture.Program``) and replayed:
+   the replay against the eager program on the same generator state (within
+   ``GRAPH_TOL``, and whether bitwise equal), the capture's time and the
+   card memory the program keeps beside the eager program's peak, wall per
+   batch graphed and eager, device kernel time (``torch.profiler`` over a
+   replay), idle share and device launches beside the eager bf16 program's
+   numbers of an earlier run, and for the bf16 trunk the device time by
+   kernel family (``profiling.device_breakdown``); both outputs finite, and
+   their gap; 4860/1680 kernel launches per batch recorded at the capture,
+   the ``wgmma.ss`` kernel's among them, and no weight cast during the
+   capture or after it.
 
 Phase 2 runs with TF32 off for cuDNN and matmul (the plain version's cuDNN
 conv would otherwise be the less accurate side); phases 3 to 5 run with
@@ -77,7 +105,9 @@ bound is the larger of bytes over 3.35 TB/s and operations over their peak:
 the conv's products in 3xTF32, three TF32 products each, over 495 TFLOP/s,
 or in bf16 over 989 TFLOP/s, other float32 work over 67 TFLOP/s, the H100
 SXM's peaks), the bf16 instantiations as kernels of their own (the
-packed-weight ``wgmma.ss`` kernel apart from the others); the last line is
+packed-weight ``wgmma.ss`` kernel apart from the others), each with its
+kernel runs on the card on every path (``launches``, ``launches_by_path``)
+and the launches recorded at capture apart; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
 there is no CUDA device or any phase fails.
 """
@@ -175,10 +205,23 @@ BF16_MODULE_ULPS = 4
 # grows through the depth like any other bf16 rounding: the gap stays below
 # bf16's own gap from float32 (this share of it), not far below it.
 BF16_GAP_RATIO = 1.0
+# A replayed program vs the eager path on the same generator state:
+# max|diff| / max|eager| (the same kernels in the same order give the same
+# bits; this bounds what a difference may be).
+GRAPH_TOL = 1e-6
+# bench.py's bf16 program as the eager path ran it before enhance was
+# captured (PERF.md section 5, one H100 80GB HBM3 at 700 W): wall per batch,
+# device kernel time, idle share, device kernel launches.
+EAGER_BF16_EARLIER = (3.839, 1.750, 0.544, 93314)
+# sebridge_v3_snr per 1.0-1.5 s utterance, eager, in earlier runs (same card).
+EAGER_1NFE_WALLS = (0.036, 0.044)
 BENCH_BATCH = 16
 BENCH_FRAMES = 64
 BENCH_STEPS = 30
 # gn_silu_conv3x3's instantiations (ops/cuda_kernels.py CONV_CONFIGS), by id
+# what the JSON line's launches count
+LAUNCHES_COUNTED = ("kernel runs on the card: eager launches, and each captured program's "
+                    "launches recorded at its capture times its replays")
 CONV_NAMES = ("mma.sync 64x64", "mma.sync 128x8", "wgmma", "wgmma.ss")
 
 
@@ -639,6 +682,31 @@ def cpu_noise(torch, seed):
     return lambda like: randn_like(like.cpu(), g).to(like.device)
 
 
+def card_runs(counts, programs):
+    """A path's kernel runs on the card, from the wrappers' counts over a
+    window in which every program of ``programs`` was built: less what each
+    capture recorded (a capture runs nothing on the card), plus what each
+    replay ran (the recorded launches, replayed). Returns ``{"runs": ...,
+    "recorded": ...}``: the runs, and the launches recorded at capture."""
+    recorded = {k: sum(p.launch_counts[k] for p in programs) for k in counts}
+    runs = {k: n + sum(p.launch_counts[k] * (p.replays - 1) for p in programs)
+            for k, n in counts.items()}
+    return {"runs": runs, "recorded": recorded}
+
+
+def memory_held(torch, fn):
+    """Runs ``fn`` and returns its result and the card memory it left
+    reserved (``memory_reserved`` after ``empty_cache``, before and after):
+    for a capture, what its program keeps."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, torch.cuda.memory_reserved() - before
+
+
 def run_main_path(torch, ck, dev):
     """Phase 4: enhance through bbed_pc (3 utterances) and sebridge_v2."""
     from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
@@ -656,22 +724,40 @@ def run_main_path(torch, ck, dev):
 
     utterances = [noisy for _, noisy in main_path_pairs()]
 
-    walls, outs = [], []
+    walls, outs, captured = [], [], []
     ck.reset_launch_counts()
     for i, y in enumerate(utterances):
+        graphs = len(bbed._graphs)
         t0 = time.time()
         out, nfe = bbed.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(i),
                                 N=30, timeit=True)[:2]
         walls.append(time.time() - t0)
         outs.append(out)
+        captured.append(len(bbed._graphs) > graphs)
     v2_out = v2.enhance(utterances[0][None], utterances[0][None], noise=cpu_noise(torch, 7))
     counts = dict(ck.launch_counts)
 
-    for y, out, wall in zip(utterances, outs, walls):
-        print(f"bbed_pc: {len(y) / SR:.2f} s utterance, nfe {nfe}, wall {wall:.3f} s, "
+    for y, out, wall, new in zip(utterances, outs, walls, captured):
+        print(f"bbed_pc: {len(y) / SR:.2f} s utterance, nfe {nfe}, wall {wall:.3f} s"
+              f"{' (its bucket captured in this call)' if new else ' (a replay)'}, "
               f"finite {bool(np.isfinite(out).all())}, peak {np.max(np.abs(out)):.4f}")
-    total_forwards = 60 * len(utterances) + 1
-    print(f"main-path launches: {counts} over {total_forwards} forwards")
+    per_program = {"gn_silu_conv3x3": 81 * 60, "groupnorm_silu": 28 * 60,
+                   "fused_bias_leaky_relu": 0}
+    for key, (_, program) in bbed._graphs.items():
+        print(f"bbed_pc program for {key.t_pad} frames: launches recorded at its capture "
+              f"{program.launch_counts}, weight casts {program.weight_casts}")
+        if program.launch_counts != per_program:
+            raise AssertionError(f"program for {key.t_pad} frames recorded "
+                                 f"{program.launch_counts}, expected {per_program}")
+    # through the wrappers: each program's warm-up run and its capture (60
+    # forwards each), and sebridge_v2's eager forward
+    total_forwards = 2 * 60 * len(bbed._graphs) + 1
+    programs = [program for _, program in bbed._graphs.values()]
+    path = card_runs(counts, programs)
+    print(f"main-path launches: {counts} over {total_forwards} forwards through the wrappers "
+          f"({len(programs)} programs captured, replayed {sum(p.replays for p in programs)} "
+          f"times); kernel runs on the card {path['runs']} (recorded at capture "
+          f"{path['recorded']})")
     for y, out in zip(utterances + [utterances[0]], outs + [v2_out]):
         if out.shape != y.shape or not np.isfinite(out).all():
             raise AssertionError(f"bad output: shape {out.shape} vs {y.shape}")
@@ -688,7 +774,7 @@ def run_main_path(torch, ck, dev):
           f"(tol {WAVEFORM_TOL})")
     if err > WAVEFORM_TOL:
         raise AssertionError(f"sebridge_v2 waveform deviates: {err:.3e}")
-    return counts, walls
+    return path, walls
 
 
 def redraw_snrnet(torch, seed):
@@ -822,7 +908,143 @@ def run_snr_path(torch, ck, dev):
         failures.append(f"sebridge_v2_snr launch counts {v2_counts}, expected {expected}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"sebridge_v3_snr": v3_counts, "sebridge_v2_snr": v2_counts}
+    return {"sebridge_v3_snr (eager, caller's noise)": card_runs(v3_counts, []),
+            "sebridge_v2_snr (eager, caller's noise)": card_runs(v2_counts, [])}
+
+
+def sync_free_check(torch, model, y, dev):
+    """``torch.cuda.set_sync_debug_mode("error")`` through the eager
+    ``bbed_pc`` device program and a replay of its captured program, on the
+    1-D waveform ``y`` (padded to its bucket as ``enhance`` pads it); then the
+    synchronising operations of a whole ``enhance``, each way, counted in
+    "warn" mode. Returns ``(replay == eager bit for bit, {way: count})``."""
+    import warnings
+
+    import torch.nn.functional as F
+
+    from diffse_tpu_torch.transforms import width_bucket
+    from diffse_tpu_torch.utils import randn_like, to_device
+
+    t_pad, pad_samples = width_bucket(len(y), 128)
+    wave = torch.from_numpy(y[None])
+    wave = F.pad(wave, (0, pad_samples - len(y))) if len(y) < pad_samples else wave[:, :pad_samples]
+    program = model._enhance_graph("bbed_pc", t_pad, 30, "reverse_diffusion", "ald", 1, False,
+                                   {"y": wave, "snr": 0.5})
+    gen = torch.Generator(dev).manual_seed(30)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            tensors = {"y": to_device(wave, dev),
+                       "snr": torch.full((), 0.5, dtype=torch.float32, device=dev)}
+            eager, _ = model._enhance_on_device("bbed_pc", lambda like: randn_like(like, gen), 30,
+                                                "reverse_diffusion", "ald", 1, **tensors)
+            graphed, _ = program(torch.Generator(dev).manual_seed(30), y=wave, snr=0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same = torch.equal(eager, graphed)
+    syncs = {}
+    for way in ("graphed", "eager"):
+        gen = torch.Generator(dev).manual_seed(31)
+        kw = (dict(generator=gen) if way == "graphed"
+              else dict(noise=lambda like: randn_like(like, gen)))
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                model.enhance(y[None], y[None], **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs[way] = sum("called a synchronizing CUDA operation" in str(w.message)
+                         for w in caught)
+    return same, syncs
+
+
+def run_graphs(torch, ck, dev, phase4_walls):
+    """Phase 5b: the captured programs against the eager path."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.utils import randn_like
+
+    sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=30)
+    pairs = main_path_pairs()
+    failures = []
+
+    def graphed_vs_eager(label, model, seed_base, reference):
+        walls = {"graphed": [], "eager": []}
+        for i, (_, y) in enumerate(pairs):
+            seed = seed_base + i
+            programs = len(model._graphs)
+            t0 = time.perf_counter()
+            _, held = memory_held(torch, lambda: model.enhance(
+                y[None], y[None], generator=torch.Generator(dev).manual_seed(seed)))
+            first = time.perf_counter() - t0
+            if len(model._graphs) > programs:
+                print(f"{label}, {UTTERANCE_SECONDS[i]} s utterance: its bucket's first call "
+                      f"(eager warm-up, capture, replay) {first:.4f} s; card memory the "
+                      f"program keeps {held / 2**20:.1f} MiB (memory_reserved after "
+                      "empty_cache, before and after)")
+            t0 = time.perf_counter()
+            graphed = model.enhance(y[None], y[None],
+                                    generator=torch.Generator(dev).manual_seed(seed))
+            walls["graphed"].append(time.perf_counter() - t0)
+            gen = torch.Generator(dev).manual_seed(seed)
+            t0 = time.perf_counter()
+            eager = model.enhance(y[None], y[None], noise=lambda like: randn_like(like, gen))
+            walls["eager"].append(time.perf_counter() - t0)
+            err = float(np.max(np.abs(graphed - eager)) / np.max(np.abs(eager)))
+            bitwise = bool(np.array_equal(graphed, eager))
+            print(f"{label}, {UTTERANCE_SECONDS[i]} s utterance: graphed vs eager, same generator "
+                  f"state: max|diff|/max|eager| {err:.3e} (tol {GRAPH_TOL}), bitwise equal "
+                  f"{bitwise}; wall graphed {walls['graphed'][-1]:.4f} s, eager "
+                  f"{walls['eager'][-1]:.4f} s ({reference[i]})")
+            if err > GRAPH_TOL or not np.isfinite(graphed).all() or graphed.shape != y.shape:
+                failures.append(f"{label} utterance {i}: graphed deviates by {err:.3e}")
+        return walls
+
+    paths = {}
+    bbed = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed",
+                                       snr_conditioned="false", sigma_max=0.5),
+                      sde_kwargs=sde_kwargs, device=dev,
+                      generator=torch.Generator().manual_seed(0))
+    ck.reset_launch_counts()
+    graphed_vs_eager("bbed_pc", bbed, 20, [f"phase 4: {w:.3f} s" for w in phase4_walls]
+                     or ["phase 4: not run"] * len(pairs))
+    same, syncs = sync_free_check(torch, bbed, pairs[0][1], dev)
+    print(f"bbed_pc under torch.cuda.set_sync_debug_mode('error'): the eager device program and "
+          f"a replay ran without a synchronisation; equal bit for bit {same}. Synchronising "
+          f"operations in a whole enhance ('warn' mode): {syncs} (the copy of the result to the "
+          "host is one)")
+    if any(n > 1 for n in syncs.values()):
+        failures.append(f"enhance synchronises more than once: {syncs}")
+    paths["bbed_pc (graphed and eager)"] = card_runs(
+        dict(ck.launch_counts), [p for _, p in bbed._graphs.values()])
+    del bbed
+
+    v3_cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v3",
+                              snr_conditioned="true", fixed_snr=FIXED_SNR, sigma_max=1.0)
+    v3 = ScoreModel(v3_cfg, sde_kwargs=sde_kwargs, device=dev, snr_model=redraw_snrnet(torch, 5))
+    redraw_weights(torch, v3.backbone, seed=6)
+    ck.reset_launch_counts()
+    lo, hi = EAGER_1NFE_WALLS
+    graphed_vs_eager("sebridge_v3_snr", v3, 40,
+                     [f"eager {lo}-{hi} s in earlier runs"] * len(pairs))
+    print(f"sebridge_v3_snr programs: {sorted(k.t_pad for k in v3._graphs)} frames, launches "
+          f"recorded at capture {[p.launch_counts for _, p in v3._graphs.values()]}")
+    for _, program in v3._graphs.values():
+        if program.launch_counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28,
+                                     "fused_bias_leaky_relu": 0}:
+            failures.append(f"sebridge_v3_snr program recorded {program.launch_counts}")
+    paths["sebridge_v3_snr (graphed and eager)"] = card_runs(
+        dict(ck.launch_counts), [p for _, p in v3._graphs.values()])
+    for label, path in paths.items():
+        print(f"{label}: kernel runs on the card {path['runs']}, recorded at capture "
+              f"{path['recorded']}")
+        if not path["runs"]["gn_silu_conv3x3"] or not path["runs"]["groupnorm_silu"]:
+            failures.append(f"{label}: a kernel of the path never ran: {path['runs']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
 
 
 def relative_gap(out, ref):
@@ -864,13 +1086,13 @@ def check_bf16_forward(torch, ck, dev):
             out16 = card(xd, td)
             torch.cuda.synchronize()
             counts = dict(ck.launch_counts)
-            first_casts = ck.weight_casts["gn_silu_conv3x3"]
+            first_casts = dict(ck.weight_casts)
             for hook in hooks:
                 hook.remove()
             ck.reset_launch_counts()  # the next forward: no cast, and which kernels ran
             card(xd, td)
             torch.cuda.synchronize()
-            casts, by_config = ck.weight_casts["gn_silu_conv3x3"], list(ck.conv_config_launches)
+            casts, by_config = dict(ck.weight_casts), list(ck.conv_config_launches)
             if counts != dict(ck.launch_counts):
                 failures.append(f"{label}: launches {dict(ck.launch_counts)} in the second forward")
             out32 = f32(xd, td)
@@ -909,15 +1131,15 @@ def check_bf16_forward(torch, ck, dev):
             failures.append(f"{label}: card vs CPU {gap_cpu:.3e} is {ratio:.3f} of the bf16 gap")
         if counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}:
             failures.append(f"{label}: launch counts per forward {counts}, expected 81 and 28")
-        if casts != 0 or first_casts == 0:
+        if any(casts.values()) or not all(first_casts.values()):
             failures.append(f"{label}: {first_casts} bf16 weight casts in the first forward, "
-                            f"{casts} in the next (expected some, then none)")
+                            f"{casts} in the next (expected some of each kind, then none)")
         if by_config[ck.CONV_WGMMA_SS] == 0:
             failures.append(f"{label}: the wgmma.ss kernel did not run")
         del card, cpu, f32, records
     if failures:
         raise AssertionError("; ".join(failures))
-    return {**counts, **conv_launches(ck, by_config)}
+    return card_runs({**counts, **conv_launches(ck, by_config)}, [])
 
 
 def conv_launches(ck, by_config):
@@ -929,10 +1151,13 @@ def conv_launches(ck, by_config):
 
 def run_bf16_program(torch, ck, dev):
     """Phase 8: bench.py's batch-16 program with the bf16 and the float32
-    trunk. Returns the bf16 run's launch counts."""
+    trunk, each captured as one program and replayed. Returns the bf16
+    run's launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    from diffse_tpu_torch.capture import Program
     from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.profiling import device_breakdown, format_breakdown
     from diffse_tpu_torch.sampling import get_pc_sampler
     from diffse_tpu_torch.transforms import pad_spec, spec_fwd
     from diffse_tpu_torch.utils import randn_like
@@ -950,68 +1175,113 @@ def run_bf16_program(torch, ck, dev):
                           * 0.1).astype(np.float32)).to(dev)
 
     @torch.no_grad()
-    def program(model, seed):
-        gen = torch.Generator(dev).manual_seed(seed)
+    def program(model, gen, y, snr):
         norm = torch.max(torch.abs(y), dim=-1, keepdim=True).values
         Y = pad_spec(spec_fwd(model._stft(y / norm), model.spec_cfg)[:, None])
         sampler = get_pc_sampler("reverse_diffusion", "ald", sde=model.sde,
                                  score_fn=model.forward, Y=Y,
                                  noise=lambda like: randn_like(like, gen), eps=cfg.t_eps,
-                                 snr=0.5, corrector_steps=1)
+                                 snr=snr, corrector_steps=1)
         sample, _ = sampler()
         return model.to_audio(sample[:, 0]) * norm
 
     outs, counts, failures = {}, {}, []
+    expected = {"gn_silu_conv3x3": 81 * 2 * BENCH_STEPS, "groupnorm_silu": 28 * 2 * BENCH_STEPS,
+                "fused_bias_leaky_relu": 0}
+    snr = torch.full((), 0.5, dtype=torch.float32, device=dev)
     for name, model in models.items():
-        program(model, 1)  # warm-up
-        torch.cuda.synchronize()
         ck.reset_launch_counts()
         t0 = time.perf_counter()
-        outs[name] = program(model, 2)
+        captured, held = memory_held(torch, lambda model=model: Program(
+            lambda gen, y, snr: program(model, gen, y, snr), {"y": y, "snr": 0.5}, dev))
+        capture_s = time.perf_counter() - t0
+        outs[name] = captured(torch.Generator(dev).manual_seed(2), y=y, snr=0.5).clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        captured(torch.Generator(dev).manual_seed(3), y=y, snr=0.5)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts[name] = dict(ck.launch_counts)
-        casts, by_config = ck.weight_casts["gn_silu_conv3x3"], list(ck.conv_config_launches)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            program(model, 2)
+            captured(torch.Generator(dev).manual_seed(4), y=y, snr=0.5)
             torch.cuda.synchronize()
             wall_profiled = time.perf_counter() - t0
-        device_us, launches = 0.0, 0
-        for avg in prof.key_averages():
-            if avg.device_type == torch.autograd.DeviceType.CUDA and avg.self_device_time_total > 0:
-                device_us += avg.self_device_time_total
-                launches += avg.count
+        # through the wrappers: the warm-up run and the capture; on the card:
+        # the warm-up run and the replays
+        counts[name], window_by_config = dict(ck.launch_counts), list(ck.conv_config_launches)
+        casts, by_config = dict(ck.weight_casts), captured.conv_config_launches
+        path = card_runs(counts[name], [captured])
+        breakdown = device_breakdown(prof)
+        device_s, launches = breakdown["total_us"] / 1e6, breakdown["launches"]
+        gen = torch.Generator(dev).manual_seed(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        program(model, gen, y, snr)  # a warm eager run
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - allocated
+        gen = torch.Generator(dev).manual_seed(2)
+        t0 = time.perf_counter()
+        eager = program(model, gen, y, snr)
+        torch.cuda.synchronize()
+        eager_wall = time.perf_counter() - t0
         out = outs[name]
+        err = relative_gap(out, eager)
+        bitwise = torch.equal(out, eager)
         finite = bool(torch.isfinite(out).all())
-        idle = (f"{1 - device_us / 1e6 / wall:.3f}" if device_us > 0
+        # device time and wall of the same (profiled) replay
+        idle = (f"{1 - device_s / wall_profiled:.3f}" if device_s > 0
                 else "not measured (the profiler recorded no device time)")
-        print(f"bench program, {name} trunk: {BENCH_BATCH} x {BENCH_FRAMES} frames, "
-              f"{2 * BENCH_STEPS} forwards: wall {wall:.3f} s ({BENCH_BATCH * audio_len / SR / wall:.2f}"
-              f" s of audio per s); profiled wall {wall_profiled:.3f} s, device kernel time "
-              f"{device_us / 1e6:.3f} s, idle share {idle}; {launches} device kernel launches; "
-              f"kernel wrapper launches {counts[name]}, conv by instantiation "
-              f"{dict(zip(CONV_NAMES, by_config))}; bf16 weight casts after the warm-up batch "
-              f"{casts}; output {tuple(out.shape)} finite {finite}")
+        wall0, device0, idle0, launches0 = EAGER_BF16_EARLIER
+        print(f"bench program, {name} trunk, captured: {BENCH_BATCH} x {BENCH_FRAMES} frames, "
+              f"{2 * BENCH_STEPS} forwards: capture (warm-up run + capture) {capture_s:.3f} s, "
+              f"card memory the program keeps {held / 2**20:.1f} MiB (the eager program's peak "
+              f"allocation {eager_peak / 2**20:.1f} MiB); "
+              f"wall per batch {wall:.3f} s ({BENCH_BATCH * audio_len / SR / wall:.2f} s of audio "
+              f"per s), eager {eager_wall:.3f} s; profiled replay: wall {wall_profiled:.3f} s, "
+              f"device kernel time {device_s:.3f} s, idle share {idle}; {launches} device kernel "
+              f"launches; graphed vs eager, same generator state: max|diff|/max|eager| {err:.3e} "
+              f"(tol {GRAPH_TOL}), bitwise equal {bitwise}; wrapper launches recorded at capture "
+              f"{captured.launch_counts}, conv by instantiation "
+              f"{dict(zip(CONV_NAMES, by_config))}; weight casts during the capture "
+              f"{captured.weight_casts}, after it {casts} (the warm-up's: "
+              f"{ {k: v - captured.weight_casts[k] for k, v in casts.items()} }); output "
+              f"{tuple(out.shape)} finite {finite}"
+              + (f"; eager bf16 program of an earlier run (PERF.md): wall {wall0} s, device "
+                 f"{device0} s, idle {idle0}, {launches0} launches" if name == "bf16" else ""))
+        if name == "bf16":
+            lines = [f"bench program, bf16 trunk, captured: device time by kernel family "
+                     f"({device_s:.3f} s in all):"] + format_breakdown(breakdown, top=8)
+            print("\n".join(lines))
         if tuple(out.shape) != (BENCH_BATCH, audio_len) or not finite:
             failures.append(f"{name}: output {tuple(out.shape)}, finite {finite}")
-        if casts:
-            failures.append(f"{name}: {casts} bf16 weight casts after the warm-up batch")
+        if err > GRAPH_TOL:
+            failures.append(f"{name}: the replay deviates from the eager program by {err:.3e}")
+        if any(captured.weight_casts.values()):
+            failures.append(f"{name}: weight casts during the capture {captured.weight_casts}")
+        if captured.launch_counts != expected:
+            failures.append(f"{name}: launch counts recorded at capture {captured.launch_counts}, "
+                            f"expected {expected}")
+        if counts[name] != {k: 2 * v for k, v in expected.items()}:
+            failures.append(f"{name}: wrapper launches {counts[name]} over the warm-up and the "
+                            "capture, expected twice the program's")
         if name == "bf16":
-            ws_launches = conv_launches(ck, by_config)
-            if ws_launches["gn_silu_conv3x3_ws"] == 0:
+            runs_by_config = [w + r * (captured.replays - 1)
+                              for w, r in zip(window_by_config, by_config)]
+            bf16_path = {"runs": {**path["runs"], **conv_launches(ck, runs_by_config)},
+                         "recorded": {**path["recorded"], **conv_launches(ck, by_config)}}
+            print(f"bench program, bf16 trunk: kernel runs on the card over the warm-up and "
+                  f"{captured.replays} replays {bf16_path['runs']}, recorded at capture "
+                  f"{bf16_path['recorded']}")
+            if by_config[ck.CONV_WGMMA_SS] == 0:
                 failures.append("bf16: the wgmma.ss kernel did not run")
+        del captured
     gap = relative_gap(outs["bf16"], outs["float32"])
     print(f"bench program: bf16 vs float32 trunk, same weights and noise draws: "
           f"max|diff|/max|ref| {gap:.3e}")
-    expected = {"gn_silu_conv3x3": 81 * 2 * BENCH_STEPS, "groupnorm_silu": 28 * 2 * BENCH_STEPS,
-                "fused_bias_leaky_relu": 0}
-    for name in models:
-        if counts[name] != expected:
-            failures.append(f"{name}: launch counts {counts[name]}, expected {expected}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return {**counts["bf16"], **ws_launches}
+    return bf16_path
 
 
 def main() -> int:
@@ -1048,6 +1318,8 @@ def main() -> int:
                         ("forward", lambda: check_forward(torch, ck, dev)),
                         ("enhance", lambda: run_main_path(torch, ck, dev)),
                         ("snr", lambda: run_snr_path(torch, ck, dev)),
+                        ("graphs", lambda: run_graphs(torch, ck, dev,
+                                                      results.get("enhance", ({}, []))[1])),
                         ("bf16_kernels", lambda: check_bf16_kernels(torch, ck, dev)),
                         ("bf16_forward", lambda: check_bf16_forward(torch, ck, dev)),
                         ("bf16_program", lambda: run_bf16_program(torch, ck, dev))):
@@ -1063,15 +1335,19 @@ def main() -> int:
     if not ok:
         return 1
 
-    # launches on each main path, each counted from zero: the float32 paths,
-    # and the bf16 trunk's (one forward; bench.py's batch-16 program)
-    paths = {"bbed_pc+sebridge_v2": results["enhance"][0], **results["snr"]}
-    bf16_paths = {"bf16_forward": results["bf16_forward"],
-                  "bf16_bench_program": results["bf16_program"]}
+    # kernel runs on the card on each main path, each counted from zero: the
+    # float32 paths, and the bf16 trunk's (one forward; bench.py's batch-16
+    # program)
+    paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
+             **results["snr"], **results["graphs"]}
+    bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
+                  "bf16_bench_program (graphed)": results["bf16_program"]}
 
     def launches(kernel, by=paths):
-        by_path = {path: counts[kernel] for path, counts in by.items()}
-        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+        runs = {path: counts["runs"][kernel] for path, counts in by.items()}
+        recorded = {path: counts["recorded"][kernel] for path, counts in by.items()}
+        return {"launches": sum(runs.values()), "launches_by_path": runs,
+                "recorded_at_capture_by_path": recorded, "launches_counted": LAUNCHES_COUNTED}
 
     gn_source = {"route": "cuda", "source": "diffse_tpu_torch/csrc/gn_kernels.cu"}
     record = {"kernels": [

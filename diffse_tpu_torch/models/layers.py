@@ -18,7 +18,8 @@ The bf16 trunk (``NCSNpp(dtype="bf16")``) keeps the parameters in float32 and
 computes where the JAX package's bf16 path does (diffse_tpu/models/layers.py):
 activations cross memory in bfloat16; convs and the blocks' dense layers take
 bf16 operands, sum in float32 and round once, then add their bias in bf16
-(``conv``, ``dense``, as flax's ``nn.Conv``/``nn.Dense`` with ``dtype``);
+(``conv``, ``dense``, as flax's ``nn.Conv``/``nn.Dense`` with ``dtype``;
+the bf16 copies of their parameters are cast once, ``cast_params``);
 GroupNorm statistics, the attention's norm, q/k/v and softmax stay float32.
 """
 
@@ -32,9 +33,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.cuda_kernels import (CONV_BK_BF16, groupnorm_silu, groupnorm_silu_conv3x3,
-                                pack_conv_weight_bf16)
+                                pack_conv_weight_bf16, weight_casts)
 from ..ops.fir import downsample_2d, upsample_2d
-from ..utils import round_once
+from ..utils import forbid_capture, round_once
 
 
 # The repo's NCSN++ configuration: FIR [1,3,3,1] resampling, residual sums
@@ -89,17 +90,37 @@ def ddpm_dense(in_dim: int, out_dim: int,
     return lin
 
 
+def cast_params(module: nn.Module, dtype: torch.dtype):
+    """``module``'s weight and bias cast to ``dtype``, cast once and again
+    only when either moves or changes: the copies are kept on the module
+    (a plain attribute, not in the state_dict) keyed on each parameter's
+    device, ``data_ptr()`` and ``_version``, with the parameters themselves
+    held so that no other tensor takes their addresses while the key
+    stands. Each cast is counted in ``cuda_kernels.weight_casts`` under the
+    module's kind ("conv" or "dense"), on any device."""
+    w, b = module.weight, module.bias
+    key = (dtype, w.device, w.data_ptr(), w._version, b.data_ptr(), b._version)
+    cached = getattr(module, "_cast", None)
+    if cached is None or cached[0] != key:
+        forbid_capture(w.device, "a cast weight")
+        cached = (key, (w.detach(), b.detach()), w.detach().to(dtype), b.detach().to(dtype))
+        module._cast = cached
+        weight_casts["conv" if isinstance(module, nn.Conv2d) else "dense"] += 1
+    return cached[2], cached[3]
+
+
 def conv(module: nn.Conv2d, x: torch.Tensor,
          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``module(x)`` computed in ``dtype``, as flax's ``nn.Conv(dtype=...)``
     does: x and the weight cast to ``dtype``, the conv rounded to it once,
     then the bias (cast to ``dtype``) added in ``dtype``. Float32 is the
-    module's own call."""
+    module's own call; the cast weight and bias are kept (``cast_params``)."""
     if dtype == torch.float32:
         return module(x)
+    weight, bias = cast_params(module, dtype)
     y = round_once(lambda a, w: F.conv2d(a, w, stride=module.stride, padding=module.padding),
-                   x.to(dtype), module.weight.to(dtype))
-    return y + module.bias.to(dtype)[None, :, None, None]
+                   x.to(dtype), weight)
+    return y + bias[None, :, None, None]
 
 
 def dense(module: nn.Linear, x: torch.Tensor,
@@ -108,15 +129,27 @@ def dense(module: nn.Linear, x: torch.Tensor,
     does (see ``conv``)."""
     if dtype == torch.float32:
         return module(x)
-    y = round_once(lambda a, w: a @ w.t(), x.to(dtype), module.weight.to(dtype))
-    return y + module.bias.to(dtype)
+    weight, bias = cast_params(module, dtype)
+    y = round_once(lambda a, w: a @ w.t(), x.to(dtype), weight)
+    return y + bias
+
+
+# sqrt(2) rounded to each floating dtype, as a Python float: made once, so
+# that a forward reads no tensor back to the host
+_SQRT2 = {dtype: float(torch.tensor(math.sqrt(2.0), dtype=dtype))
+          for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.float64)}
+
+
+def _sqrt2(dtype: torch.dtype) -> float:
+    """sqrt(2) rounded to ``dtype``, as a Python float."""
+    return _SQRT2[dtype]
 
 
 def residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """``(x + h) / sqrt(2)`` in x's dtype. The JAX package divides by the
     Python float sqrt(2), a weakly typed scalar that takes the array's dtype:
     in bfloat16 the divisor is bf16(sqrt(2)) = 1.4140625, and so it is here."""
-    return (x + h) / float(torch.tensor(math.sqrt(2.0), dtype=x.dtype))
+    return (x + h) / _sqrt2(x.dtype)
 
 
 def hwio_memory_(conv: nn.Conv2d) -> nn.Conv2d:
@@ -280,6 +313,7 @@ class ResnetBlockBigGANpp(nn.Module):
         key = (w.device, w.data_ptr(), w._version)
         cached = self._packed.get(name)
         if cached is None or cached[0] != key:
+            forbid_capture(w.device, "a packed weight")
             cached = (key, w.detach(), pack_conv_weight_bf16(conv_hwio(getattr(self, name))))
             self._packed[name] = cached
         return cached[2]

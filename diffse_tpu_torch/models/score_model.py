@@ -14,19 +14,28 @@ Ported branches of ``enhance``:
   - ``sebridge_v2_snr``: one forward of the SNR-conditioned NCSN++ with the
     noise level taken from the clean reference.
 
+On the card each branch runs as one captured program per shape bucket
+(``_enhance_graph``, the counterpart of the JAX package's ``_enhance_jit``):
+normalise -> STFT -> sampler or forward -> iSTFT, captured once as a CUDA
+graph (``capture.Program``) and replayed. The program never waits on the
+device; SNRNet's estimate and the snap to the Karras grid stay on the host
+before it, as in the JAX package.
+
 The ODE sampler and training are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..capture import Program
 from ..sampling import get_pc_sampler
 from ..sde import SDERegistry
 from ..transforms import (
@@ -40,7 +49,7 @@ from ..transforms import (
     stft,
     width_bucket,
 )
-from ..utils import model_device, randn_like
+from ..utils import model_device, randn_like, to_device
 from . import ncsnpp  # noqa: F401  (registers the "ncsnpp" and "ncsnpp_snr" backbones)
 from .shared import BackboneRegistry
 from .snr_model import snr_from_normalized_wav
@@ -99,6 +108,28 @@ def snap_to_karras_grid(est_snr: float, fixed_snr: float):
     return t_hat, np.float32(normfac)
 
 
+class EnhanceKey(NamedTuple):
+    """What one captured enhance program is for: the fields of the JAX
+    package's ``_enhance_jit`` cache key (the port has no sequence mesh,
+    ``mesh_key`` None, and only the linear time grid), then what a capture
+    also fixes: the batch, the trunk's dtype, the device, and the model's
+    settings (its config and SDE)."""
+
+    branch: str
+    t_pad: int
+    n_steps: int
+    predictor: str
+    corrector: str
+    corrector_steps: int
+    oracle: bool
+    mesh_key: None
+    timestep_type: str
+    batch: int
+    dtype: torch.dtype
+    device: torch.device
+    settings: tuple
+
+
 @dataclasses.dataclass
 class ScoreModelConfig:
     """The fields of diffse_tpu's ScoreModelConfig that inference reads, with
@@ -155,6 +186,8 @@ class ScoreModel:
             transform_type=config.transform_type, spec_factor=config.spec_factor,
             spec_abs_exponent=config.spec_abs_exponent)
         self._window = hann_window(config.n_fft, device=self.device)
+        # EnhanceKey -> (the parameters' key, capture.Program)
+        self._graphs = {}
 
     # ------------------------------------------------------------ transforms
     def _stft(self, sig: torch.Tensor) -> torch.Tensor:
@@ -205,7 +238,7 @@ class ScoreModel:
         ``[B, samples]`` by SNRNet, each row normalised by its max-abs."""
         if self.snr_model is None:
             raise ValueError("snr_conditioned='true' requires an snr_model")
-        y_wav = _as_wave(y_wav).to(self.device)
+        y_wav = to_device(_as_wave(y_wav), self.device)
         y_n = y_wav / torch.max(torch.abs(y_wav), dim=-1, keepdim=True).values
         return snr_from_normalized_wav(self.snr_model, y_n, self._window,
                                        self.stft_cfg.n_fft, self.stft_cfg.hop_length)
@@ -228,6 +261,88 @@ class ScoreModel:
             return branch
         raise ValueError(f"unknown snr_conditioned {cfg.snr_conditioned}")
 
+    def _enhance_on_device(self, branch: str, noise: NoiseFn, n_steps: int, predictor: str,
+                           corrector: str, corrector_steps: int, y: torch.Tensor,
+                           x: Optional[torch.Tensor] = None, snr: Optional[torch.Tensor] = None,
+                           t_hat: Optional[torch.Tensor] = None,
+                           normfac: Optional[torch.Tensor] = None):
+        """Normalise -> STFT -> the branch's sampler or forward -> iSTFT, all
+        on the device and with no wait on it. ``y`` (and ``x``, which
+        ``sebridge_v2_snr`` reads): ``[B, samples]`` float32 on the model's
+        device, padded to the width bucket; ``snr`` (``bbed_pc``'s
+        corrector), ``t_hat`` (``sebridge_v3_snr``) and ``normfac`` (the
+        ``_snr`` branches): float32 0-d tensors there. Returns the waveform
+        ``[B, samples']`` on the device and the NFE."""
+        cfg = self.cfg
+        norm_factor = torch.max(torch.abs(y))
+        if branch.endswith("_snr"):
+            norm_factor = norm_factor * normfac
+        Y = pad_spec(spec_fwd(self._stft(y / norm_factor), self.spec_cfg)[:, None])
+        batch = Y.shape[0]
+
+        def full(value):
+            return torch.full((batch,), 1.0, dtype=torch.float32, device=Y.device) * value
+
+        nfe = 1
+        if branch == "bbed_pc":
+            sampler = get_pc_sampler(
+                predictor, corrector, sde=self.sde.replace(N=n_steps), score_fn=self.forward,
+                Y=Y, noise=noise, eps=cfg.t_eps, snr=snr, corrector_steps=corrector_steps)
+            sample, nfe = sampler()
+        elif branch == "sebridge":
+            sample = self.forward(Y, full(0.999), Y)
+        elif branch == "sebridge_v2":
+            z = noise(Y) * cfg.sigma_max * 0.999
+            sample = self.forward(Y + z, full(0.999), Y)
+        elif branch == "sebridge_v2_snr":
+            X = pad_spec(spec_fwd(self._stft(x / norm_factor), self.spec_cfg)[:, None])
+            z_mag = noise_mag(X, Y, mode="max") * cfg.sigma_max
+            z = noise(Y) * z_mag * 0.999
+            sample = self.forward(Y + z, full(0.999), Y, s=full(z_mag) * 0.999)
+        else:  # sebridge_v3_snr
+            z = noise(Y) * cfg.sigma_max * t_hat
+            sample = self.forward(Y + z, full(t_hat), Y)
+        return self.to_audio(sample[:, 0]) * norm_factor, nfe
+
+    def _graph_key(self, branch: str, t_pad: int, n_steps: int, predictor: str, corrector: str,
+                   corrector_steps: int, oracle: bool, batch: int) -> EnhanceKey:
+        return EnhanceKey(branch, t_pad, n_steps, predictor, corrector, corrector_steps, oracle,
+                          mesh_key=None, timestep_type="linear", batch=batch,
+                          dtype=getattr(self.backbone, "compute_dtype", torch.float32),
+                          device=self.device,
+                          settings=(dataclasses.astuple(self.cfg), self.sde))
+
+    def _params_key(self) -> tuple:
+        """Every parameter's and buffer's device, ``data_ptr()`` and
+        ``_version``: a captured program holds their addresses and the copies
+        made from them (packed and cast weights), so a move or an in-place
+        update (``load_state_dict``) must capture anew."""
+        return tuple((t.device, t.data_ptr(), t._version)
+                     for t in itertools.chain(self.backbone.parameters(), self.backbone.buffers()))
+
+    @torch.no_grad()
+    def _enhance_graph(self, branch: str, t_pad: int, n_steps: int, predictor: str,
+                       corrector: str, corrector_steps: int, oracle: bool, inputs: dict) -> Program:
+        """The captured enhance program for this key (``EnhanceKey``): made
+        on first use from ``inputs`` (those of ``_enhance_on_device``, by
+        name), and again when the backbone's parameters moved or changed."""
+        key = self._graph_key(branch, t_pad, n_steps, predictor, corrector, corrector_steps,
+                              oracle, batch=inputs["y"].shape[0])
+        params = self._params_key()
+        entry = self._graphs.get(key)
+        if entry is not None and entry[0] == params:
+            return entry[1]
+        self._graphs.pop(key, None)  # free a stale program's memory first
+
+        def fn(generator, **tensors):
+            return self._enhance_on_device(branch, lambda like: randn_like(like, generator),
+                                           n_steps, predictor, corrector, corrector_steps,
+                                           **tensors)
+
+        program = Program(fn, inputs, self.device)
+        self._graphs[key] = (params, program)
+        return program
+
     @torch.no_grad()
     def enhance(self, x, y, generator: Optional[torch.Generator] = None,
                 noise: Optional[NoiseFn] = None, predictor: str = "reverse_diffusion",
@@ -244,6 +359,13 @@ class ScoreModel:
         package's draws through it), otherwise from ``generator`` (a
         generator on ``self.device``; seed 0 when None).
 
+        On the card, with noise from ``generator``, the branch runs as its
+        captured program (``_enhance_graph``): captured on the first call for
+        its width bucket (one eager warm-up run, then the capture), replayed
+        after. The same steps run eagerly, op by op, in two cases only: on
+        the CPU, and with a caller's ``noise`` callable, which a graph
+        cannot call.
+
         Returns the enhanced waveform as a numpy array of ``samples``; with
         ``timeit=True`` a tuple ``(x_hat, nfe, rtf)``.
         """
@@ -253,64 +375,45 @@ class ScoreModel:
         x, y = _as_wave(x), _as_wave(y)
         t_orig = y.shape[-1]
 
-        est_snr = 1.0
-        if cfg.snr_conditioned == "true":
+        inputs = {}
+        if branch.endswith("_snr"):
             est_snr = (np.float32(noise_rms / clean_rms) if oracle
                        else self.estimate_snr(y)[0].item())
+            t_hat, normfac = snap_to_karras_grid(est_snr, cfg.fixed_snr)
+            inputs["normfac"] = float(normfac)
+            if branch == "sebridge_v3_snr":
+                inputs["t_hat"] = float(t_hat)
+        if branch == "bbed_pc":
+            inputs["snr"] = float(np.float32(snr))
 
         # Frames padded to a multiple of 64 on the host, as the JAX package
         # does: the U-Net downsamples six times.
-        _, pad_samples = width_bucket(t_orig, cfg.hop_length)
+        t_pad, pad_samples = width_bucket(t_orig, cfg.hop_length)
         if t_orig < pad_samples:
             x = F.pad(x, (0, pad_samples - t_orig))
             y = F.pad(y, (0, pad_samples - t_orig))
         elif t_orig > pad_samples:
             x = x[..., :pad_samples]
             y = y[..., :pad_samples]
-        y = y.to(self.device, torch.float32)
+        inputs["y"] = y
+        if branch == "sebridge_v2_snr":
+            inputs["x"] = x
 
-        if noise is None:
-            if generator is None:
-                generator = torch.Generator(self.device).manual_seed(0)
-            noise = lambda like: randn_like(like, generator)  # noqa: E731
+        if noise is None and generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        if noise is None and self.device.type == "cuda":
+            program = self._enhance_graph(branch, t_pad, N, predictor, corrector,
+                                          corrector_steps, oracle, inputs)
+            x_hat, nfe = program(generator, **inputs)
+        else:
+            if noise is None:
+                noise = lambda like: randn_like(like, generator)  # noqa: E731
+            tensors = {name: to_device(v, self.device) if torch.is_tensor(v) else
+                       torch.full((), v, dtype=torch.float32, device=self.device)
+                       for name, v in inputs.items()}
+            x_hat, nfe = self._enhance_on_device(branch, noise, N, predictor, corrector,
+                                                 corrector_steps, **tensors)
 
-        norm_factor = torch.max(torch.abs(y))
-        t_hat = None
-        if branch.endswith("_snr"):
-            t_hat, normfac = snap_to_karras_grid(est_snr, cfg.fixed_snr)
-            norm_factor = norm_factor * float(normfac)
-        Y = pad_spec(spec_fwd(self._stft(y / norm_factor), self.spec_cfg)[:, None])
-        batch = Y.shape[0]
-
-        def full(value):
-            return torch.full((batch,), 1.0, dtype=torch.float32, device=self.device) * value
-
-        if branch == "bbed_pc":
-            sampler = get_pc_sampler(
-                predictor, corrector, sde=self.sde.replace(N=N), score_fn=self.forward,
-                Y=Y, noise=noise, eps=cfg.t_eps, snr=snr,
-                corrector_steps=corrector_steps)
-            sample, nfe = sampler()
-        elif branch == "sebridge":
-            sample = self.forward(Y, full(0.999), Y)
-            nfe = 1
-        elif branch == "sebridge_v2":
-            z = noise(Y) * cfg.sigma_max * 0.999
-            sample = self.forward(Y + z, full(0.999), Y)
-            nfe = 1
-        elif branch == "sebridge_v2_snr":
-            x = x.to(self.device, torch.float32)
-            X = pad_spec(spec_fwd(self._stft(x / norm_factor), self.spec_cfg)[:, None])
-            z_mag = noise_mag(X, Y, mode="max") * cfg.sigma_max
-            z = noise(Y) * z_mag * 0.999
-            sample = self.forward(Y + z, full(0.999), Y, s=full(z_mag) * 0.999)
-            nfe = 1
-        else:  # sebridge_v3_snr
-            z = noise(Y) * cfg.sigma_max * float(t_hat)
-            sample = self.forward(Y + z, full(float(t_hat)), Y)
-            nfe = 1
-
-        x_hat = self.to_audio(sample[:, 0]) * norm_factor
         x_hat = x_hat[0, :t_orig].cpu().numpy()
         if x_hat.shape[-1] < t_orig:
             # frames % 64 == 0 bucket: the iSTFT yields up to hop-1 samples

@@ -28,6 +28,15 @@ large-level conv (``wgmma.ss``) reads its weights packed in bf16
 (``pack_conv_weight_bf16``), which the model's blocks keep; ``weight_casts``
 counts the packs made on the card.
 
+The wrappers can be captured into a CUDA graph (``capture.Program``): they
+launch on the current stream, synchronise nothing and allocate with
+``torch.empty``. What outlives a launch (the statistics pass's ticket
+counters, one set per stream) is made by the eager warm-up run on the
+capture's stream that precedes every capture; a wrapper that would make it
+during a capture raises.
+The counts advance where a wrapper launches its kernel, so a captured
+program counts its launches once, at capture, and not on replay.
+
 The launch plans of the GroupNorm kernels are pure functions of the shapes
 (``conv_plan``, ``stats_plan``), so that the CPU tests can hold them at every
 shape the model runs; the C entry points check what they are given and
@@ -50,7 +59,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..utils import float32_precision
+from ..utils import float32_precision, forbid_capture
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -63,8 +72,10 @@ launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0, "fused_bias_leaky_re
 conv_config_launches = [0, 0, 0, 0]
 # bf16 weights packed on the card by pack_conv_weight_bf16 (a cast kernel and
 # a copy each): a module packs its weights once, and the conv's wrapper
-# packs them itself when it is not given them
-weight_casts = {"gn_silu_conv3x3": 0}
+# packs them itself when it is not given them; and the bf16 copies of the
+# cuDNN convs' and the dense layers' parameters (models/layers.py
+# cast_params, counted on any device)
+weight_casts = {"gn_silu_conv3x3": 0, "conv": 0, "dense": 0}
 
 
 def reset_launch_counts() -> None:
@@ -562,15 +573,22 @@ def _dispatch_device(name: str, x: torch.Tensor) -> bool:
 
 
 _tickets = {}
+# counters replaced by larger ones, kept: a captured graph may hold them
+_retired_tickets = []
 
 
 def _ticket_counters(device: torch.device, stream: int, bsz: int) -> torch.Tensor:
     """The statistics pass's per-batch-row ticket counters on ``stream``:
     zeroed once, and left at zero by every launch (its folding block resets
-    them), so launches on one stream can share them."""
+    them), so launches on one stream can share them. Made outside a CUDA
+    graph capture only: ``capture.Program``'s warm-up, on the capture's
+    stream and at its batch, makes them before the capture."""
     key = (device.index, stream)
     counters = _tickets.get(key)
     if counters is None or counters.numel() < bsz:
+        forbid_capture(device, "the statistics pass's ticket counters")
+        if counters is not None:
+            _retired_tickets.append(counters)
         counters = torch.zeros(max(bsz, 64), device=device, dtype=torch.int32)
         _tickets[key] = counters
     return counters

@@ -3,6 +3,11 @@
 Port of diffse_tpu/ops/fir.py (upsample_2d, downsample_2d and the naive
 variants); the conv-fused variants are not on the NCSN++ path and are left
 out.
+
+``upsample_2d`` and ``downsample_2d`` build their depthwise filter once per
+(kernel, gain, factor, direction, channels, dtype, device) and keep it on the
+device, so that a forward neither rebuilds it on the host nor copies it to the
+card (a blocking copy) on every call.
 """
 
 from __future__ import annotations
@@ -11,7 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .upfirdn2d import upfirdn2d
+from ..utils import forbid_capture, to_device
+from .upfirdn2d import depthwise_weight, upfirdn2d_depthwise
 
 
 def setup_fir_kernel(k) -> np.ndarray:
@@ -35,20 +41,36 @@ def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return F.avg_pool2d(x, factor)
 
 
-def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
-    """FIR upsample by ``factor``."""
+# (kernel, gain, factor, up, channels, dtype, device) -> depthwise weight
+_weights = {}
+
+
+def _fir_weight(k, gain: float, factor: int, up: bool, x: torch.Tensor) -> torch.Tensor:
+    """The depthwise weight of ``k`` for x's channels, dtype and device, made
+    on the first call (a non-blocking copy) and reused."""
     if k is None:
         k = [1] * factor
-    k = setup_fir_kernel(k) * (gain * (factor ** 2))
-    p = k.shape[0] - factor
-    return upfirdn2d(x, torch.from_numpy(k), up=factor,
-                     pad=((p + 1) // 2 + factor - 1, p // 2))
+    k = np.asarray(k)
+    key = (k.shape, tuple(k.ravel().tolist()), gain, factor, up, x.shape[1], x.dtype, x.device)
+    weight = _weights.get(key)
+    if weight is None:
+        forbid_capture(x.device, "a FIR filter")
+        taps = setup_fir_kernel(k) * (gain * (factor ** 2) if up else gain)
+        weight = to_device(depthwise_weight(torch.from_numpy(taps).to(x.dtype), x.shape[1]),
+                           x.device)
+        _weights[key] = weight
+    return weight
+
+
+def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
+    """FIR upsample by ``factor``."""
+    weight = _fir_weight(k, gain, factor, True, x)
+    p = weight.shape[-1] - factor
+    return upfirdn2d_depthwise(x, weight, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
 
 
 def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
     """FIR downsample by ``factor``."""
-    if k is None:
-        k = [1] * factor
-    k = setup_fir_kernel(k) * gain
-    p = k.shape[0] - factor
-    return upfirdn2d(x, torch.from_numpy(k), down=factor, pad=((p + 1) // 2, p // 2))
+    weight = _fir_weight(k, gain, factor, False, x)
+    p = weight.shape[-1] - factor
+    return upfirdn2d_depthwise(x, weight, down=factor, pad=((p + 1) // 2, p // 2))

@@ -28,8 +28,20 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
 
     Returns ``[N, C, H', W']`` with ``H' = (H*up + pad0 + pad1 - kh) // down + 1``.
     """
+    return upfirdn2d_depthwise(x, depthwise_weight(kernel.to(x), x.shape[1]), up, down, pad)
+
+
+def depthwise_weight(kernel: torch.Tensor, channels: int) -> torch.Tensor:
+    """The ``[C, 1, kh, kw]`` weight of ``upfirdn2d_depthwise``: ``kernel``
+    flipped (a true convolution) and repeated per channel."""
+    return torch.flip(kernel, (0, 1))[None, None].repeat(channels, 1, 1, 1)
+
+
+def upfirdn2d_depthwise(x: torch.Tensor, weight: torch.Tensor, up: int = 1, down: int = 1,
+                        pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """``upfirdn2d`` with the filter given as ``depthwise_weight`` of x's
+    dtype on x's device, which a caller can build once."""
     n, c, h, w = x.shape
-    kh, kw = kernel.shape
     pad0, pad1 = pad
     if up > 1:
         z = torch.empty((n, c, h * up, w * up), dtype=x.dtype, device=x.device,
@@ -37,5 +49,4 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
         z[:, :, ::up, ::up] = x
         x = z
     x = F.pad(x, (pad0, pad1, pad0, pad1))
-    weight = torch.flip(kernel.to(x), (0, 1))[None, None].repeat(c, 1, 1, 1)
     return round_once(lambda a, k: F.conv2d(a, k, stride=down, groups=c), x, weight)

@@ -21,8 +21,9 @@ class Corrector(abc.ABC):
         self.n_steps = n_steps
 
     @abc.abstractmethod
-    def update_fn(self, noise, x, t, y):
-        """One corrector update, drawing from ``noise``. Returns (x, x_mean)."""
+    def update_fn(self, noise, x, t, y, std):
+        """One corrector update, drawing from ``noise``; ``std``: the SDE's
+        marginal std at ``t`` (``[B]``). Returns (x, x_mean)."""
 
 
 @CorrectorRegistry.register("ald")
@@ -30,9 +31,8 @@ class AnnealedLangevinDynamics(Corrector):
     """Annealed Langevin dynamics: step size (snr * std)^2 * 2 from the
     marginal std."""
 
-    def update_fn(self, noise, x, t, y):
+    def update_fn(self, noise, x, t, y, std):
         x_mean = x
-        std = self.sde.marginal_prob(x, t, y)[1]
         for _ in range(self.n_steps):
             grad = self.score_fn(x, t, y)
             z = noise(x)
@@ -50,5 +50,5 @@ class NoneCorrector(Corrector):
         self.snr = 0
         self.n_steps = 0
 
-    def update_fn(self, noise, x, t, y):
+    def update_fn(self, noise, x, t, y, std):
         return x, x

@@ -14,6 +14,7 @@ import dataclasses
 import math
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
 from ..registry import Registry
@@ -58,10 +59,13 @@ class SDE(abc.ABC):
         return y + z * _bc(self._std(t)), z
 
     def discretize(self, x, t, y, stepsize):
-        """Euler-Maruyama discretisation: f = drift*dt, G = g*sqrt(dt)."""
+        """Euler-Maruyama discretisation: f = drift*dt, G = g*sqrt(dt), with
+        dt the float32 value of ``stepsize`` and sqrt(dt) the float32 root of
+        that value, as host scalars (a tensor made from them would be a
+        blocking copy to the card on every step)."""
         drift, diffusion = self.sde(x, t, y)
-        dt = torch.tensor(stepsize, dtype=torch.float32, device=x.device)
-        return drift * dt, diffusion * torch.sqrt(dt)
+        dt = np.float32(stepsize)
+        return drift * float(dt), diffusion * float(np.sqrt(dt))
 
     def reverse(self, score_fn: Callable) -> "ReverseSDE":
         return ReverseSDE(fwd=self, score_fn=score_fn)
@@ -120,7 +124,7 @@ class BBED(SDE):
         # Var(t) = theta (1-t) [ (k^{2t} - 1 + t) + 2 k^2 log k (1-t)
         #          (Ei(2(t-1) log k) - Ei(-2 log k)) ]
         logk = self.logk
-        eilog = expi(torch.tensor(-2.0 * logk, dtype=torch.float32, device=t.device))
+        eilog = expi(torch.full((), -2.0 * logk, dtype=torch.float32, device=t.device))
         eis = expi(2.0 * (t - 1.0) * logk) - eilog
         h = 2.0 * self.k ** 2 * logk
         var = (self.k ** (2.0 * t) - 1.0 + t) + h * (1.0 - t) * eis

@@ -1,8 +1,9 @@
 """STFT / iSTFT (port of diffse_tpu/transforms/stft.py).
 
-The JAX package reproduces ``torch.stft`` semantics by hand; here they are
-``torch.stft``/``torch.istft`` themselves: center=True with reflect padding,
-a periodic Hann window of length n_fft, one-sided (n_fft//2 + 1 bins).
+The JAX package reproduces ``torch.stft`` semantics by hand; here the STFT
+is ``torch.stft`` itself and the iSTFT ``torch.istft``'s own operations:
+center=True with reflect padding, a periodic Hann window of length n_fft,
+one-sided (n_fft//2 + 1 bins).
 """
 
 from __future__ import annotations
@@ -44,8 +45,25 @@ def stft(sig: torch.Tensor, window: torch.Tensor, n_fft: int = 510,
 
 def istft(spec: torch.Tensor, window: torch.Tensor, n_fft: int = 510,
           hop_length: int = 128) -> torch.Tensor:
-    """Complex ``[..., F, T]`` -> real ``[..., hop * (T - 1)]``."""
+    """Complex ``[..., F, T]`` -> real ``[..., hop * (T - 1)]``.
+
+    ``torch.istft``'s operations (center=True): per-frame inverse real FFT,
+    window, overlap-add, division by the overlap-added squared window, the
+    centre padding trimmed; so the same bits. ``torch.istft`` reads the
+    smallest envelope value back to the host to check that it is not zero,
+    which blocks the host and cannot be captured in a CUDA graph; here the
+    device checks it (``torch._assert_async``)."""
     shape = spec.shape[:-2]
-    out = torch.istft(spec.reshape((-1,) + spec.shape[-2:]), n_fft=n_fft,
-                      hop_length=hop_length, window=window, center=True)
+    spec = spec.reshape((-1,) + spec.shape[-2:])
+    frames = spec.shape[-1]
+    length = n_fft + hop_length * (frames - 1)
+    y = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1) * window
+    y = torch.ops.aten.unfold_backward(y, [y.shape[0], length], 1, n_fft, hop_length)
+    envelope = torch.ops.aten.unfold_backward(window.pow(2).expand(1, frames, n_fft),
+                                              [1, length], 1, n_fft, hop_length)
+    start, end = n_fft // 2, length - n_fft // 2
+    envelope = envelope[:, start:end]
+    torch._assert_async(envelope.abs().min() >= 1e-11,
+                        "istft: the window's overlap-add envelope has a zero")
+    out = y[:, start:end] / envelope
     return out.reshape(shape + out.shape[-1:])

@@ -1,5 +1,6 @@
-"""Small shared helpers (the model device, random sampling, broadcasting,
-device timing, float32 precision, bfloat16 arithmetic)."""
+"""Small shared helpers (the model device, host-to-device copies, random
+sampling, broadcasting, device timing, float32 precision, bfloat16
+arithmetic)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,27 @@ def model_device(device="cuda") -> torch.device:
         raise RuntimeError("no CUDA device: the port runs on the card by default; "
                            "pass device=\"cpu\" to run on the CPU")
     return device
+
+
+def forbid_capture(device: torch.device, what: str) -> None:
+    """Raise when the current stream of CUDA ``device`` is being captured into
+    a CUDA graph: ``what`` is state that outlives the call (a cache, a
+    counter), and made inside a capture it would live in the graph's private
+    memory pool. Such state is made by the warm-up before a capture
+    (``capture.Program``)."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} would be created inside a CUDA graph capture; "
+                           "run the program once before capturing it")
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device`` without blocking the host: a CPU tensor goes to a
+    CUDA device from pinned memory by a non-blocking copy (a copy from
+    pageable memory synchronises the stream)."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def randn_like(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
