@@ -58,6 +58,22 @@ Phases, each of which must pass:
    the result to the host is outside), and the synchronising operations of
    a whole ``enhance`` counted in "warn" mode (the final copy is the one).
    Each model's kernel runs on the card over the phase.
+5c. The samplers beside the main path's ("samplers"), on the 65M NCSN++
+   with redrawn weights: the certified serving sampler ``rd_ald_logit_N20``
+   (reverse_diffusion + ald, logit grid, N = 20, 40 forwards) at 128 and
+   192 frames with the float32 and the bf16 trunk, each replay against the
+   eager path on the same generator state (``GRAPH_TOL``, bitwise printed),
+   its first call's time and the card memory it keeps; each predictor, the
+   langevin corrector, each grid and the OUVE and PROPOSED_1 SDEs
+   (``SAMPLER_CASES``, N = 2) on the card against the CPU with the same
+   draws (``SAMPLER_TOL``); heun and the exponential predictors under
+   ``set_sync_debug_mode("error")``; then ``bbed_ode`` (RK45, rtol = atol
+   = 1e-5) through its three captured programs (``capture.LoopProgram``)
+   against the eager path, with 1 and 4 step attempts between two host
+   reads of its done flag, its nfev, attempts, status, host reads and
+   synchronisations, and on the card against the CPU: the same flags (an
+   accept/reject flip is reported as one) and the waveform within
+   ``ODE_WAVEFORM_TOL``. Each part's kernel runs on the card.
 6. The bf16 kernels (the trunk of ``NCSNpp(dtype="bf16")``): each against its
    plain version on the card at phase 2's shapes and at bench.py's batch of
    16 at 64 frames (the large level with and without skip, the deep levels,
@@ -215,6 +231,59 @@ GRAPH_TOL = 1e-6
 EAGER_BF16_EARLIER = (3.839, 1.750, 0.544, 93314)
 # sebridge_v3_snr per 1.0-1.5 s utterance, eager, in earlier runs (same card).
 EAGER_1NFE_WALLS = (0.036, 0.044)
+# Phase 5c ("samplers"). The certified serving sampler rd_ald_logit_N20
+# (SAMPLER_QUALITY.json): reverse_diffusion + ald on the logit grid, N = 20,
+# 40 forwards, on phase 4's 1.0 and 1.5 s utterances (128 and 192 frames).
+SERVING_SAMPLER = dict(predictor="reverse_diffusion", corrector="ald", N=20,
+                       timestep_type="logit")
+SERVING_SECONDS = (1.0, 1.5)
+# Each predictor, the langevin corrector, each grid and each SDE, the card
+# against the CPU at N = 2 on the 1.0 s utterance: (sde, predictor,
+# corrector, grid, N).
+SAMPLER_SECONDS = 1.0
+SAMPLER_CASES = [
+    ("bbed", "euler_maruyama", "langevin", "linear", 2),
+    ("bbed", "heun", "none", "bridge_geom", 2),
+    ("bbed", "exp_euler", "ald", "logit", 2),
+    ("bbed", "exp_heun", "none", "logit", 2),
+    ("bbed", "none", "langevin", "bridge_geom", 2),
+    ("ouve", "reverse_diffusion", "ald", "linear", 2),
+    ("ouve", "exp_heun", "langevin", "linear", 2),
+    ("proposed_1", "reverse_diffusion", "langevin", "logit", 2),
+    ("proposed_1", "heun", "ald", "bridge_geom", 2),
+]
+# OUVE at its defaults; PROPOSED_1 with sigma_max != sigma_min (at its
+# defaults its std is NaN: Ei(0) = -inf).
+SAMPLER_SDE_KWARGS = {"bbed": dict(T_sampling=0.999, k=2.6, theta=0.52), "ouve": {},
+                      "proposed_1": dict(sigma_min=1.0, sigma_max=2.6, theta=0.52)}
+# the sampler waveforms, card vs CPU (max|diff|/max|ref|): a few forwards,
+# each within FORWARD_TOL, as the 1-NFE branches are held
+SAMPLER_TOL = 1e-4
+# ... but the exponential predictors under BBED: their last step reads
+# std(T_FLOOR = 1e-5), whose Ei(2(t-1) log k) - Ei(-2 log k) is ~4e4 times
+# smaller than its terms (and Ei itself sums terms ~24 times its value), so
+# float32 gets that std a few per cent wrong, differently wherever Ei rounds
+# differently (this phase prints it on the card, on the CPU and in float64).
+# The JAX package's own jitted and op-by-op enhance differ by ~1e-3 there,
+# the port's CPU path and the op-by-op JAX package by ~5e-7
+# (tests/test_torch_samplers.py::test_exp_heun_at_the_floor_matches_jax_op_by_op).
+EXP_SAMPLER_TOL = 2e-3
+# set_sync_debug_mode("error") through these (predictor, corrector, grid)
+SYNC_FREE_CASES = [("heun", "none", "bridge_geom"), ("exp_euler", "none", "logit"),
+                   ("exp_heun", "langevin", "logit")]
+# bbed_ode at rtol = atol = 1e-5: graphed vs eager on the 1.0 s utterance
+# (128 frames; ~490 evaluations at these weights). Card vs CPU on its first
+# ODE_CPU_SAMPLES (64 frames) with the output layer scaled by
+# ODE_CPU_OUTPUT_SCALE, so that the CPU's side (~1 s a 65M forward there)
+# takes ~100 evaluations: the same accepted and rejected steps (flags equal;
+# a difference is reported as an accept/reject flip), and the waveform
+# within ODE_WAVEFORM_TOL: each drift evaluation differs by up to
+# FORWARD_TOL, and the backward flow grows |x - y| ~1000-fold from T = 0.999
+# to eps, so differences of a forward's size are held to ten times it.
+ODE_SECONDS = 1.0
+ODE_CPU_SAMPLES = 8000
+ODE_CPU_OUTPUT_SCALE = 0.01
+ODE_WAVEFORM_TOL = 1e-3
 BENCH_BATCH = 16
 BENCH_FRAMES = 64
 BENCH_STEPS = 30
@@ -912,24 +981,86 @@ def run_snr_path(torch, ck, dev):
             "sebridge_v2_snr (eager, caller's noise)": card_runs(v2_counts, [])}
 
 
-def sync_free_check(torch, model, y, dev):
+def count_syncs(torch, fn):
+    """``fn()``'s synchronising CUDA operations, counted in "warn" mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def sampler_weights(torch):
+    """The 65M NCSN++'s weights for phase 5c, redrawn from a seed."""
+    from diffse_tpu_torch.models.ncsnpp import NCSNpp
+
+    net = NCSNpp(generator=torch.Generator().manual_seed(0))
+    redraw_weights(torch, net, seed=13)
+    return net.state_dict()
+
+
+def sampler_model(torch, weights, sde="bbed", device="cpu", **backbone):
+    """A ``model_type="bbed"`` ScoreModel under ``sde`` with ``weights``."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    cfg = ScoreModelConfig(backbone="ncsnpp", sde=sde, model_type="bbed", snr_conditioned="false")
+    model = ScoreModel(cfg, backbone_kwargs=backbone, sde_kwargs=SAMPLER_SDE_KWARGS[sde],
+                       device=device, generator=torch.Generator().manual_seed(0))
+    model.backbone.load_state_dict(weights)
+    return model
+
+
+def check_recorded(label, program, forwards, failures):
+    """A captured program's launches recorded at capture: ``forwards``
+    network forwards' worth."""
+    want = {"gn_silu_conv3x3": 81 * forwards, "groupnorm_silu": 28 * forwards,
+            "fused_bias_leaky_relu": 0}
+    if program.launch_counts != want:
+        failures.append(f"{label}: launches recorded at capture {program.launch_counts}, "
+                        f"expected {want}")
+
+
+def report_paths(paths, failures):
+    for label, path in paths.items():
+        print(f"{label}: kernel runs on the card {path['runs']}, recorded at capture "
+              f"{path['recorded']}")
+        if not path["runs"]["gn_silu_conv3x3"] or not path["runs"]["groupnorm_silu"]:
+            failures.append(f"{label}: a kernel of the path never ran: {path['runs']}")
+
+
+def padded_wave(torch, y):
+    """The 1-D waveform ``y`` as ``enhance`` pads it to its width bucket:
+    ``(t_pad, [1, samples] CPU tensor)``."""
+    import torch.nn.functional as F
+
+    from diffse_tpu_torch.transforms import width_bucket
+
+    t_pad, pad_samples = width_bucket(len(y), 128)
+    wave = torch.from_numpy(y[None])
+    wave = F.pad(wave, (0, pad_samples - len(y))) if len(y) < pad_samples else wave[:, :pad_samples]
+    return t_pad, wave
+
+
+def sync_free_check(torch, model, y, dev, predictor="reverse_diffusion", corrector="ald",
+                    n_steps=30, timestep_type="linear"):
     """``torch.cuda.set_sync_debug_mode("error")`` through the eager
     ``bbed_pc`` device program and a replay of its captured program, on the
     1-D waveform ``y`` (padded to its bucket as ``enhance`` pads it); then the
     synchronising operations of a whole ``enhance``, each way, counted in
     "warn" mode. Returns ``(replay == eager bit for bit, {way: count})``."""
-    import warnings
-
-    import torch.nn.functional as F
-
-    from diffse_tpu_torch.transforms import width_bucket
     from diffse_tpu_torch.utils import randn_like, to_device
 
-    t_pad, pad_samples = width_bucket(len(y), 128)
-    wave = torch.from_numpy(y[None])
-    wave = F.pad(wave, (0, pad_samples - len(y))) if len(y) < pad_samples else wave[:, :pad_samples]
-    program = model._enhance_graph("bbed_pc", t_pad, 30, "reverse_diffusion", "ald", 1, False,
-                                   {"y": wave, "snr": 0.5})
+    sampler = dict(predictor=predictor, corrector=corrector, N=n_steps,
+                   timestep_type=timestep_type)
+    t_pad, wave = padded_wave(torch, y)
+    program = model._enhance_graph("bbed_pc", t_pad, n_steps, predictor, corrector, 1, False,
+                                   {"y": wave, "snr": 0.5}, timestep_type=timestep_type)
     gen = torch.Generator(dev).manual_seed(30)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -937,8 +1068,9 @@ def sync_free_check(torch, model, y, dev):
         with torch.no_grad():
             tensors = {"y": to_device(wave, dev),
                        "snr": torch.full((), 0.5, dtype=torch.float32, device=dev)}
-            eager, _ = model._enhance_on_device("bbed_pc", lambda like: randn_like(like, gen), 30,
-                                                "reverse_diffusion", "ald", 1, **tensors)
+            eager, _ = model._enhance_on_device(
+                "bbed_pc", lambda like: randn_like(like, gen), n_steps, predictor, corrector, 1,
+                timestep_type=timestep_type, **tensors)
             graphed, _ = program(torch.Generator(dev).manual_seed(30), y=wave, snr=0.5)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -948,16 +1080,7 @@ def sync_free_check(torch, model, y, dev):
         gen = torch.Generator(dev).manual_seed(31)
         kw = (dict(generator=gen) if way == "graphed"
               else dict(noise=lambda like: randn_like(like, gen)))
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                model.enhance(y[None], y[None], **kw)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs[way] = sum("called a synchronizing CUDA operation" in str(w.message)
-                         for w in caught)
+        syncs[way] = count_syncs(torch, lambda: model.enhance(y[None], y[None], **kw, **sampler))
     return same, syncs
 
 
@@ -1037,11 +1160,244 @@ def run_graphs(torch, ck, dev, phase4_walls):
             failures.append(f"sebridge_v3_snr program recorded {program.launch_counts}")
     paths["sebridge_v3_snr (graphed and eager)"] = card_runs(
         dict(ck.launch_counts), [p for _, p in v3._graphs.values()])
-    for label, path in paths.items():
-        print(f"{label}: kernel runs on the card {path['runs']}, recorded at capture "
-              f"{path['recorded']}")
-        if not path["runs"]["gn_silu_conv3x3"] or not path["runs"]["groupnorm_silu"]:
-            failures.append(f"{label}: a kernel of the path never ran: {path['runs']}")
+    report_paths(paths, failures)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
+
+
+def ode_eager(torch, model, noise, wave, n_steps=30):
+    """``bbed_ode`` op by op, as ``enhance`` runs it with a caller's noise,
+    on the padded ``[1, samples]`` waveform: ``(waveform on the model's
+    device, [done, nfev, attempts, status])``."""
+    with torch.no_grad():
+        carry = model._ode_start(noise, n_steps, wave.to(model.device))
+        while not carry["flags"][0]:
+            carry = model._ode_attempt(n_steps, carry)
+        out = model._ode_finish(noise, n_steps, carry)
+    return out, carry["flags"].tolist()
+
+
+def std_float64(sde, t):
+    """The SDE's marginal std at ``t`` in float64 (scipy's Ei for BBED and
+    PROPOSED_1's closed form)."""
+    import math
+
+    import torch
+    from scipy.special import expi
+
+    if not hasattr(sde, "Tc"):  # OUVE: no Ei
+        return sde._std(torch.full((1,), t, dtype=torch.float64)).item()
+    if hasattr(sde, "k"):
+        scale, ratio, amp = 1.0, sde.k, sde.k
+    else:
+        scale, ratio, amp = sde.sigma_min ** 2, sde.ratio, sde.sigma_max
+    log_r = math.log(ratio)
+    eis = expi(2 * (t - 1) * log_r) - expi(-2 * log_r)
+    var = scale * (ratio ** (2 * t) - 1 + t) + 2 * amp ** 2 * log_r * (1 - t) * eis
+    return math.sqrt(var * (1 - t) * sde.theta)
+
+
+def run_samplers(torch, ck, dev):
+    """Phase 5c: the samplers beside the main path's, then ``bbed_ode``.
+    Returns the float32 paths' and the bf16 path's kernel runs."""
+    weights = sampler_weights(torch)
+    paths, bf16_paths = run_pc_samplers(torch, ck, dev, weights)
+    paths.update(run_ode(torch, ck, dev, weights))
+    return paths, bf16_paths
+
+
+def run_pc_samplers(torch, ck, dev, weights):
+    """Phase 5c, the PC samplers: rd_ald_logit_N20 graphed vs eager in
+    float32 and bf16; each new name card vs CPU; the sync checks."""
+    from diffse_tpu_torch.utils import randn_like
+
+    failures, paths = [], {}
+    by_seconds = dict(zip(UTTERANCE_SECONDS, [noisy for _, noisy in main_path_pairs()]))
+
+    def model_for(sde="bbed", device=dev, **backbone):
+        return sampler_model(torch, weights, sde, device, **backbone)
+
+    # 1. rd_ald_logit_N20, the certified serving sampler, graphed vs eager
+    bf16_runs = None
+    for trunk, backbone in (("float32", {}), ("bf16", dict(dtype="bf16", fuse_pyramid=True))):
+        model = model_for(**backbone)
+        ck.reset_launch_counts()
+        for seconds in SERVING_SECONDS:
+            y = by_seconds[seconds][None]
+            t0 = time.perf_counter()
+            (out, nfe, _), held = memory_held(torch, lambda: model.enhance(
+                y, y, generator=torch.Generator(dev).manual_seed(50), timeit=True,
+                **SERVING_SAMPLER))
+            first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            graphed = model.enhance(y, y, generator=torch.Generator(dev).manual_seed(51),
+                                    **SERVING_SAMPLER)
+            wall = time.perf_counter() - t0
+            gen = torch.Generator(dev).manual_seed(51)
+            t0 = time.perf_counter()
+            eager = model.enhance(y, y, noise=lambda like: randn_like(like, gen),
+                                  **SERVING_SAMPLER)
+            eager_wall = time.perf_counter() - t0
+            err = float(np.max(np.abs(graphed - eager)) / np.max(np.abs(eager)))
+            bitwise = bool(np.array_equal(graphed, eager))
+            print(f"rd_ald_logit_N20, {trunk} trunk, {seconds} s utterance: nfe {nfe}; first call "
+                  f"(eager warm-up, capture, replay) {first:.4f} s, card memory the program keeps "
+                  f"{held / 2**20:.1f} MiB; replay wall {wall:.4f} s, eager {eager_wall:.4f} s; "
+                  f"graphed vs eager, same generator state: max|diff|/max|eager| {err:.3e} (tol "
+                  f"{GRAPH_TOL}), bitwise equal {bitwise}; output finite "
+                  f"{bool(np.isfinite(graphed).all())}, peak {np.max(np.abs(graphed)):.4f}")
+            if nfe != 40 or err > GRAPH_TOL or not np.isfinite(graphed).all():
+                failures.append(f"rd_ald_logit_N20 {trunk} {seconds} s: nfe {nfe}, graphed vs "
+                                f"eager {err:.3e}, finite {bool(np.isfinite(graphed).all())}")
+        programs = [p for _, p in model._graphs.values()]
+        for program in programs:
+            check_recorded(f"rd_ald_logit_N20 {trunk}", program, 40, failures)
+        path = card_runs(dict(ck.launch_counts), programs)
+        if trunk == "float32":
+            paths["rd_ald_logit_N20 (graphed and eager)"] = path
+        else:
+            window = list(ck.conv_config_launches)
+            runs = [w + sum(p.conv_config_launches[i] * (p.replays - 1) for p in programs)
+                    for i, w in enumerate(window)]
+            recorded = [sum(p.conv_config_launches[i] for p in programs)
+                        for i in range(len(window))]
+            bf16_runs = {"runs": {**path["runs"], **conv_launches(ck, runs)},
+                         "recorded": {**path["recorded"], **conv_launches(ck, recorded)}}
+        del model, programs
+
+    # 2. each new name, the card against the CPU, eager, the same draws
+    y = by_seconds[SAMPLER_SECONDS][None]
+    ck.reset_launch_counts()
+    for sde in sorted({case[0] for case in SAMPLER_CASES}):
+        card, cpu = model_for(sde), model_for(sde, device="cpu")
+        floor = torch.full((1,), 1e-5)
+        std_card, std_cpu = card.sde._std(floor.to(dev)).item(), cpu.sde._std(floor).item()
+        print(f"{sde}: marginal std at t = 1e-5 {std_card!r} card, {std_cpu!r} CPU (rel "
+              f"{abs(std_card - std_cpu) / std_cpu:.3e}); float64 {std_float64(cpu.sde, 1e-5)!r}")
+        for i, (_, predictor, corrector, grid, n) in enumerate(
+                c for c in SAMPLER_CASES if c[0] == sde):
+            kw = dict(predictor=predictor, corrector=corrector, N=n, timestep_type=grid,
+                      timeit=True)
+            t0 = time.perf_counter()
+            out, nfe, _ = card.enhance(y, y, noise=cpu_noise(torch, 60 + i), **kw)
+            wall = time.perf_counter() - t0
+            ref, nfe_ref, _ = cpu.enhance(y, y, noise=cpu_noise(torch, 60 + i), **kw)
+            err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+            label = f"{sde} {predictor} + {corrector}, {grid} grid, N = {n}"
+            tol = (EXP_SAMPLER_TOL if sde == "bbed" and predictor.startswith("exp_")
+                   else SAMPLER_TOL)
+            print(f"{label}: nfe {nfe} (CPU {nfe_ref}); card vs CPU max|diff|/max|ref| {err:.3e} "
+                  f"(tol {tol}); card wall (eager) {wall:.4f} s; finite "
+                  f"{bool(np.isfinite(out).all())}, peak {np.max(np.abs(out)):.4f}")
+            if nfe != nfe_ref or err > tol or not np.isfinite(out).all():
+                failures.append(f"{label}: card vs CPU {err:.3e}, nfe {nfe} vs {nfe_ref}")
+        del card, cpu
+    paths["samplers card vs CPU (eager)"] = card_runs(dict(ck.launch_counts), [])
+
+    # 3. heun's Euler fallback and the exponential predictors' std tables:
+    # no host synchronisation, eager or replayed
+    model = model_for()
+    ck.reset_launch_counts()
+    for predictor, corrector, grid in SYNC_FREE_CASES:
+        same, syncs = sync_free_check(torch, model, by_seconds[SAMPLER_SECONDS], dev,
+                                      predictor, corrector, 4, grid)
+        print(f"{predictor} + {corrector}, {grid} grid, N = 4, under "
+              f"torch.cuda.set_sync_debug_mode('error'): the eager device program and a replay "
+              f"ran without a synchronisation; equal bit for bit {same}. Synchronising "
+              f"operations in a whole enhance ('warn' mode): {syncs}")
+        if any(n > 1 for n in syncs.values()) or not same:
+            failures.append(f"{predictor} + {corrector}: syncs {syncs}, replay == eager {same}")
+    paths["samplers sync checks (graphed and eager)"] = card_runs(
+        dict(ck.launch_counts), [p for _, p in model._graphs.values()])
+    del model
+    report_paths(paths, failures)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths, {"rd_ald_logit_N20 bf16 (graphed and eager)": bf16_runs}
+
+
+def run_ode(torch, ck, dev, weights):
+    """Phase 5c, ``bbed_ode``: the captured steps vs eager on the card, the
+    card vs the CPU, the host reads."""
+    from diffse_tpu_torch.utils import randn_like
+
+    failures, paths = [], {}
+    by_seconds = dict(zip(UTTERANCE_SECONDS, [noisy for _, noisy in main_path_pairs()]))
+    model = sampler_model(torch, weights, device=dev)
+    y = by_seconds[ODE_SECONDS][None]
+    t_pad, _ = padded_wave(torch, y[0])
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    (out, nfev, _), held = memory_held(torch, lambda: model.enhance(
+        y, y, generator=torch.Generator(dev).manual_seed(70), sampler_type="ode", timeit=True))
+    first = time.perf_counter() - t0
+    program = next(p for k, (_, p) in model._graphs.items() if k.branch == "bbed_ode")
+    t0 = time.perf_counter()
+    graphed, nfev, _ = model.enhance(y, y, generator=torch.Generator(dev).manual_seed(71),
+                                     sampler_type="ode", timeit=True)
+    wall = time.perf_counter() - t0
+    flags, reads = list(program.flags), program.reads
+    gen = torch.Generator(dev).manual_seed(71)
+    t0 = time.perf_counter()
+    eager, nfev_eager, _ = model.enhance(y, y, noise=lambda like: randn_like(like, gen),
+                                         sampler_type="ode", timeit=True)
+    eager_wall = time.perf_counter() - t0
+    err = float(np.max(np.abs(graphed - eager)) / np.max(np.abs(eager)))
+    bitwise = bool(np.array_equal(graphed, eager))
+    syncs = count_syncs(torch, lambda: model.enhance(
+        y, y, generator=torch.Generator(dev).manual_seed(71), sampler_type="ode"))
+    program.steps_per_read = 4
+    again = model.enhance(y, y, generator=torch.Generator(dev).manual_seed(71),
+                          sampler_type="ode")
+    reads4, flags4 = program.reads, list(program.flags)
+    program.steps_per_read = 1
+    print(f"bbed_ode (rtol = atol = 1e-5), {ODE_SECONDS} s utterance ({t_pad} frames): nfev "
+          f"{nfev}, attempts {flags[2]}, status {flags[3]}; first call (warm-up and capture of "
+          f"three programs, then a run) {first:.4f} s, card memory they keep "
+          f"{held / 2**20:.1f} MiB; graphed wall {wall:.4f} s with {reads} host reads of the "
+          f"done flag ({syncs} synchronising operations in a whole enhance, the final copy "
+          f"among them), eager wall {eager_wall:.4f} s (nfev {nfev_eager}); graphed vs eager, "
+          f"same generator state: max|diff|/max|eager| {err:.3e} (tol {GRAPH_TOL}), bitwise "
+          f"equal {bitwise}; 4 attempts a read: {reads4} reads, flags {flags4}, bitwise equal "
+          f"{bool(np.array_equal(again, graphed))}; launches recorded at capture "
+          f"{[p.launch_counts for p in program.programs]}")
+    if (nfev != nfev_eager or err > GRAPH_TOL or flags4 != flags or not np.isfinite(graphed).all()
+            or not np.array_equal(again, graphed) or syncs > reads + 1 or flags[3] != 0):
+        failures.append(f"bbed_ode graphed: nfev {nfev} vs eager {nfev_eager}, deviates "
+                        f"{err:.3e}, flags {flags} vs {flags4} at 4 attempts a read, syncs "
+                        f"{syncs} for {reads} reads")
+    for sub, forwards in zip(program.programs, (2, 6, 1)):
+        check_recorded("bbed_ode", sub, forwards, failures)
+    paths["bbed_ode (graphed and eager)"] = card_runs(dict(ck.launch_counts), program.programs)
+    del model, program
+
+    scaled = dict(weights)
+    for name in ("output_layer.weight", "output_layer.bias"):
+        scaled[name] = weights[name] * ODE_CPU_OUTPUT_SCALE
+    card = sampler_model(torch, scaled, device=dev)
+    cpu = sampler_model(torch, scaled)
+    t_pad, wave = padded_wave(torch, y[0, :ODE_CPU_SAMPLES])
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, flags = ode_eager(torch, card, cpu_noise(torch, 72), wave)
+    card_wall = time.perf_counter() - t0
+    paths["bbed_ode card vs CPU (eager)"] = card_runs(dict(ck.launch_counts), [])
+    t0 = time.perf_counter()
+    ref, flags_cpu = ode_eager(torch, cpu, cpu_noise(torch, 72), wave)
+    cpu_wall = time.perf_counter() - t0
+    out, ref = out.cpu().numpy(), ref.numpy()
+    err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+    print(f"bbed_ode card vs CPU, {t_pad} frames, output layer x {ODE_CPU_OUTPUT_SCALE}, the "
+          f"same draws: flags [done, nfev, attempts, status] {flags} card, {flags_cpu} CPU; "
+          f"waveform max|diff|/max|ref| {err:.3e} (tol {ODE_WAVEFORM_TOL}); eager wall "
+          f"{card_wall:.3f} s card, {cpu_wall:.3f} s CPU")
+    if flags != flags_cpu:
+        failures.append(f"bbed_ode: an accept/reject flip between card and CPU: flags {flags} "
+                        f"vs {flags_cpu}")
+    elif err > ODE_WAVEFORM_TOL:
+        failures.append(f"bbed_ode: the card's waveform deviates from the CPU's by {err:.3e}")
+    report_paths(paths, failures)
     if failures:
         raise AssertionError("; ".join(failures))
     return paths
@@ -1320,6 +1676,7 @@ def main() -> int:
                         ("snr", lambda: run_snr_path(torch, ck, dev)),
                         ("graphs", lambda: run_graphs(torch, ck, dev,
                                                       results.get("enhance", ({}, []))[1])),
+                        ("samplers", lambda: run_samplers(torch, ck, dev)),
                         ("bf16_kernels", lambda: check_bf16_kernels(torch, ck, dev)),
                         ("bf16_forward", lambda: check_bf16_forward(torch, ck, dev)),
                         ("bf16_program", lambda: run_bf16_program(torch, ck, dev))):
@@ -1339,9 +1696,10 @@ def main() -> int:
     # float32 paths, and the bf16 trunk's (one forward; bench.py's batch-16
     # program)
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
-             **results["snr"], **results["graphs"]}
+             **results["snr"], **results["graphs"], **results["samplers"][0]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
-                  "bf16_bench_program (graphed)": results["bf16_program"]}
+                  "bf16_bench_program (graphed)": results["bf16_program"],
+                  **results["samplers"][1]}
 
     def launches(kernel, by=paths):
         runs = {path: counts["runs"][kernel] for path, counts in by.items()}

@@ -55,6 +55,7 @@ from typing import Callable, Dict, Union
 import torch
 
 from .ops import cuda_kernels
+from .utils import forbid_capture
 
 Value = Union[torch.Tensor, float]
 
@@ -140,3 +141,61 @@ class Program:
         self.replays += 1
         generator.set_state(self.generator.get_state())
         return self.outputs
+
+
+class LoopProgram:
+    """A loop whose trip count depends on the data, as three captured
+    programs (``Program``): ``start``, one ``step``, ``finish``. A CUDA
+    graph has a fixed body, so the host replays ``step`` ``steps_per_read``
+    times (1 unless set) between reads of a done flag; those reads are the
+    loop's only waits on the device.
+
+    Args:
+        start: ``start(generator, **inputs) -> carry``, a dict of device
+            tensors whose ``"flags"`` entry is an int tensor with element 0
+            non-zero once the loop is done.
+        step: ``step(carry) -> carry`` (same keys, shapes and dtypes); once
+            done it must return the carry unchanged, so that the result does
+            not depend on ``steps_per_read``.
+        finish: ``finish(generator, carry) -> outputs``.
+        inputs, device: as for ``Program`` (the inputs are ``start``'s).
+
+    The carry lives in buffers made at ``start``'s warm-up, outside the graph
+    pool; each captured ``start`` and ``step`` writes its result there, and
+    ``finish`` reads it. Calling the program returns ``finish``'s outputs;
+    ``flags`` holds the last read of the flags (a list) and ``reads`` their
+    number.
+    """
+
+    steps_per_read = 1
+
+    def __init__(self, start: Callable, step: Callable, finish: Callable,
+                 inputs: Dict[str, Value], device):
+        self.device = torch.device(device)
+        self.carry: Dict[str, torch.Tensor] = {}
+        self.start = Program(lambda gen, **kw: self._store(start(gen, **kw)), inputs, self.device)
+        self.step = Program(lambda gen: self._store(step(dict(self.carry))), {}, self.device)
+        self.finish = Program(lambda gen: finish(gen, dict(self.carry)), {}, self.device)
+        self.flags, self.reads = None, 0
+
+    @property
+    def programs(self) -> tuple:
+        return self.start, self.step, self.finish
+
+    def _store(self, carry: Dict[str, torch.Tensor]) -> None:
+        if not self.carry:
+            forbid_capture(self.device, "a loop's carry")
+            self.carry = {k: torch.empty_like(v) for k, v in carry.items()}
+        for k, v in carry.items():
+            self.carry[k].copy_(v)
+
+    def __call__(self, generator: torch.Generator, **inputs: Value):
+        self.start(generator, **inputs)
+        self.reads = 0
+        while True:
+            for _ in range(self.steps_per_read):
+                self.step(generator)
+            self.flags = self.carry["flags"].tolist()
+            self.reads += 1
+            if self.flags[0]:
+                return self.finish(generator)

@@ -3,8 +3,13 @@ diffse_tpu/models/score_model.py).
 
 Ported branches of ``enhance``:
 
-  - ``bbed_pc`` (``model_type="bbed"``): the 30-step predictor-corrector
-    sampler, reverse_diffusion + ald, 60 network forwards;
+  - ``bbed_pc`` (``model_type="bbed"``): the N-step predictor-corrector
+    sampler (by default reverse_diffusion + ald on the linear grid, N = 30,
+    60 network forwards; every predictor, corrector and time grid of
+    ``sampling``);
+  - ``bbed_ode`` (``model_type="bbed"``, ``sampler_type="ode"``): the
+    probability-flow ODE, adaptive RK45 at rtol = atol = 1e-5, then one
+    denoising step;
   - ``sebridge`` and ``sebridge_v2``: one network forward with the
     consistency c_skip/c_out, from ``Y`` or from ``Y + Z``;
   - ``sebridge_v3_snr`` (``snr_conditioned="true"``), the paper's single-NFE
@@ -19,9 +24,12 @@ On the card each branch runs as one captured program per shape bucket
 normalise -> STFT -> sampler or forward -> iSTFT, captured once as a CUDA
 graph (``capture.Program``) and replayed. The program never waits on the
 device; SNRNet's estimate and the snap to the Karras grid stay on the host
-before it, as in the JAX package.
+before it, as in the JAX package. ``bbed_ode``'s number of RK45 steps
+depends on the data, so it is three captured programs (``capture.LoopProgram``):
+normalise -> STFT -> prior -> the solver's start; one step attempt, replayed
+until the host reads that the solver is done; the denoising step -> iSTFT.
 
-The ODE sampler and training are not ported yet.
+Training is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,13 +43,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..capture import Program
-from ..sampling import get_pc_sampler
+from ..capture import LoopProgram, Program
+from ..sampling import get_ode_sampler, get_pc_sampler
+from ..sampling.ode import RK45State
 from ..sde import SDERegistry
 from ..transforms import (
     SpecTransformConfig,
     StftConfig,
-    hann_window,
+    get_window,
     istft,
     pad_spec,
     spec_back,
@@ -111,9 +120,9 @@ def snap_to_karras_grid(est_snr: float, fixed_snr: float):
 class EnhanceKey(NamedTuple):
     """What one captured enhance program is for: the fields of the JAX
     package's ``_enhance_jit`` cache key (the port has no sequence mesh,
-    ``mesh_key`` None, and only the linear time grid), then what a capture
-    also fixes: the batch, the trunk's dtype, the device, and the model's
-    settings (its config and SDE)."""
+    ``mesh_key`` None), then what a capture also fixes: the batch, the
+    trunk's dtype, the device, and the model's settings (its config and
+    SDE)."""
 
     branch: str
     t_pad: int
@@ -170,8 +179,6 @@ class ScoreModel:
                  sde_kwargs: Optional[dict] = None, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  snr_model: Optional[torch.nn.Module] = None):
-        if config.window != "hann":
-            raise NotImplementedError(f"window {config.window!r} is not ported yet")
         self.cfg = config
         self.device = model_device(device)
         backbone_cls = BackboneRegistry.get_by_name(config.backbone)
@@ -185,7 +192,7 @@ class ScoreModel:
         self.spec_cfg = SpecTransformConfig(
             transform_type=config.transform_type, spec_factor=config.spec_factor,
             spec_abs_exponent=config.spec_abs_exponent)
-        self._window = hann_window(config.n_fft, device=self.device)
+        self._window = get_window(config.window, config.n_fft, device=self.device)
         # EnhanceKey -> (the parameters' key, capture.Program)
         self._graphs = {}
 
@@ -231,6 +238,46 @@ class ScoreModel:
         c_out = (sigma_data * (tb - eps)) / ((sigma_data ** 2 + tb ** 2) ** 0.5)
         return c_skip * x + c_out * raw
 
+    # -------------------------------------------------------------- sampling
+    def get_pc_sampler(self, predictor_name: str, corrector_name: str, y: torch.Tensor,
+                       noise: NoiseFn, Y_prior: Optional[torch.Tensor] = None,
+                       N: Optional[int] = None, minibatch: Optional[int] = None, **kwargs):
+        """The PC sampler (``sampling.get_pc_sampler``) over this model's
+        score, with the SDE's N replaced by ``N`` and eps the config's
+        ``t_eps`` unless given. With ``minibatch``, a sampler that runs ``y``
+        in chunks of that many rows, drawing from ``noise`` chunk after
+        chunk, and returns the samples concatenated and each chunk's NFE.
+        Run the sampler under ``torch.no_grad()``."""
+        sde = self.sde if N is None else self.sde.replace(N=N)
+        kwargs = {"eps": self.cfg.t_eps, **kwargs}
+        if minibatch is None:
+            return get_pc_sampler(predictor_name, corrector_name, sde, self.forward, y, noise,
+                                  Y_prior=Y_prior, **kwargs)
+
+        def batched_sampling_fn():
+            samples, ns = [], []
+            for i in range(0, y.shape[0], minibatch):
+                rows = slice(i, i + minibatch)
+                sampler = get_pc_sampler(
+                    predictor_name, corrector_name, sde, self.forward, y[rows], noise,
+                    Y_prior=None if Y_prior is None else Y_prior[rows], **kwargs)
+                sample, n = sampler()
+                samples.append(sample)
+                ns.append(n)
+            return torch.cat(samples), ns
+
+        return batched_sampling_fn
+
+    def get_ode_sampler(self, y: torch.Tensor, noise: NoiseFn,
+                        Y_prior: Optional[torch.Tensor] = None, N: Optional[int] = None,
+                        **kwargs):
+        """The probability-flow ODE sampler (``sampling.get_ode_sampler``)
+        over this model's score; eps the config's ``t_eps`` unless given.
+        Run the sampler under ``torch.no_grad()``."""
+        sde = self.sde if N is None else self.sde.replace(N=N)
+        kwargs = {"eps": self.cfg.t_eps, **kwargs}
+        return get_ode_sampler(sde, self.forward, y, noise, Y_prior=Y_prior, **kwargs)
+
     # --------------------------------------------------------------- enhance
     @torch.no_grad()
     def estimate_snr(self, y_wav) -> torch.Tensor:
@@ -243,11 +290,11 @@ class ScoreModel:
         return snr_from_normalized_wav(self.snr_model, y_n, self._window,
                                        self.stft_cfg.n_fft, self.stft_cfg.hop_length)
 
-    def _branch(self) -> str:
+    def _branch(self, sampler_type: str = "pc") -> str:
         cfg = self.cfg
         if cfg.snr_conditioned == "false":
             if cfg.model_type == "bbed":
-                return "bbed_pc"
+                return "bbed_pc" if sampler_type == "pc" else "bbed_ode"
             if cfg.model_type in ("sebridge", "sebridge_v2"):
                 return cfg.model_type
             raise ValueError(f"unsupported model_type {cfg.model_type}")
@@ -261,23 +308,35 @@ class ScoreModel:
             return branch
         raise ValueError(f"unknown snr_conditioned {cfg.snr_conditioned}")
 
+    def _spectrogram(self, wav: torch.Tensor, norm_factor: torch.Tensor) -> torch.Tensor:
+        """``wav / norm_factor`` -> STFT -> compression, ``[B, 1, F, T]``
+        padded."""
+        return pad_spec(spec_fwd(self._stft(wav / norm_factor), self.spec_cfg)[:, None])
+
     def _enhance_on_device(self, branch: str, noise: NoiseFn, n_steps: int, predictor: str,
                            corrector: str, corrector_steps: int, y: torch.Tensor,
                            x: Optional[torch.Tensor] = None, snr: Optional[torch.Tensor] = None,
                            t_hat: Optional[torch.Tensor] = None,
-                           normfac: Optional[torch.Tensor] = None):
+                           normfac: Optional[torch.Tensor] = None, timestep_type: str = "linear"):
         """Normalise -> STFT -> the branch's sampler or forward -> iSTFT, all
-        on the device and with no wait on it. ``y`` (and ``x``, which
-        ``sebridge_v2_snr`` reads): ``[B, samples]`` float32 on the model's
-        device, padded to the width bucket; ``snr`` (``bbed_pc``'s
-        corrector), ``t_hat`` (``sebridge_v3_snr``) and ``normfac`` (the
-        ``_snr`` branches): float32 0-d tensors there. Returns the waveform
-        ``[B, samples']`` on the device and the NFE."""
+        on the device and with no wait on it, but for ``bbed_ode``'s reads of
+        its done flag (``_ode_start``, ``_ode_attempt`` and ``_ode_finish`` are
+        its parts without them). ``y`` (and ``x``, which ``sebridge_v2_snr``
+        reads): ``[B, samples]`` float32 on the model's device, padded to the
+        width bucket; ``snr`` (``bbed_pc``'s corrector), ``t_hat``
+        (``sebridge_v3_snr``) and ``normfac`` (the ``_snr`` branches):
+        float32 0-d tensors there. Returns the waveform ``[B, samples']`` on
+        the device and the NFE."""
+        if branch == "bbed_ode":
+            carry = self._ode_start(noise, n_steps, y)
+            while not carry["flags"][0]:
+                carry = self._ode_attempt(n_steps, carry)
+            return self._ode_finish(noise, n_steps, carry), int(carry["nfev"])
         cfg = self.cfg
         norm_factor = torch.max(torch.abs(y))
         if branch.endswith("_snr"):
             norm_factor = norm_factor * normfac
-        Y = pad_spec(spec_fwd(self._stft(y / norm_factor), self.spec_cfg)[:, None])
+        Y = self._spectrogram(y, norm_factor)
         batch = Y.shape[0]
 
         def full(value):
@@ -287,7 +346,8 @@ class ScoreModel:
         if branch == "bbed_pc":
             sampler = get_pc_sampler(
                 predictor, corrector, sde=self.sde.replace(N=n_steps), score_fn=self.forward,
-                Y=Y, noise=noise, eps=cfg.t_eps, snr=snr, corrector_steps=corrector_steps)
+                Y=Y, noise=noise, eps=cfg.t_eps, snr=snr, corrector_steps=corrector_steps,
+                timestep_type=timestep_type)
             sample, nfe = sampler()
         elif branch == "sebridge":
             sample = self.forward(Y, full(0.999), Y)
@@ -295,7 +355,7 @@ class ScoreModel:
             z = noise(Y) * cfg.sigma_max * 0.999
             sample = self.forward(Y + z, full(0.999), Y)
         elif branch == "sebridge_v2_snr":
-            X = pad_spec(spec_fwd(self._stft(x / norm_factor), self.spec_cfg)[:, None])
+            X = self._spectrogram(x, norm_factor)
             z_mag = noise_mag(X, Y, mode="max") * cfg.sigma_max
             z = noise(Y) * z_mag * 0.999
             sample = self.forward(Y + z, full(0.999), Y, s=full(z_mag) * 0.999)
@@ -304,10 +364,44 @@ class ScoreModel:
             sample = self.forward(Y + z, full(t_hat), Y)
         return self.to_audio(sample[:, 0]) * norm_factor, nfe
 
+    # bbed_ode in three parts, each free of waits on the device. The loop's
+    # carry: the spectrogram "Y", "norm_factor", the RK45 state's fields and
+    # "flags" = [done, nfev, attempts, status] (int32), what the host reads.
+    def _ode_sampler(self, n_steps: int, Y: torch.Tensor, noise: Optional[NoiseFn]):
+        return get_ode_sampler(self.sde.replace(N=n_steps), self.forward, Y, noise,
+                               eps=self.cfg.t_eps)
+
+    @staticmethod
+    def _ode_carry(sampler, Y, norm_factor, state: RK45State) -> dict:
+        flags = torch.stack([sampler.done(state).to(torch.int32), state.nfev, state.n,
+                             state.status])
+        return {"Y": Y, "norm_factor": norm_factor, **state._asdict(), "flags": flags}
+
+    def _ode_start(self, noise: NoiseFn, n_steps: int, y: torch.Tensor) -> dict:
+        """Normalise -> STFT -> the prior draw -> the solver's start (2 NFE)."""
+        norm_factor = torch.max(torch.abs(y))
+        Y = self._spectrogram(y, norm_factor)
+        sampler = self._ode_sampler(n_steps, Y, noise)
+        return self._ode_carry(sampler, Y, norm_factor, sampler.start())
+
+    def _ode_attempt(self, n_steps: int, carry: dict) -> dict:
+        """One RK45 step attempt (6 NFE, no draw); the carry unchanged once
+        the solver is done."""
+        sampler = self._ode_sampler(n_steps, carry["Y"], None)
+        state = sampler.attempt(RK45State(*(carry[k] for k in RK45State._fields)))
+        return self._ode_carry(sampler, carry["Y"], carry["norm_factor"], state)
+
+    def _ode_finish(self, noise: NoiseFn, n_steps: int, carry: dict) -> torch.Tensor:
+        """The denoising step (its draw discarded) -> iSTFT."""
+        sampler = self._ode_sampler(n_steps, carry["Y"], noise)
+        sample = sampler.finish(RK45State(*(carry[k] for k in RK45State._fields)))
+        return self.to_audio(sample[:, 0]) * carry["norm_factor"]
+
     def _graph_key(self, branch: str, t_pad: int, n_steps: int, predictor: str, corrector: str,
-                   corrector_steps: int, oracle: bool, batch: int) -> EnhanceKey:
+                   corrector_steps: int, oracle: bool, batch: int,
+                   timestep_type: str = "linear") -> EnhanceKey:
         return EnhanceKey(branch, t_pad, n_steps, predictor, corrector, corrector_steps, oracle,
-                          mesh_key=None, timestep_type="linear", batch=batch,
+                          mesh_key=None, timestep_type=timestep_type, batch=batch,
                           dtype=getattr(self.backbone, "compute_dtype", torch.float32),
                           device=self.device,
                           settings=(dataclasses.astuple(self.cfg), self.sde))
@@ -322,39 +416,56 @@ class ScoreModel:
 
     @torch.no_grad()
     def _enhance_graph(self, branch: str, t_pad: int, n_steps: int, predictor: str,
-                       corrector: str, corrector_steps: int, oracle: bool, inputs: dict) -> Program:
+                       corrector: str, corrector_steps: int, oracle: bool, inputs: dict,
+                       timestep_type: str = "linear"):
         """The captured enhance program for this key (``EnhanceKey``): made
         on first use from ``inputs`` (those of ``_enhance_on_device``, by
-        name), and again when the backbone's parameters moved or changed."""
+        name), and again when the backbone's parameters moved or changed. A
+        ``capture.Program``, or for ``bbed_ode`` a ``capture.LoopProgram``."""
         key = self._graph_key(branch, t_pad, n_steps, predictor, corrector, corrector_steps,
-                              oracle, batch=inputs["y"].shape[0])
+                              oracle, batch=inputs["y"].shape[0], timestep_type=timestep_type)
         params = self._params_key()
         entry = self._graphs.get(key)
         if entry is not None and entry[0] == params:
             return entry[1]
         self._graphs.pop(key, None)  # free a stale program's memory first
 
-        def fn(generator, **tensors):
-            return self._enhance_on_device(branch, lambda like: randn_like(like, generator),
-                                           n_steps, predictor, corrector, corrector_steps,
-                                           **tensors)
+        def noise_from(generator):
+            return lambda like: randn_like(like, generator)
 
-        program = Program(fn, inputs, self.device)
+        if branch == "bbed_ode":
+            program = LoopProgram(
+                lambda generator, **tensors: self._ode_start(noise_from(generator), n_steps,
+                                                             **tensors),
+                lambda carry: self._ode_attempt(n_steps, carry),
+                lambda generator, carry: self._ode_finish(noise_from(generator), n_steps, carry),
+                inputs, self.device)
+        else:
+            def fn(generator, **tensors):
+                return self._enhance_on_device(branch, noise_from(generator), n_steps, predictor,
+                                               corrector, corrector_steps,
+                                               timestep_type=timestep_type, **tensors)
+
+            program = Program(fn, inputs, self.device)
         self._graphs[key] = (params, program)
         return program
 
     @torch.no_grad()
     def enhance(self, x, y, generator: Optional[torch.Generator] = None,
-                noise: Optional[NoiseFn] = None, predictor: str = "reverse_diffusion",
-                corrector: str = "ald", N: int = 30, corrector_steps: int = 1,
-                snr: float = 0.5, timeit: bool = False, oracle: bool = False,
-                clean_rms: float = 1.0, noise_rms: float = 1.0):
+                noise: Optional[NoiseFn] = None, sampler_type: str = "pc",
+                predictor: str = "reverse_diffusion", corrector: str = "ald", N: int = 30,
+                corrector_steps: int = 1, snr: float = 0.5, timeit: bool = False,
+                oracle: bool = False, clean_rms: float = 1.0, noise_rms: float = 1.0,
+                timestep_type: str = "linear"):
         """Enhance the noisy waveform ``y`` ([1, samples]).
 
         ``x`` is the clean waveform; of the ported branches only
         ``sebridge_v2_snr`` reads it (pass ``y`` twice where there is none).
         With ``snr_conditioned="true"`` the SNR comes from SNRNet on the
         unpadded ``y``, or is ``noise_rms / clean_rms`` with ``oracle``.
+        ``model_type="bbed"`` samples the reverse SDE (``sampler_type="pc"``:
+        ``predictor``, ``corrector``, ``N`` steps on the ``timestep_type``
+        grid) or the probability-flow ODE (any other ``sampler_type``).
         Noise comes from ``noise(like)`` when given (tests feed the JAX
         package's draws through it), otherwise from ``generator`` (a
         generator on ``self.device``; seed 0 when None).
@@ -371,7 +482,7 @@ class ScoreModel:
         """
         start = time.time()
         cfg = self.cfg
-        branch = self._branch()
+        branch = self._branch(sampler_type)
         x, y = _as_wave(x), _as_wave(y)
         t_orig = y.shape[-1]
 
@@ -403,8 +514,12 @@ class ScoreModel:
             generator = torch.Generator(self.device).manual_seed(0)
         if noise is None and self.device.type == "cuda":
             program = self._enhance_graph(branch, t_pad, N, predictor, corrector,
-                                          corrector_steps, oracle, inputs)
-            x_hat, nfe = program(generator, **inputs)
+                                          corrector_steps, oracle, inputs,
+                                          timestep_type=timestep_type)
+            if branch == "bbed_ode":
+                x_hat, nfe = program(generator, **inputs), program.flags[1]
+            else:
+                x_hat, nfe = program(generator, **inputs)
         else:
             if noise is None:
                 noise = lambda like: randn_like(like, generator)  # noqa: E731
@@ -412,7 +527,8 @@ class ScoreModel:
                        torch.full((), v, dtype=torch.float32, device=self.device)
                        for name, v in inputs.items()}
             x_hat, nfe = self._enhance_on_device(branch, noise, N, predictor, corrector,
-                                                 corrector_steps, **tensors)
+                                                 corrector_steps, timestep_type=timestep_type,
+                                                 **tensors)
 
         x_hat = x_hat[0, :t_orig].cpu().numpy()
         if x_hat.shape[-1] < t_orig:

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from ..transforms import StftConfig, hann_window, pad_spec_16, stft
+from ..transforms import StftConfig, get_window, pad_spec_16, stft
 from ..utils import model_device
 from .snrnet import SNRNet
 
@@ -59,14 +59,12 @@ class SNRModel:
 
     def __init__(self, config: SNRModelConfig = SNRModelConfig(), device="cuda",
                  dnn: Optional[SNRNet] = None):
-        if config.window != "hann":
-            raise NotImplementedError(f"window {config.window!r} is not ported yet")
         self.cfg = config
         self.device = model_device(device)
         self.dnn = (dnn if dnn is not None else SNRNet()).to(self.device).eval()
         self.stft_cfg = StftConfig(n_fft=config.n_fft, hop_length=config.hop_length,
                                    window=config.window)
-        self._window = hann_window(config.n_fft, device=self.device)
+        self._window = get_window(config.window, config.n_fft, device=self.device)
 
     @torch.no_grad()
     def forward(self, y_spec2ch: torch.Tensor) -> torch.Tensor:

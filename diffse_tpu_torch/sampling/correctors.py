@@ -1,5 +1,5 @@
 """Correctors for reverse-SDE sampling (port of
-diffse_tpu/sampling/correctors.py: ald and none)."""
+diffse_tpu/sampling/correctors.py: langevin, ald and none)."""
 
 from __future__ import annotations
 
@@ -24,6 +24,29 @@ class Corrector(abc.ABC):
     def update_fn(self, noise, x, t, y, std):
         """One corrector update, drawing from ``noise``; ``std``: the SDE's
         marginal std at ``t`` (``[B]``). Returns (x, x_mean)."""
+
+
+def _row_norms_mean(a: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch of each row's 2-norm (0-d)."""
+    return torch.linalg.vector_norm(a.reshape(a.shape[0], -1), dim=-1).mean()
+
+
+@CorrectorRegistry.register("langevin")
+class LangevinCorrector(Corrector):
+    """Langevin dynamics with the step size set by the ratio of the noise's
+    norm to the score's, each averaged over the batch (so the rows of a batch
+    share one step size, as in the JAX package)."""
+
+    def update_fn(self, noise, x, t, y, std):
+        x_mean = x
+        for _ in range(self.n_steps):
+            grad = self.score_fn(x, t, y)
+            z = noise(x)
+            ratio = self.snr * _row_norms_mean(z) / _row_norms_mean(grad)
+            step_size = (ratio ** 2 * 2)[None]
+            x_mean = x + bc(step_size, x) * grad
+            x = x_mean + z * bc(torch.sqrt(step_size * 2), x)
+        return x, x_mean
 
 
 @CorrectorRegistry.register("ald")

@@ -1,4 +1,4 @@
-from .stft import StftConfig, hann_window, istft, stft
+from .stft import StftConfig, get_window, hann_window, istft, sqrthann_window, stft
 from .spec import (
     SpecTransformConfig,
     pad_spec,
@@ -11,6 +11,8 @@ from .spec import (
 __all__ = [
     "StftConfig",
     "hann_window",
+    "sqrthann_window",
+    "get_window",
     "stft",
     "istft",
     "SpecTransformConfig",

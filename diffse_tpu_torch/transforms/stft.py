@@ -2,14 +2,15 @@
 
 The JAX package reproduces ``torch.stft`` semantics by hand; here the STFT
 is ``torch.stft`` itself and the iSTFT ``torch.istft``'s own operations:
-center=True with reflect padding, a periodic Hann window of length n_fft,
-one-sided (n_fft//2 + 1 bins).
+center=True with reflect padding, a periodic Hann window (or its square
+root, "sqrthann") of length n_fft, one-sided (n_fft//2 + 1 bins).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -26,11 +27,31 @@ class StftConfig:
         return self.n_fft // 2 + 1
 
 
+def _hann(window_length: int) -> np.ndarray:
+    n = np.arange(window_length)
+    return np.asarray(0.5 - 0.5 * np.cos(2.0 * np.pi * n / window_length), dtype=np.float32)
+
+
 def hann_window(window_length: int, device=None) -> torch.Tensor:
-    """Periodic Hann window, computed in float64 and rounded to float32 (as
-    the JAX package builds it)."""
-    return torch.hann_window(window_length, periodic=True, dtype=torch.float64,
-                             device=device).float()
+    """Periodic Hann window, ``0.5 - 0.5 cos(2 pi n / N)`` in float64 numpy
+    rounded to float32: the JAX package's window, bit for bit
+    (``torch.hann_window`` rounds a few elements the other way)."""
+    return torch.from_numpy(_hann(window_length)).to(device)
+
+
+def sqrthann_window(window_length: int, device=None) -> torch.Tensor:
+    """Square root of the periodic Hann window, numpy's float32 root, as the
+    JAX package takes it (torch's CPU root rounds a few the other way)."""
+    return torch.from_numpy(np.sqrt(_hann(window_length))).to(device)
+
+
+def get_window(window_type: str, window_length: int, device=None) -> torch.Tensor:
+    """The analysis/synthesis window by name: "hann" or "sqrthann"."""
+    if window_type == "sqrthann":
+        return sqrthann_window(window_length, device=device)
+    if window_type == "hann":
+        return hann_window(window_length, device=device)
+    raise NotImplementedError(f"Window type {window_type} not implemented!")
 
 
 def stft(sig: torch.Tensor, window: torch.Tensor, n_fft: int = 510,
