@@ -111,7 +111,36 @@ Phases, each of which must pass:
    the ``wgmma.ss`` kernel's among them, and no weight cast during the
    capture or after it.
 
-Phase 2 runs with TF32 off for cuDNN and matmul (the plain version's cuDNN
+9. Training ("train"): each differentiable op (``groupnorm_silu_conv3x3_op``,
+   ``groupnorm_silu_op``: the kernel forward, the plain version recomputed
+   for the gradient) against the plain version under autograd on the card
+   at the training shapes (level 0 with the residual, a head, the square
+   deep levels; loss sum(out^2)): the forward within ``KERNEL_TOL``, every
+   gradient within ``TRAIN_KERNEL_GRAD_TOL`` of its largest magnitude, the
+   backward's time beside its bound and the plain backward's. Then the
+   paper's 65.6M model (sebridge_v3, SNR-conditioned, weights redrawn from
+   ``TRAIN_WEIGHT_SEED``, 4 x 256 frames): loss and every parameter's
+   gradient through the kernel path against the plain path (every wrapper's
+   plain version), both on the card, beside the gap between two plain
+   float32 paths (cuDNN off against on). Then ``make_train_step``, from the
+   same redrawn weights: 10 Adam steps of the paper's model on one fixed
+   batch with the same draws each step (the loss must fall), 3 of bbed score
+   matching and 1 of the bf16 trunk: every loss finite, every trained
+   parameter given a gradient that is not all zero, 162/56 launches a
+   consistency step
+   (81/28 for bbed) and as many recomputes, a parameter and its EMA against
+   ``ema_decay_schedule``; the median step wall after 2 warm-up steps, audio
+   seconds trained per second, the peak memory, and one profiled step's
+   device time by part and by kernel family with its idle share. Last, the
+   training CLI (``python -m diffse_tpu_torch.cli.train``, the paper's
+   flags, ``--num_eval_files 0``) on a tiny wav directory written with the
+   port's wavio: one epoch of 2 steps into a checkpoint, ``--resume`` for a
+   second, and ``load_score_model`` on the result.
+
+``python3 chip_smoke.py --phases train,forward`` runs only the phases named
+(no kernel record then); the driver's run takes none.
+
+Phases 2 and 9 run with TF32 off for cuDNN and matmul (the plain version's cuDNN
 conv would otherwise be the less accurate side); phases 3 to 5 run with
 torch's defaults (cuDNN allows TF32), as a user's process would: the port
 keeps its own convs, matmuls and LSTM in float32.
@@ -130,6 +159,7 @@ there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -287,6 +317,41 @@ ODE_WAVEFORM_TOL = 1e-3
 BENCH_BATCH = 16
 BENCH_FRAMES = 64
 BENCH_STEPS = 30
+# training (phase 9): the paper's configuration (README step 3: sebridge_v3,
+# SNR-conditioned, fixed_snr 0.17783, exponent compression, --sigma-max 1.0 on
+# the default OUVE SDE, the 65.6M NCSN++) on the JAX command line's batch of
+# 4 crops of 256 frames; the enhancement metrics are not ported
+PAPER_CONFIG = dict(backbone="ncsnpp", sde="ouve", model_type="sebridge_v3",
+                    snr_conditioned="true", fixed_snr=FIXED_SNR, sigma_max=1.0,
+                    transform_type="exponent", num_eval_files=0)
+PAPER_SDE_KWARGS = dict(sigma_max=1.0)
+BBED_TRAIN_CONFIG = dict(backbone="ncsnpp", sde="bbed", model_type="bbed",
+                         snr_conditioned="false", sigma_max=0.5, num_eval_files=0)
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_HOP = 4, 256, 128
+TRAIN_SAMPLES = (TRAIN_FRAMES - 1) * TRAIN_HOP
+TRAIN_AUDIO_S = TRAIN_BATCH * TRAIN_SAMPLES / SR  # audio a step trains on
+TRAIN_STEPS, TRAIN_WARMUP, BBED_STEPS = 10, 2, 3
+# the full model's kernel path against its plain path on the card: redrawn
+# weights, the loss within 1e-5 relative and each parameter's gradient within
+# 1e-4 of its largest magnitude; printed beside the gap between two plain
+# float32 paths on the card (cuDNN's convolutions, and PyTorch's own with
+# cuDNN off)
+TRAIN_WEIGHT_SEED = 13
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# the ops' gradients, kernel forward against plain, at the training shapes:
+# the JAX tests' gradient tolerance (tests/test_norm_and_pallas.py), of each
+# gradient's largest magnitude
+TRAIN_KERNEL_GRAD_TOL = 1e-3
+# (B, H, W, Cin, Cout, skip): level 0 with the residual (and the [Cout] bias
+# expanded over the batch, as the blocks' second conv), a pyramid head, the
+# square deep levels (the deepest with its 512-channel concat) and a head there
+TRAIN_CONV_SHAPES = [(4, 256, 256, 128, 128, True), (4, 256, 256, 128, 4, False),
+                     (4, 8, 8, 256, 256, True), (4, 4, 4, 512, 256, False),
+                     (4, 4, 4, 256, 4, False)]
+TRAIN_GN_SHAPES = [(4, 256, 256, 128), (4, 8, 8, 256)]
+# the CLI's data: crops of 2.5 s, 8 training pairs (2 batches of 4), 2 valid
+CLI_SECONDS, CLI_TRAIN_FILES, CLI_VALID_FILES = 2.5, 8, 2
 # gn_silu_conv3x3's instantiations (ops/cuda_kernels.py CONV_CONFIGS), by id
 # what the JSON line's launches count
 LAUNCHES_COUNTED = ("kernel runs on the card: eager launches, and each captured program's "
@@ -1640,7 +1705,443 @@ def run_bf16_program(torch, ck, dev):
     return bf16_path
 
 
-def main() -> int:
+@contextlib.contextmanager
+def plain_versions(ck):
+    """Inside the block every wrapper of ``cuda_kernels`` takes its plain
+    version, on the card too: the kernel path's yardstick."""
+    dispatch = ck._dispatch_device
+    ck._dispatch_device = lambda name, x: False
+    try:
+        yield
+    finally:
+        ck._dispatch_device = dispatch
+
+
+def gradient_scale(grads, name):
+    """A parameter's gradient error is measured against the gradient's
+    largest magnitude; for an attention's key bias (``NIN_1.b``), whose
+    gradient is zero but for rounding (the softmax is unchanged by a shift
+    common to all keys), that of the key weight (``NIN_1.W``)."""
+    if name.endswith("NIN_1.b"):
+        name = name[:-1] + "W"
+    return grads[name].abs().max().item()
+
+
+def conv_backward_bounds(b, h, w, cin, cout, skip):
+    """The op's backward (the recompute): the forward conv again, its dgrad
+    and its wgrad, each in 3xTF32 on the tensor cores; ~21 operations per
+    input element (statistics, affine and SiLU again, and their backward) and
+    3 per output element in float32; bytes: x, grad_out, the weights, the
+    GroupNorm parameters, the bias and the skip read once, and each of their
+    gradients written once."""
+    matmul, _, _ = conv_work(b, h, w, cin, cout, skip)
+    other = 21 * b * h * w * cin + 3 * b * h * w * cout
+    act_in, act_out = b * h * w * cin, b * h * w * cout
+    nbytes = 4 * (2 * act_in + (3 if skip else 1) * act_out
+                  + 2 * (9 * cin * cout + 2 * cin + cout))
+    return bound_of(3 * 3 * matmul / TF32_FLOPS + other / F32_FLOPS, nbytes)
+
+
+def bound_of(op_seconds, nbytes):
+    """``(ms, "bytes" | "operations")`` from the operations' time and the bytes."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, op_seconds * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def check_train_kernels(torch, ck, dev):
+    """Phase 9, first part: each op's forward (the kernel) and gradients
+    (the recompute) against the plain version under autograd, on the card at
+    the training shapes, for the loss sum(out^2) (whose gradient depends on
+    the forward); the times of the op's backward beside its bound and the
+    plain version's backward. Returns the rows printed, by kernel."""
+    from diffse_tpu_torch.utils import queued_ms
+
+    rng = np.random.default_rng(5)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev).requires_grad_()
+
+    failures, rows = [], {"gn_silu_conv3x3": [], "groupnorm_silu": []}
+
+    def compare(name, run_op, run_plain, leaves, bound_ms, bound_by):
+        out_k = run_op()
+        grads_k = torch.autograd.grad((out_k * out_k).sum(), leaves)
+        out_p = run_plain()
+        grads_p = torch.autograd.grad((out_p * out_p).sum(), leaves)
+        torch.cuda.synchronize()
+        err = (out_k - out_p).abs().max().item()
+        ok = torch.allclose(out_k, out_p, **KERNEL_TOL)
+        grad_errs = [((gk - gp).abs().max() / gp.abs().max()).item()
+                     for gk, gp in zip(grads_k, grads_p)]
+        ok = ok and max(grad_errs) <= TRAIN_KERNEL_GRAD_TOL
+        # the backward alone, from a graph kept for the repeats
+        out_k, out_p = run_op(), run_plain()
+        go = (2 * out_k).detach()
+        backward = {
+            "ms": median_ms(torch, lambda: torch.autograd.grad(out_k, leaves, go,
+                                                               retain_graph=True)),
+            "device_ms": queued_ms(lambda: torch.autograd.grad(out_k, leaves, go,
+                                                               retain_graph=True)),
+            "plain_ms": median_ms(torch, lambda: torch.autograd.grad(out_p, leaves, go,
+                                                                     retain_graph=True)),
+            "plain_device_ms": queued_ms(lambda: torch.autograd.grad(out_p, leaves, go,
+                                                                     retain_graph=True))}
+        with torch.no_grad():
+            fwd = {"ms": median_ms(torch, run_op), "device_ms": queued_ms(run_op)}
+        print(f"{name}: forward max_abs_err {err:.3e}, gradients' max error of their largest "
+              f"magnitude {max(grad_errs):.3e} (tol {TRAIN_KERNEL_GRAD_TOL}) ok {ok} | forward "
+              f"(kernel) {fwd['ms']:.4f} ms (queued {fwd['device_ms']:.4f}) | backward "
+              f"(recompute) {backward['ms']:.4f} ms (queued {backward['device_ms']:.4f}), the "
+              f"plain version's backward {backward['plain_ms']:.4f} ms (queued "
+              f"{backward['plain_device_ms']:.4f}), bound {bound_ms:.4f} ms ({bound_by})")
+        if not ok:
+            failures.append(name)
+        return {"name": name, "forward": fwd, "backward": backward, "bound_ms": bound_ms,
+                "bound_by": bound_by, "max_abs_err": err, "grad_err": max(grad_errs)}
+
+    for b, h, w, cin, cout, skip in TRAIN_CONV_SHAPES:
+        x = t(rng.standard_normal((b, h, w, cin)))
+        gs, gb = t(1 + 0.1 * rng.standard_normal(cin)), t(0.1 * rng.standard_normal(cin))
+        wk = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
+        bias = t(0.1 * rng.standard_normal(cout))
+        sk = t(rng.standard_normal((b, h, w, cout))) if skip else None
+        groups, coef = min(cin // 4, 32), (1 / np.sqrt(2.0) if skip else 1.0)
+        bt = bias[None].expand(b, cout)
+        leaves = [x, gs, gb, wk, bias] + ([sk] if skip else [])
+        args = (x, gs, gb, wk, bt, groups, 1e-6, sk, coef)
+        bound_ms, bound_by = conv_backward_bounds(b, h, w, cin, cout, skip)
+        rows["gn_silu_conv3x3"].append(compare(
+            f"gn_silu_conv3x3 op {[b, h, w, cin]}->{cout}{' +skip' if skip else ''}",
+            lambda: ck.groupnorm_silu_conv3x3_op(*args),
+            lambda: ck.groupnorm_silu_conv3x3_reference(*args), leaves, bound_ms, bound_by))
+    for shape in TRAIN_GN_SHAPES:
+        c = shape[-1]
+        x = t(2 * rng.standard_normal(shape) + 1)
+        sc, bi = t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c))
+        groups = min(c // 4, 32)
+        # backward: x and grad_out read, grad_x written, ~20 operations an
+        # element (statistics, affine, SiLU again and their backward)
+        bound_ms, bound_by = bound_of(20 * x.numel() / F32_FLOPS, 4 * 3 * x.numel())
+        rows["groupnorm_silu"].append(compare(
+            f"groupnorm_silu op {list(shape)}",
+            lambda: ck.groupnorm_silu_op(x, sc, bi, groups),
+            lambda: ck.groupnorm_silu_reference(x, sc, bi, groups), [x, sc, bi],
+            bound_ms, bound_by))
+    if failures:
+        raise AssertionError(f"ops disagree with their plain versions: {failures}")
+    return rows
+
+
+def train_wavs(seed):
+    """One fixed batch: ``TRAIN_BATCH`` synthetic (clean, noisy) crops of
+    ``TRAIN_SAMPLES`` samples, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    pairs = [synthetic_pair(rng, TRAIN_SAMPLES) for _ in range(TRAIN_BATCH)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+def check_train_model(torch, ck, dev):
+    """Phase 9, second part: the paper's 65.6M model (weights redrawn from
+    ``TRAIN_WEIGHT_SEED``): loss and gradients through the kernel path
+    against the plain path (every wrapper's plain version), both on the card,
+    on the same batch and draws."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.utils import float32_precision
+
+    model = ScoreModel(ScoreModelConfig(**PAPER_CONFIG), sde_kwargs=PAPER_SDE_KWARGS,
+                       device=dev, generator=torch.Generator().manual_seed(0))
+    redraw_weights(torch, model.backbone, seed=TRAIN_WEIGHT_SEED)
+    named = [(n, p) for n, p in model.backbone.named_parameters() if p.requires_grad]
+    n_params = sum(p.numel() for p in model.backbone.parameters())
+    batch = model.prepare_batch(train_wavs(16))
+    draws = model.draw_loss_noise(batch[0], torch.Generator(dev).manual_seed(17))
+
+    def loss_and_grads():
+        model.backbone.zero_grad(set_to_none=True)
+        with float32_precision(dev):
+            loss = model.loss_from_draws(batch, draws)
+            loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in named if p.grad is not None}
+
+    ck.reset_launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    counts, recomputes = dict(ck.launch_counts), dict(ck.recompute_counts)
+    with plain_versions(ck):
+        ck.reset_launch_counts()
+        loss_p, grads_p = loss_and_grads()
+        plain_counts = dict(ck.launch_counts)
+        with torch.backends.cudnn.flags(enabled=False):
+            loss_n, grads_n = loss_and_grads()
+
+    def gaps(grads):
+        return {n: ((grads[n] - grads_p[n]).abs().max().item() / gradient_scale(grads_p, n))
+                for n in grads_p}
+
+    rel, floor_rel = (abs(loss - loss_p) / abs(loss_p) for loss in (loss_k, loss_n))
+    errs, floors = gaps(grads_k), gaps(grads_n)
+    worst, worst_floor = max(errs, key=errs.get), max(floors, key=floors.get)
+
+    def median(d):
+        return float(np.median(list(d.values())))
+
+    print(f"paper model ({n_params} params, sebridge_v3, snr_conditioned true, batch "
+          f"{TRAIN_BATCH} x {TRAIN_FRAMES} frames, weights redrawn from seed "
+          f"{TRAIN_WEIGHT_SEED}): loss kernel path {loss_k:.9g}, plain path {loss_p:.9g} "
+          f"(cuDNN), {loss_n:.9g} (cuDNN off); kernel vs plain {rel:.3e} relative (tol "
+          f"{TRAIN_LOSS_RTOL}), plain with cuDNN off vs on {floor_rel:.3e}; gradients, of "
+          f"each one's largest magnitude: kernel vs plain worst {worst} {errs[worst]:.3e} "
+          f"(tol {TRAIN_GRAD_TOL}), median {median(errs):.3e}, above 1e-4 "
+          f"{sum(e > TRAIN_GRAD_TOL for e in errs.values())} of {len(errs)}; plain with cuDNN "
+          f"off vs on worst {worst_floor} {floors[worst_floor]:.3e}, median {median(floors):.3e}, "
+          f"above 1e-4 {sum(e > TRAIN_GRAD_TOL for e in floors.values())}; kernel launches "
+          f"{counts}, recomputes {recomputes}; plain path launches {plain_counts}")
+    failures = []
+    if len(grads_k) != len(named) or len(grads_p) != len(named):
+        failures.append(f"gradients for {len(grads_k)} / {len(grads_p)} of {len(named)} "
+                        "parameters")
+    if rel > TRAIN_LOSS_RTOL or not np.isfinite(loss_k):
+        failures.append(f"loss {loss_k} vs plain {loss_p}: {rel:.3e}")
+    if errs[worst] > TRAIN_GRAD_TOL:
+        failures.append(f"gradient of {worst} deviates by {errs[worst]:.3e}")
+    expected = {"gn_silu_conv3x3": 2 * 81, "groupnorm_silu": 2 * 28, "fused_bias_leaky_relu": 0}
+    if counts != expected or any(plain_counts.values()):
+        failures.append(f"launches {counts} (expected {expected}), plain path {plain_counts}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return card_runs(counts, [])
+
+
+def run_train_steps(torch, ck, dev, label, config, sde_kwargs, backbone_kwargs, steps,
+                    profile_step=False):
+    """Phase 9: ``steps`` train steps (``make_train_step``: prepare_batch ->
+    loss -> backward -> Adam -> EMA) of a model with its weights redrawn from
+    ``TRAIN_WEIGHT_SEED`` on one fixed batch, each step with the same draws.
+    (From the default initialisation, whose last convs start at 1e-10,
+    Adam's first steps at lr 1e-4 overshoot and the paper model's loss is
+    still above its first after 10 steps, in the JAX package as in the port;
+    from live weights it falls.) Checks
+    every loss finite, every parameter that requires grad given a gradient
+    that is not all zero (first step), the launches of every step, and one
+    parameter and its EMA against ``ema_decay_schedule``. Prints the losses,
+    the median step wall after ``TRAIN_WARMUP`` steps, audio seconds trained
+    per second, the peak memory and, with ``profile_step``, the device time
+    of one more step by kernel family and by part. Returns the run's launch
+    counts (``card_runs``), with the bf16 conv's split by instantiation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.profiling import device_breakdown, format_breakdown, labelled_device_us
+    from diffse_tpu_torch.train import TrainState, ema_decay_schedule, make_train_step
+
+    model = ScoreModel(ScoreModelConfig(**config), backbone_kwargs=backbone_kwargs,
+                       sde_kwargs=sde_kwargs, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    redraw_weights(torch, model.backbone, seed=TRAIN_WEIGHT_SEED)
+    state = TrainState(model.backbone, lr=model.cfg.lr, ema_decay=model.cfg.ema_decay)
+    step = make_train_step(model, preprocess=model.prepare_batch)
+    wavs = train_wavs(18)
+    forwards = 1 if config["model_type"] == "bbed" else 2
+    expected = {"gn_silu_conv3x3": 81 * forwards, "groupnorm_silu": 28 * forwards,
+                "fused_bias_leaky_relu": 0}
+    named = dict((n, p) for n, p in model.backbone.named_parameters() if p.requires_grad)
+    grad_max, hooks = {}, []
+    for name, p in named.items():
+        hooks.append(p.register_post_accumulate_grad_hook(
+            lambda p, name=name: grad_max.__setitem__(name, p.grad.abs().max())))
+    # the first residual block's first conv
+    watch = next(i for i, n in enumerate(state.names) if n.endswith("Conv_0.weight"))
+    failures, losses, walls, total, by_config = [], [], [], None, [0] * len(ck.CONV_CONFIGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        gen = torch.Generator(dev).manual_seed(19)  # one fixed batch, the same draws
+        p0, e0 = state.params[watch].detach().clone(), state.ema[watch].clone()
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, wavs, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(metrics["train_loss"].item())
+        counts = dict(ck.launch_counts)
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+        by_config = [a + b for a, b in zip(by_config, ck.conv_config_launches)]
+        if counts != expected or dict(ck.recompute_counts) != {
+                k: expected[k] for k in ck.recompute_counts}:
+            failures.append(f"step {i + 1}: launches {counts}, recomputes "
+                            f"{dict(ck.recompute_counts)}, expected {expected}")
+        if i == 0:
+            for h in hooks:
+                h.remove()
+            missing = [n for n in named if n not in grad_max]
+            zero = [n for n, m in grad_max.items() if m.item() == 0]
+            print(f"{label}: step 1 gave {len(grad_max)} of {len(named)} parameters that require "
+                  f"grad a gradient; all-zero gradients: {zero or 'none'}")
+            if missing or zero:
+                failures.append(f"no gradient for {missing}, all-zero gradient for {zero}")
+        d = float(ema_decay_schedule(state.ema_decay, state.step))
+        expected_ema = e0 * d + state.params[watch].detach() * (1 - d)
+        ema_err = ((state.ema[watch] - expected_ema).abs().max()
+                   / expected_ema.abs().max()).item()
+        moved = not torch.equal(state.params[watch], p0) and not torch.equal(state.ema[watch], e0)
+        if ema_err > 1e-6 or not moved:
+            failures.append(f"step {i + 1}: the EMA of {state.names[watch]} is {ema_err:.3e} "
+                            f"off e * {d:.6f} + (1 - d) * p, moved {moved}")
+    peak = torch.cuda.max_memory_allocated()
+    median_wall = float(np.median(walls[TRAIN_WARMUP:] or walls))
+    print(f"{label}: {steps} steps on one fixed batch of {TRAIN_BATCH} x {TRAIN_FRAMES} frames "
+          f"(the same draws each step): losses {[f'{v:.6g}' for v in losses]}; step walls "
+          f"{[f'{w:.3f}' for w in walls]} s, median after {TRAIN_WARMUP} warm-up steps "
+          f"{median_wall:.4f} s, {TRAIN_AUDIO_S / median_wall:.2f} s of audio trained per s; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step {expected}, "
+          f"conv by instantiation over the run {dict(zip(CONV_NAMES, by_config))}; the EMA of "
+          f"{state.names[watch]} followed ema_decay_schedule on every step")
+    if not all(np.isfinite(losses)):
+        failures.append(f"losses {losses}")
+    if profile_step:
+        gen = torch.Generator(dev).manual_seed(19)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, wavs, gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        breakdown = device_breakdown(prof)
+        parts = labelled_device_us(prof, ("train_step: forward", "train_step: Adam + EMA",
+                                          "gn_silu_conv3x3 backward (recompute)",
+                                          "groupnorm_silu backward (recompute)"))
+        device_s, busy_s = breakdown["total_us"] / 1e6, breakdown["busy_us"] / 1e6
+        idle = (f"{1 - busy_s / wall:.3f}" if busy_s > 0
+                else "not measured (the profiler recorded no device time)")
+        rest = breakdown["total_us"] - sum(parts.values())
+        print("\n".join(
+            [f"{label}: one profiled step: wall {wall:.4f} s, device kernel time {device_s:.4f} s "
+             f"(busy {busy_s:.4f} s: the union of the kernels' intervals), idle share {idle} "
+             f"(1 - busy / wall), {breakdown['launches']} device kernel launches; by part: "
+             + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in parts.items())
+             + f", the rest (the backward of everything else) {rest / 1e3:.2f} ms; "
+             "by kernel family:"] + format_breakdown(breakdown, top=10)))
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    return {"losses": losses, "median_wall": median_wall, "peak": peak,
+            "path": card_runs({**total, **conv_launches(ck, by_config)}, [])}
+
+
+def write_cli_data(root, seed):
+    """A tiny VBD-style directory, written with the port's wavio: train and
+    valid clean/noisy pairs and valid/active_rms.txt."""
+    import os
+
+    from diffse_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    n = int(CLI_SECONDS * SR)
+    for subset, count in (("train", CLI_TRAIN_FILES), ("valid", CLI_VALID_FILES)):
+        for kind in ("clean", "noisy"):
+            os.makedirs(os.path.join(root, subset, kind))
+        lines = []
+        for i in range(count):
+            clean, noisy = synthetic_pair(rng, n)
+            write_wav(os.path.join(root, subset, "clean", f"u{i:03d}.wav"), clean, SR)
+            write_wav(os.path.join(root, subset, "noisy", f"u{i:03d}.wav"), noisy, SR)
+            lines.append(f"u{i:03d}.wav\t{np.sqrt(np.mean(clean ** 2)):.8f}\t"
+                         f"{np.sqrt(np.mean((noisy - clean) ** 2)):.8f}")
+        with open(os.path.join(root, subset, "active_rms.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def run_train_cli(torch, dev):
+    """Phase 9, last part: ``python -m diffse_tpu_torch.cli.train`` with the
+    paper's flags for one epoch of 2 steps into a checkpoint, then
+    ``--resume`` for a second epoch; the checkpoint read back with
+    ``load_score_model``."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from diffse_tpu_torch.train import CheckpointManager
+    from diffse_tpu_torch.train.restore import load_score_model
+
+    root = tempfile.mkdtemp(prefix="diffse_train_cli_")
+    try:
+        write_cli_data(os.path.join(root, "data"), seed=20)
+        ckpt = os.path.join(root, "ckpt")
+        args = [sys.executable, "-m", "diffse_tpu_torch.cli.train", "--modeltype", "sebridge_v3",
+                "--snr_conditioned", "true", "--fixed_snr", str(FIXED_SNR), "--transform_type",
+                "exponent", "--sigma-max", "1.0", "--num_eval_files", "0", "--base_dir",
+                os.path.join(root, "data"), "--ckpt_dir", ckpt, "--max_steps_per_epoch", "2",
+                "--num_workers", "1"]
+        for extra in (["--max_epochs", "1"], ["--max_epochs", "2", "--resume"]):
+            t0 = time.time()
+            proc = subprocess.run(args + extra, cwd=Path(__file__).resolve().parent,
+                                  capture_output=True, text=True, timeout=600)
+            lines = proc.stdout.strip().splitlines()
+            print(f"train CLI {' '.join(extra)}: exit {proc.returncode} in "
+                  f"{time.time() - t0:.1f} s; its last lines: {lines[-3:]}")
+            if proc.returncode != 0:
+                raise AssertionError(f"train CLI {extra} failed:\n{proc.stderr[-3000:]}")
+        mgr = CheckpointManager(ckpt)
+        rows = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+        train_losses = [r["train_loss"] for r in rows if "train_loss" in r]
+        valid_losses = [r["valid_loss"] for r in rows if "valid_loss" in r]
+        model, state = load_score_model(ckpt, device=dev)
+        hparams = mgr.load_hparams()
+        n_params = sum(p.numel() for p in model.backbone.parameters())
+        print(f"train CLI: checkpoints {mgr.all_steps()}, restored step {state.step}, train "
+              f"losses {train_losses}, valid losses {valid_losses}, model_type "
+              f"{hparams['config']['model_type']}, {n_params} params")
+        # only the last is kept: validation gives no pesq / si_sdr to rank by
+        if (mgr.all_steps() != [1] or state.step != 4 or len(valid_losses) != 2
+                or not all(np.isfinite(train_losses + valid_losses))):
+            raise AssertionError(f"train CLI: checkpoints {mgr.all_steps()}, step {state.step}, "
+                                 f"losses {train_losses} / {valid_losses}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_training(torch, ck, dev):
+    """Phase 9 ("train"). Returns the float32 and the bf16 runs' launch
+    counts, by path. TF32 off for cuDNN and matmul, as in phase 2: the port
+    pins float32 in its own steps, and the plain versions' gradients taken
+    here must be float32 too."""
+    t0 = time.time()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("phase 9: torch.backends.cudnn.allow_tf32=False, "
+          "torch.backends.cuda.matmul.allow_tf32=False")
+    check_train_kernels(torch, ck, dev)
+    model_path = check_train_model(torch, ck, dev)
+    torch.cuda.empty_cache()
+    paper = run_train_steps(torch, ck, dev, "sebridge_v3 (paper), float32", PAPER_CONFIG,
+                            PAPER_SDE_KWARGS, {}, TRAIN_STEPS, profile_step=True)
+    if not paper["losses"][-1] < paper["losses"][0]:
+        raise AssertionError(f"the paper model's loss did not fall: {paper['losses']}")
+    torch.cuda.empty_cache()
+    bbed = run_train_steps(torch, ck, dev, "bbed score matching, float32", BBED_TRAIN_CONFIG,
+                           dict(T_sampling=0.999, k=2.6, theta=0.52), {}, BBED_STEPS)
+    torch.cuda.empty_cache()
+    bf16 = run_train_steps(torch, ck, dev, "sebridge_v3 (paper), bf16 trunk", PAPER_CONFIG,
+                           PAPER_SDE_KWARGS, {"dtype": "bf16"}, 1)
+    torch.cuda.empty_cache()
+    run_train_cli(torch, dev)
+    print(f"phase train: {time.time() - t0:.1f} s")
+    f32 = {"training, kernel vs plain (eager)": model_path,
+           "training, sebridge_v3 steps (eager)": paper["path"],
+           "training, bbed steps (eager)": bbed["path"]}
+    return f32, {"training, bf16 trunk step (eager)": bf16["path"]}
+
+
+def main(argv=None) -> int:
+    """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
+    lines then)."""
+    argv = sys.argv[1:] if argv is None else argv
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--phases":
+            print("usage: chip_smoke.py [--phases name,name,...]", file=sys.stderr)
+            return 2
+        only = set(argv[1].split(","))
     try:
         import torch
     except ImportError as e:
@@ -1679,7 +2180,10 @@ def main() -> int:
                         ("samplers", lambda: run_samplers(torch, ck, dev)),
                         ("bf16_kernels", lambda: check_bf16_kernels(torch, ck, dev)),
                         ("bf16_forward", lambda: check_bf16_forward(torch, ck, dev)),
-                        ("bf16_program", lambda: run_bf16_program(torch, ck, dev))):
+                        ("bf16_program", lambda: run_bf16_program(torch, ck, dev)),
+                        ("train", lambda: run_training(torch, ck, dev))):
+        if only is not None and name not in only:
+            continue
         t0 = time.time()
         try:
             results[name] = phase()
@@ -1691,15 +2195,19 @@ def main() -> int:
         print(f"phase {name}: ok in {time.time() - t0:.1f} s")
     if not ok:
         return 1
+    if only is not None:
+        print(f"phases {sorted(only)} passed (a partial run: no kernel record)")
+        return 0
 
     # kernel runs on the card on each main path, each counted from zero: the
     # float32 paths, and the bf16 trunk's (one forward; bench.py's batch-16
     # program)
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
-             **results["snr"], **results["graphs"], **results["samplers"][0]}
+             **results["snr"], **results["graphs"], **results["samplers"][0],
+             **results["train"][0]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
-                  **results["samplers"][1]}
+                  **results["samplers"][1], **results["train"][1]}
 
     def launches(kernel, by=paths):
         runs = {path: counts["runs"][kernel] for path, counts in by.items()}

@@ -1,0 +1,3 @@
+from .wavio import read_wav, write_wav
+
+__all__ = ["read_wav", "write_wav"]

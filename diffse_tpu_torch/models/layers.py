@@ -10,7 +10,9 @@ Every GroupNorm runs through a hand-written kernel on the card
 (ops/cuda_kernels.py): the plain blocks' two GroupNorm -> SiLU -> conv3x3
 chains through ``groupnorm_silu_conv3x3`` (with the conditioning bias and the
 1/sqrt(2) residual in its epilogue), the resampling blocks' and the attention
-blocks' GroupNorms through ``groupnorm_silu``. The remaining convolutions
+blocks' GroupNorms through ``groupnorm_silu``; both through their
+differentiable ops (``groupnorm_silu_conv3x3_op``, ``groupnorm_silu_op``), so
+that training runs the same kernels forward. The remaining convolutions
 (stem, 1x1 shortcuts, Combine, the resampling blocks' convs, output layer) and
 the attention einsums are plain PyTorch, as the JAX package leaves them to XLA.
 
@@ -19,8 +21,10 @@ computes where the JAX package's bf16 path does (diffse_tpu/models/layers.py):
 activations cross memory in bfloat16; convs and the blocks' dense layers take
 bf16 operands, sum in float32 and round once, then add their bias in bf16
 (``conv``, ``dense``, as flax's ``nn.Conv``/``nn.Dense`` with ``dtype``;
-the bf16 copies of their parameters are cast once, ``cast_params``);
-GroupNorm statistics, the attention's norm, q/k/v and softmax stay float32.
+the bf16 copies of their parameters are cast once, ``cast_params``, and in
+training on every call, so that the gradient reaches the float32
+parameters); GroupNorm statistics, the attention's norm, q/k/v and softmax
+stay float32.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda_kernels import (CONV_BK_BF16, groupnorm_silu, groupnorm_silu_conv3x3,
-                                pack_conv_weight_bf16, weight_casts)
+from ..ops.cuda_kernels import (CONV_BK_BF16, groupnorm_silu_conv3x3_op, groupnorm_silu_op,
+                                needs_grad, pack_conv_weight_bf16, weight_casts)
 from ..ops.fir import downsample_2d, upsample_2d
 from ..utils import forbid_capture, round_once
 
@@ -97,8 +101,15 @@ def cast_params(module: nn.Module, dtype: torch.dtype):
     device, ``data_ptr()`` and ``_version``, with the parameters themselves
     held so that no other tensor takes their addresses while the key
     stands. Each cast is counted in ``cuda_kernels.weight_casts`` under the
-    module's kind ("conv" or "dense"), on any device."""
+    module's kind ("conv" or "dense"), on any device.
+
+    Where autograd records (grad enabled and a parameter requiring grad), the
+    casts are made anew on each call, neither cached nor counted: a copy
+    made without ``detach()`` carries the gradient back to the float32
+    parameter, and one step's graph must not outlive it."""
     w, b = module.weight, module.bias
+    if needs_grad(w, b):
+        return w.to(dtype), b.to(dtype)
     key = (dtype, w.device, w.data_ptr(), w._version, b.data_ptr(), b._version)
     cached = getattr(module, "_cast", None)
     if cached is None or cached[0] != key:
@@ -182,8 +193,8 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, apply_silu: bool = True,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        out = groupnorm_silu(to_nhwc(x), self.weight, self.bias, self.num_groups,
-                             self.eps, apply_silu, out_dtype)
+        out = groupnorm_silu_op(to_nhwc(x), self.weight, self.bias, self.num_groups,
+                                self.eps, apply_silu, out_dtype)
         return from_nhwc(out)
 
 
@@ -306,7 +317,11 @@ class ResnetBlockBigGANpp(nn.Module):
         moves or changes: the copy is keyed on the parameter's device,
         ``data_ptr()`` and ``_version`` (an in-place update or
         ``load_state_dict`` bumps it), and holds the weight's storage, so that
-        no other tensor takes its address while the key stands."""
+        no other tensor takes its address while the key stands. In training
+        the cache serves too: the packed copy feeds only the kernel's
+        forward, and the gradient reaches the float32 weight through the op's
+        recompute, which reads the weight itself (``GroupNormSiLUConv3x3``);
+        an optimizer step updates the weight in place and so packs it anew."""
         w = getattr(self, name).weight
         if self.compute_dtype != torch.bfloat16 or w.shape[1] % CONV_BK_BF16:
             return None
@@ -331,7 +346,7 @@ class ResnetBlockBigGANpp(nn.Module):
             if semb_bias is not None:
                 bias0 = bias0 + semb_bias.float()
             bias0 = bias0.contiguous()
-            h = groupnorm_silu_conv3x3(
+            h = groupnorm_silu_conv3x3_op(
                 x_nhwc, self.GroupNorm_0.weight, self.GroupNorm_0.bias,
                 conv_hwio(self.Conv_0), bias0,
                 self.GroupNorm_0.num_groups, self.GroupNorm_0.eps,
@@ -339,7 +354,7 @@ class ResnetBlockBigGANpp(nn.Module):
             skip = (to_nhwc(conv(self.Conv_2, x, dtype)) if self.Conv_2 is not None
                     else x_nhwc)
             bias1 = self.Conv_1.bias[None, :].expand(batch, self.out_ch)
-            out = groupnorm_silu_conv3x3(
+            out = groupnorm_silu_conv3x3_op(
                 h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
                 bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps,
                 skip=skip, skip_coef=SKIP_COEF, w_packed=self.packed_weight("Conv_1"))

@@ -34,8 +34,9 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ..ops.cuda_kernels import groupnorm_silu_conv3x3
+from ..ops.cuda_kernels import groupnorm_silu_conv3x3_op
 from ..ops.fir import downsample_2d, upsample_2d
 from ..utils import float32_precision, trunk_dtype
 from . import layers
@@ -51,14 +52,22 @@ class NCSNppBase(nn.Module):
     def __init__(self, nf: int = 128, ch_mult: Sequence[int] = (1, 1, 2, 2, 2, 2, 2),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
                  image_size: int = 256, dtype: Optional[str] = None,
-                 fuse_pyramid: bool = True, generator: Optional[torch.Generator] = None):
+                 fuse_pyramid: bool = True, dropout: float = 0.0, remat: bool = False,
+                 generator: Optional[torch.Generator] = None):
         """``dtype``: the trunk's compute dtype, None (float32) or "bf16".
         ``fuse_pyramid`` names the JAX package's flag; the port always runs
-        the pyramid heads fused (one kernel each) and takes no other value."""
+        the pyramid heads fused (one kernel each) and takes no other value.
+        ``dropout``: the JAX package's default 0.0; the port's residual blocks
+        have no dropout, so a training forward (``train()`` mode) raises on
+        any other value. ``remat``: recompute each residual block's
+        activations in the backward pass (``torch.utils.checkpoint``, the
+        JAX package's ``nn.remat``) instead of keeping them."""
         super().__init__()
         if not fuse_pyramid:
             raise ValueError("the port runs the output pyramid's heads fused only "
                              "(fuse_pyramid=True)")
+        self.dropout = dropout
+        self.remat = remat
         self.compute_dtype = trunk_dtype(dtype)
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
@@ -123,13 +132,40 @@ class NCSNppBase(nn.Module):
         self.all_modules = nn.ModuleList(modules)
         self.output_layer = layers.ddpm_conv(num_channels, 2, 1, generator=g)
 
+    # flags of the JAX package's command line that choose between its Pallas
+    # kernels and XLA on the TPU: the port takes them and always runs its
+    # CUDA kernels, so they are no keywords of the port's backbone
+    TPU_KERNEL_FLAGS = ("use_pallas_groupnorm", "pallas_max_hw", "fuse_pyramid")
+
+    @staticmethod
+    def add_argparse_args(parser):
+        """The JAX package's NCSN++ flags, with its names and defaults
+        (``TPU_KERNEL_FLAGS`` among them)."""
+        parser.add_argument("--nf", type=int, default=None)
+        parser.add_argument("--ch_mult", type=int, nargs="+", default=None)
+        parser.add_argument("--num_res_blocks", type=int, default=None)
+        parser.add_argument("--attn_resolutions", type=int, nargs="+", default=None)
+        parser.add_argument("--image_size", type=int, default=None)
+        parser.add_argument("--backbone_dtype", dest="dtype", type=str, default=None,
+                            choices=("float32", "bf16"))
+        kernels = "accepted as the JAX package takes it; the port always runs its CUDA kernels"
+        parser.add_argument("--pallas_groupnorm", dest="use_pallas_groupnorm",
+                            action="store_true", default=False, help=kernels)
+        parser.add_argument("--pallas_max_hw", type=int, default=0, help=kernels)
+        parser.add_argument("--fuse_pyramid", dest="fuse_pyramid", action="store_true",
+                            default=False, help=kernels)
+        parser.add_argument("--remat", dest="remat", action="store_true", default=False,
+                            help="recompute every residual block's activations in the "
+                                 "backward pass (torch.utils.checkpoint)")
+        return parser
+
     @staticmethod
     def _pyramid_head(h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
         """GroupNorm -> SiLU -> conv3x3 to 4 channels, one fused kernel in h's
         dtype; the head's output as float32."""
         bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
-        out = groupnorm_silu_conv3x3(layers.to_nhwc(h), gn.weight, gn.bias,
-                                     layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
+        out = groupnorm_silu_conv3x3_op(layers.to_nhwc(h), gn.weight, gn.bias,
+                                        layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
         return layers.from_nhwc(out).float()
 
     def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,
@@ -137,8 +173,18 @@ class NCSNppBase(nn.Module):
         """``noise_cond`` is read when ``snr_conditioning``. What the network
         computes in float32 runs on the card without TF32 in its cuDNN
         convolutions and matmuls, whatever the process-wide setting."""
+        if self.training and self.dropout:
+            raise NotImplementedError(f"dropout={self.dropout} in training: the port's "
+                                      "residual blocks have no dropout yet (0.0 only)")
         with float32_precision(x.device):
             return self._forward_trunk(x, time_cond, noise_cond)
+
+    def _block(self, module: nn.Module, *args) -> torch.Tensor:
+        """A residual block's call; with ``remat`` where autograd records, one
+        that keeps only its inputs and recomputes the rest in the backward."""
+        if self.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
 
     def _forward_trunk(self, x: torch.Tensor, time_cond: torch.Tensor,
                        noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
@@ -161,25 +207,25 @@ class NCSNppBase(nn.Module):
         hs = [layers.conv(next(modules), h, self.compute_dtype)]
         for i_level in range(num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = next(modules)(hs[-1], temb, semb)
+                h = self._block(next(modules), hs[-1], temb, semb)
                 if self.all_resolutions[i_level] in self.attn_resolutions:
                     h = next(modules)(h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = next(modules)(hs[-1], temb, semb)
+                h = self._block(next(modules), hs[-1], temb, semb)
                 input_pyramid = downsample_2d(input_pyramid, layers.FIR_KERNEL, factor=2)
                 h = next(modules)(input_pyramid, h)
                 hs.append(h)
 
         h = hs[-1]
-        h = next(modules)(h, temb, semb)
+        h = self._block(next(modules), h, temb, semb)
         h = next(modules)(h)
-        h = next(modules)(h, temb, semb)
+        h = self._block(next(modules), h, temb, semb)
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = next(modules)(torch.cat([h, hs.pop()], dim=1), temb, semb)
+                h = self._block(next(modules), torch.cat([h, hs.pop()], dim=1), temb, semb)
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = next(modules)(h)
             head = self._pyramid_head(h, next(modules), next(modules))
@@ -188,7 +234,7 @@ class NCSNppBase(nn.Module):
             else:
                 pyramid = upsample_2d(pyramid, layers.FIR_KERNEL, factor=2) + head
             if i_level != 0:
-                h = next(modules)(h, temb, semb)
+                h = self._block(next(modules), h, temb, semb)
 
         used_sigmas = noise_cond if snr else time_cond
         h = pyramid / used_sigmas[:, None, None, None]

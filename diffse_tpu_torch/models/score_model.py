@@ -29,7 +29,15 @@ depends on the data, so it is three captured programs (``capture.LoopProgram``):
 normalise -> STFT -> prior -> the solver's start; one step attempt, replayed
 until the host reads that the solver is done; the denoising step -> iSTFT.
 
-Training is not ported yet.
+Training: ``prepare_batch`` (normalise -> STFT -> compression of waveform
+crops, on the model's device) and ``loss_fn`` over every (snr_conditioned x
+model_type) branch of the JAX package: BBED denoising score matching
+(``mse``, ``mae``, ``sqrt_mse``), and the consistency losses of the
+sebridge family on the linear bridge, the SNR-rescaled one (``fixed``) and
+the SNR-aligned nonlinear bridge of sebridge_v3 (paper Eq. 6). Its draws
+(``draw_loss_noise``: the time or the Karras index, and the noise) are apart
+from its arithmetic (``loss_from_draws``), so that tests can feed the JAX
+package's draws. The train step around it is ``train/steps.py``.
 """
 
 from __future__ import annotations
@@ -141,22 +149,42 @@ class EnhanceKey(NamedTuple):
 
 @dataclasses.dataclass
 class ScoreModelConfig:
-    """The fields of diffse_tpu's ScoreModelConfig that inference reads, with
-    the same names and defaults (training's fields come with training)."""
+    """diffse_tpu's ScoreModelConfig: the same fields, names, defaults and
+    order (``hparams`` round-trips through it)."""
 
     backbone: str = "ncsnpp"
     sde: str = "ouve"
     model_type: str = "sebridge"  # bbed | sebridge | sebridge_v2 | sebridge_v3
-    snr_conditioned: str = "false"  # false | true ("fixed" is not for inference)
+    snr_conditioned: str = "false"  # false | fixed (training only) | true
     fixed_snr: float = 1.0
+    lr: float = 1e-4
+    ema_decay: float = 0.999
     t_eps: float = 3e-2
+    loss_type: str = "mse"  # mse | mae | sqrt_mse
+    loss_abs_exponent: float = 0.5
+    num_eval_files: int = 10
     sigma_max: float = 0.5
+    # the data contract (SpecsDataModule)
     n_fft: int = 510
     hop_length: int = 128
+    num_frames: int = 256
     window: str = "hann"
     spec_factor: float = 0.15
     spec_abs_exponent: float = 0.5
     transform_type: str = "exponent"
+    normalize: str = "noisy"  # noisy | clean | not
+
+
+# (snr_conditioned, model_type) pairs and their parameterisation: the score
+# (bbed), or the consistency output with the EDM c_skip/c_out or, for the
+# fixed-SNR sebridge_v2, the simple one
+PARAMETERISATION = {("false", "bbed"): "score", ("false", "sebridge"): "consistency",
+                    ("false", "sebridge_v2"): "consistency",
+                    ("fixed", "sebridge_v2"): "consistency_simple",
+                    ("fixed", "sebridge_v3"): "consistency",
+                    ("true", "sebridge_v2"): "consistency", ("true", "sebridge_v3"): "consistency"}
+# the Karras grid the consistency losses draw adjacent times from
+KARRAS_N, KARRAS_RHO, KARRAS_EPS = 30, 7.0, 0.001
 
 
 class ScoreModel:
@@ -193,8 +221,28 @@ class ScoreModel:
             transform_type=config.transform_type, spec_factor=config.spec_factor,
             spec_abs_exponent=config.spec_abs_exponent)
         self._window = get_window(config.window, config.n_fft, device=self.device)
+        self._backbone_kwargs = dict(backbone_kwargs or {})
+        self._sde_kwargs = dict(sde_kwargs or {})
         # EnhanceKey -> (the parameters' key, capture.Program)
         self._graphs = {}
+
+    # ----------------------------------------------------------- persistence
+    @property
+    def hparams(self) -> dict:
+        """The hyperparameters as the JAX package stores them (its
+        ``hparams.json``): the config, the backbone's and the SDE's keywords."""
+        return {"config": dataclasses.asdict(self.cfg),
+                "backbone_kwargs": self._backbone_kwargs, "sde_kwargs": self._sde_kwargs}
+
+    @classmethod
+    def from_hparams(cls, hparams: dict, snr_model: Optional[torch.nn.Module] = None,
+                     device="cuda", generator: Optional[torch.Generator] = None,
+                     **config_overrides) -> "ScoreModel":
+        """A model from ``hparams``, with ``config_overrides`` over its config."""
+        cfg = ScoreModelConfig(**{**hparams["config"], **config_overrides})
+        return cls(cfg, backbone_kwargs=hparams.get("backbone_kwargs") or {},
+                   sde_kwargs=hparams.get("sde_kwargs") or {}, device=device,
+                   generator=generator, snr_model=snr_model)
 
     # ------------------------------------------------------------ transforms
     def _stft(self, sig: torch.Tensor) -> torch.Tensor:
@@ -204,9 +252,42 @@ class ScoreModel:
         return istft(spec_back(spec, self.spec_cfg), self._window, self.stft_cfg.n_fft,
                      self.stft_cfg.hop_length)
 
+    def prepare_batch(self, wav_batch):
+        """Waveform crops -> the model's spectrograms, on the model's device:
+        each row normalised (by the noisy or the clean row's max-abs, or not,
+        ``cfg.normalize``), STFT, compression.
+
+        Args:
+            wav_batch: ``(x_wav [B, L], y_wav [B, L], *rest)``, tensors or numpy
+                arrays; ``rest`` (e.g. the active-RMS levels of ``Specs_SNR``)
+                is passed through as it is.
+        Returns:
+            ``(X [B, 1, F, T], Y [B, 1, F, T], *rest)``, complex.
+        """
+        x_wav, y_wav, *rest = wav_batch
+        x_wav = to_device(_as_wave(x_wav), self.device)
+        y_wav = to_device(_as_wave(y_wav), self.device)
+        if self.cfg.normalize == "noisy":
+            normfac = torch.max(torch.abs(y_wav), dim=-1, keepdim=True).values
+        elif self.cfg.normalize == "clean":
+            normfac = torch.max(torch.abs(x_wav), dim=-1, keepdim=True).values
+        else:
+            normfac = torch.ones((x_wav.shape[0], 1), dtype=x_wav.dtype, device=x_wav.device)
+        X = spec_fwd(self._stft(x_wav / normfac), self.spec_cfg)[:, None]
+        Y = spec_fwd(self._stft(y_wav / normfac), self.spec_cfg)[:, None]
+        return (X, Y, *rest)
+
     # --------------------------------------------------------------- forward
+    def _apply_backbone(self, dnn_input: torch.Tensor, t: torch.Tensor,
+                        s: Optional[torch.Tensor], variables: Optional[dict]) -> torch.Tensor:
+        args = (dnn_input, t, s if s is not None else t) if self.backbone_takes_noise_cond \
+            else (dnn_input, t)
+        if variables is None:
+            return self.backbone(*args)
+        return torch.func.functional_call(self.backbone, variables, args)
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
-                s: Optional[torch.Tensor] = None) -> torch.Tensor:
+                s: Optional[torch.Tensor] = None, variables: Optional[dict] = None) -> torch.Tensor:
         """Score (bbed) or consistency output (the sebridge family).
 
         Args:
@@ -214,29 +295,151 @@ class ScoreModel:
             t: ``[B]`` float32 times.
             y: complex ``[B, 1, F, T]`` conditioner.
             s: ``[B]`` noise conditioning of ``ncsnpp_snr`` (``t`` when None).
+            variables: the backbone's parameters and buffers by name (e.g. the
+                EMA weights, ``train.state.eval_variables``) in place of its
+                own, through ``torch.func.functional_call``.
         """
         cfg = self.cfg
-        if cfg.snr_conditioned == "fixed":
-            raise NotImplementedError("snr_conditioned='fixed' is a training mode; "
-                                      "it comes with training")
-        consistency = {("false", "sebridge"), ("false", "sebridge_v2"),
-                       ("true", "sebridge_v2"), ("true", "sebridge_v3")}
-        key = (cfg.snr_conditioned, cfg.model_type)
-        if key != ("false", "bbed") and key not in consistency:
+        kind = PARAMETERISATION.get((cfg.snr_conditioned, cfg.model_type))
+        if kind is None:
             raise ValueError(f"Unsupported (snr_conditioned={cfg.snr_conditioned}, "
                              f"model_type={cfg.model_type})")
-        dnn_input = torch.cat([x, y], dim=1)
-        if self.backbone_takes_noise_cond:
-            raw = self.backbone(dnn_input, t, s if s is not None else t)
-        else:
-            raw = self.backbone(dnn_input, t)
-        if key == ("false", "bbed"):
+        raw = self._apply_backbone(torch.cat([x, y], dim=1), t, s, variables)
+        if kind == "score":
             return -raw
         eps, sigma_data = 0.001, 0.5
         tb = t[:, None, None, None]
-        c_skip = sigma_data ** 2 / ((tb - eps) ** 2 + sigma_data ** 2)
-        c_out = (sigma_data * (tb - eps)) / ((sigma_data ** 2 + tb ** 2) ** 0.5)
+        if kind == "consistency_simple":
+            c_skip = 1 / ((tb - eps) + 1)
+            c_out = (tb - eps) / ((tb - eps) + 1)
+        else:
+            c_skip = sigma_data ** 2 / ((tb - eps) ** 2 + sigma_data ** 2)
+            c_out = (sigma_data * (tb - eps)) / ((sigma_data ** 2 + tb ** 2) ** 0.5)
         return c_skip * x + c_out * raw
+
+    # ------------------------------------------------------------------ loss
+    def _reduce_loss(self, err: torch.Tensor) -> torch.Tensor:
+        """0.5 * the sum of |err|^2 over each row, averaged over the batch."""
+        losses = torch.square(torch.abs(err))
+        return torch.mean(0.5 * torch.sum(losses.reshape(losses.shape[0], -1), dim=-1))
+
+    @staticmethod
+    def _sqrt_compress(z: torch.Tensor) -> torch.Tensor:
+        """sqrt(|z|) with z's phase."""
+        return torch.sqrt(torch.abs(z)) * torch.exp(1j * torch.angle(z))
+
+    def _consistency_loss(self, f_theta: torch.Tensor, f_theta_minus: torch.Tensor):
+        if self.cfg.loss_type == "mse":
+            return self._reduce_loss(f_theta - f_theta_minus)
+        if self.cfg.loss_type == "sqrt_mse":
+            return self._reduce_loss(self._sqrt_compress(f_theta)
+                                     - self._sqrt_compress(f_theta_minus))
+        raise ValueError(f"loss_type {self.cfg.loss_type} not supported here")
+
+    @staticmethod
+    def _karras_pair(n: torch.Tensor, T: float):
+        """Adjacent Karras times ``t_n, t_{n+1}`` of the float32 index ``n``,
+        as ``[B, 1, 1, 1]``."""
+        tn = karras_t(n, N=KARRAS_N, rho=KARRAS_RHO, eps=KARRAS_EPS, T=T)
+        tn1 = karras_t(n + 1, N=KARRAS_N, rho=KARRAS_RHO, eps=KARRAS_EPS, T=T)
+        return tn[:, None, None, None], tn1[:, None, None, None]
+
+    def draw_loss_noise(self, x: torch.Tensor, generator: torch.Generator) -> dict:
+        """The draws of one ``loss_fn`` call for a batch like ``x`` (complex
+        ``[B, 1, F, T]``), from ``generator`` (on x's device): ``"z"``,
+        CN(0, 1) noise shaped like x, and for ``bbed`` the time ``"t"``,
+        uniform on [t_eps, T), else the Karras index ``"n"``, uniform on
+        1..29, as float32 ``[B]``."""
+        cfg, b = self.cfg, x.shape[0]
+        if (cfg.snr_conditioned, cfg.model_type) == ("false", "bbed"):
+            u = torch.rand(b, generator=generator, device=x.device)
+            draws = {"t": torch.clamp(u * (self.sde.T - cfg.t_eps) + cfg.t_eps, max=self.sde.T)}
+        else:
+            draws = {"n": torch.randint(1, KARRAS_N, (b,), generator=generator,
+                                        device=x.device).float()}
+        draws["z"] = randn_like(x, generator)
+        return draws
+
+    def loss_fn(self, batch, generator: torch.Generator, train: bool = True,
+                variables: Optional[dict] = None) -> torch.Tensor:
+        """The training (or validation) loss of ``batch`` (``prepare_batch``'s
+        output; entries after X and Y are ignored) with draws from
+        ``generator``: ``loss_from_draws`` of ``draw_loss_noise``."""
+        return self.loss_from_draws(batch, self.draw_loss_noise(batch[0], generator),
+                                    train=train, variables=variables)
+
+    def loss_from_draws(self, batch, draws: dict, train: bool = True,
+                        variables: Optional[dict] = None) -> torch.Tensor:
+        """The loss of ``batch = (X, Y, ...)`` given the draws (see
+        ``draw_loss_noise``), per (snr_conditioned x model_type) as the JAX
+        package's ``loss_fn``. ``train`` sets the backbone's mode (its only
+        effect is on dropout); ``variables`` as for ``forward``."""
+        cfg = self.cfg
+        x, y = batch[0], batch[1]
+        self.backbone.train(train)
+        key = (cfg.snr_conditioned, cfg.model_type)
+        if key not in PARAMETERISATION:
+            raise ValueError(f"Unsupported (snr_conditioned={cfg.snr_conditioned}, "
+                             f"model_type={cfg.model_type})")
+
+        def forward(x_, t_, y_):
+            return self.forward(x_, t_, y_, variables=variables)
+
+        if key == ("false", "bbed"):
+            t = draws["t"]
+            mean, std = self.sde.marginal_prob(x, t, y)
+            z = draws["z"]
+            sigmas = std[:, None, None, None].to(x.dtype)
+            perturbed = mean + sigmas * z
+            score = forward(perturbed, t, y)
+            if cfg.loss_type == "mse":
+                return self._reduce_loss(sigmas * score + z)
+            if cfg.loss_type == "mae":
+                # the JAX package's absolute-error loss (the reference's mae
+                # branch reads its error before assigning it)
+                losses = torch.abs(sigmas * score + z)
+                return torch.mean(0.5 * torch.sum(losses.reshape(x.shape[0], -1), dim=-1))
+            if cfg.loss_type == "sqrt_mse":
+                mean_hat = perturbed + (sigmas ** 2) * score
+                return self._reduce_loss((self._sqrt_compress(mean_hat)
+                                          - self._sqrt_compress(mean)) / sigmas)
+            raise ValueError(f"unknown loss_type {cfg.loss_type}")
+
+        # the consistency losses: adjacent Karras times, the network at both
+        T = 0.999 if key in (("false", "sebridge"), ("fixed", "sebridge_v2")) else 1.0
+        tn, tn1 = self._karras_pair(draws["n"], T)
+        z = draws["z"] * cfg.sigma_max
+        if key == ("false", "sebridge"):
+            x_tn = y * tn + x * (1 - tn) + ((tn * (1 - tn)) ** 0.5) * z
+            x_tn1 = y * tn1 + x * (1 - tn1) + ((tn1 * (1 - tn1)) ** 0.5) * z
+            cond, cond1 = y, y
+        elif key == ("fixed", "sebridge_v2"):
+            y = x + (y - x) / noise_mag(x, y, mode="max") * cfg.fixed_snr
+            x_tn = y * tn + x * (1 - tn) + tn * z
+            x_tn1 = y * tn1 + x * (1 - tn1) + tn1 * z
+            cond, cond1 = y, y
+        else:
+            if cfg.model_type == "sebridge_v2":  # the linear bridge
+                mu_tn = y * tn + x * (1 - tn)
+                mu_tn1 = y * tn1 + x * (1 - tn1)
+            elif cfg.snr_conditioned == "fixed":
+                # the SNR-aligned nonlinear bridge on uncompressed specs, the
+                # noise rescaled to fixed_snr (paper Eq. 6)
+                x_ori = spec_back(x, self.spec_cfg)
+                y0_snr = (spec_back(y, self.spec_cfg) - x_ori) * cfg.fixed_snr
+                mu_tn = spec_fwd(x_ori + y0_snr * tn, self.spec_cfg)
+                mu_tn1 = spec_fwd(x_ori + y0_snr * tn1, self.spec_cfg)
+            else:
+                # the SNR-aligned nonlinear bridge: interpolate uncompressed,
+                # compress again (paper Eq. 6)
+                x_b, y_b = spec_back(x, self.spec_cfg), spec_back(y, self.spec_cfg)
+                mu_tn = spec_fwd(x_b * (1 - tn) + y_b * tn, self.spec_cfg)
+                mu_tn1 = spec_fwd(x_b * (1 - tn1) + y_b * tn1, self.spec_cfg)
+            x_tn, x_tn1 = mu_tn + tn * z, mu_tn1 + tn1 * z
+            cond, cond1 = mu_tn, mu_tn1
+        f = forward(x_tn1, tn1[:, 0, 0, 0], cond1)
+        f_m = forward(x_tn, tn[:, 0, 0, 0], cond)
+        return self._consistency_loss(f, f_m)
 
     # -------------------------------------------------------------- sampling
     def get_pc_sampler(self, predictor_name: str, corrector_name: str, y: torch.Tensor,

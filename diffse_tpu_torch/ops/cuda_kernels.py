@@ -17,9 +17,15 @@ device of its input:
   - a CPU tensor takes the plain PyTorch version beside the kernel (the same
     maths as the Pallas kernel's jnp reference);
   - a CUDA tensor launches the kernel, or raises on a dtype, shape or stride
-    the kernel does not take, or when autograd would need a backward (the
-    backward comes with training);
+    the kernel does not take, or when an input requires grad;
   - anything else raises.
+
+Gradients go through ``groupnorm_silu_conv3x3_op`` and ``groupnorm_silu_op``
+(what the model's layers call): ``torch.autograd.Function``s whose forward
+is the wrapper above (the kernel on the card) and whose backward recomputes
+the plain version under autograd, as the JAX package's custom VJP
+(``_gn_silu_conv3x3_bwd``, pallas_kernels.py:544) recomputes its jnp
+reference. With no input needing grad they call the wrapper directly.
 
 ``launch_counts`` counts each wrapper's kernel launches (nowhere else), so a
 run can show that the model went through the kernels;
@@ -76,11 +82,15 @@ conv_config_launches = [0, 0, 0, 0]
 # cuDNN convs' and the dense layers' parameters (models/layers.py
 # cast_params, counted on any device)
 weight_casts = {"gn_silu_conv3x3": 0, "conv": 0, "dense": 0}
+# the differentiable ops' backward passes (each recomputes the plain version
+# and takes its gradient: no hand kernel runs there)
+recompute_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
 
 
 def reset_launch_counts() -> None:
-    """Zero ``launch_counts``, ``conv_config_launches`` and ``weight_casts``."""
-    for counts in (launch_counts, weight_casts):
+    """Zero ``launch_counts``, ``conv_config_launches``, ``weight_casts`` and
+    ``recompute_counts``."""
+    for counts in (launch_counts, weight_casts, recompute_counts):
         for name in counts:
             counts[name] = 0
     conv_config_launches[:] = [0] * len(conv_config_launches)
@@ -122,6 +132,14 @@ CONV_WGMMA_MIN_W = 16
 # a row, at one utterance and at bench.py's 16 (tools/conv_plan_sweep.py
 # --dtype bf16); narrower rows gain at 16 utterances and lose at one.
 CONV_WGMMA_MIN_W_BF16 = 8
+# Float32 K units (live tap, 8-channel chunk) that one block sums on the
+# tensor cores at the most. TF32 mma and wgmma accumulate with truncation,
+# so a chain's error grows with its length and one way: against a float64
+# truth, [4,64,64,512]->256 in one split of 576 units was 10-30x cuDNN's
+# float32 error, and in splits of 64 on a par with it
+# (tools/conv_accuracy.py). A longer K is split, and the reduce pass adds
+# the partial sums in float32.
+CONV_F32_MAX_UNITS = 72
 REDUCE_THREADS = 256      # csrc kReduceThreads
 STATS_THREADS = 512       # csrc kStatsThreads
 STATS_MIN_ELEMS = 8192    # elements a statistics block reads at the least
@@ -253,14 +271,15 @@ def _ws_tiles(b: int, h: int, w: int, cout: int):
 
 def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
                    fill: int = 1, dtype: torch.dtype = torch.float32,
-                   tile: Optional[tuple] = None) -> ConvPlan:
+                   tile: Optional[tuple] = None, max_units: Optional[int] = None) -> ConvPlan:
     """The plan of instantiation ``config`` for ``[b, h, w, cin] -> cout``
     with activations of ``dtype`` that aims at ``fill * SMS`` blocks: the
     position tile with the fewest tiles (then the smallest halo) among those
     whose K split can reach that many, and K cut into as many splits as it
-    takes (one, when the tiles alone reach it, or when ``fill`` is 0). The
-    wgmma.ss tiles are ``_ws_tiles``' (or ``tile``, ``(th, tw)``, for the
-    sweep), and its K splits whole chunks."""
+    takes (one, when the tiles alone reach it, or when ``fill`` is 0), and
+    into ranges of ``max_units`` at the most when given. The wgmma.ss tiles
+    are ``_ws_tiles``' (or ``tile``, ``(th, tw)``, for the sweep), and its K
+    splits whole chunks."""
     bm, bn, _, _, fixed_tw, stages, act_bufs = CONV_CONFIGS[config]
     taps = conv_taps(h, w)
     units = (cin // conv_bk(dtype)) * taps
@@ -291,6 +310,8 @@ def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
     th, tw = next((t for t in tiles if blocks(t) * units >= target), tiles[-1])
     base = blocks((th, tw))
     per = units if base >= target else max(1, units // _cdiv(target, base))
+    if max_units is not None:
+        per = min(per, max_units)
     tiles_h, tiles_w, splits = _cdiv(h, th), _cdiv(w, tw), _cdiv(units, per)
     return ConvPlan(
         config=config, th=th, tw=tw, tiles_h=tiles_h, tiles_w=tiles_w, n_tiles=n_tiles,
@@ -305,9 +326,11 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
               dtype: torch.dtype = torch.float32) -> ConvPlan:
     """The launch plan of ``gn_silu_conv3x3`` for ``[b, h, w, cin] -> cout``
     with activations of ``dtype``: ``conv_config``'s instantiation, with a
-    tile and K split that give every SM a block (``make_conv_plan``)."""
+    tile and K split that give every SM a block (``make_conv_plan``), and in
+    float32 no split longer than ``CONV_F32_MAX_UNITS``."""
     return make_conv_plan(b, h, w, cin, cout, conv_config(b, h, w, cin, cout, dtype),
-                          dtype=dtype)
+                          dtype=dtype,
+                          max_units=CONV_F32_MAX_UNITS if dtype == torch.float32 else None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -536,7 +559,8 @@ def _stream(device: torch.device):
 
 def _require_kernel_inputs(name: str, device: torch.device, dtypes: dict, **tensors) -> None:
     """Check what the kernel takes: each tensor on ``device``, contiguous,
-    16-byte aligned, not needing grad, and of the dtype ``dtypes`` names for
+    16-byte aligned, not needing grad (the differentiable ops call the
+    wrappers with grad off), and of the dtype ``dtypes`` names for
     it (the activations' dtype, or float32 for parameters and biases)."""
     for arg, t in tensors.items():
         if t is None:
@@ -553,8 +577,8 @@ def _require_kernel_inputs(name: str, device: torch.device, dtypes: dict, **tens
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
         if torch.is_grad_enabled() and t.requires_grad:
             raise RuntimeError(
-                f"{name}: {arg} requires grad; the kernel has no backward yet "
-                "(run under torch.no_grad())")
+                f"{name}: {arg} requires grad; the wrapper has no backward (run under "
+                "torch.no_grad(), or call groupnorm_silu_conv3x3_op / groupnorm_silu_op)")
 
 
 def _activation_dtype(name: str, x: torch.Tensor) -> torch.dtype:
@@ -747,6 +771,117 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
     launch_counts["gn_silu_conv3x3"] += 1
     conv_config_launches[plan.config] += 1
     return out
+
+
+# ------------------------------------------------------------- differentiable ops
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (None entries skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _recompute_grads(name: str, ctx, plain, grad_out: torch.Tensor, inputs) -> tuple:
+    """The gradients of ``plain(*inputs)`` (a plain version, recomputed from
+    the saved inputs under autograd) against ``grad_out``, for each input
+    that ``ctx.needs_input_grad`` asks for, None for the others. Each input
+    is its own leaf, so a tensor given twice (an identity skip is ``x``)
+    gets both gradients, which autograd adds; a ``[Cout]`` bias expanded
+    over the batch gets a ``[B, Cout]`` gradient, which the expand's
+    backward sums over the batch. cuDNN's convolutions run in float32 here,
+    as in the forward. Counted in ``recompute_counts[name]``, and marked for
+    the profiler as "<name> backward (recompute)"."""
+    recompute_counts[name] += 1
+    wanted = [t is not None and need for t, need in zip(inputs, ctx.needs_input_grad)]
+    leaves = [None if t is None else t.detach().requires_grad_(want)
+              for t, want in zip(inputs, wanted)]
+    with (torch.profiler.record_function(f"{name} backward (recompute)"), torch.enable_grad(),
+          float32_precision(grad_out.device)):
+        out = plain(*leaves)
+        grads = iter(torch.autograd.grad(out, [t for t, want in zip(leaves, wanted) if want],
+                                         grad_out))
+    return tuple(next(grads) if want else None for want in wanted)
+
+
+class GroupNormSiLUConv3x3(torch.autograd.Function):
+    """``groupnorm_silu_conv3x3`` with a gradient: the counterpart of the
+    JAX package's ``_gn_silu_conv3x3_vjp`` (pallas_kernels.py:524-559). The
+    forward runs the wrapper (the kernel on the card) and saves only the
+    inputs, ``_gn_silu_conv3x3_fwd``'s residuals; the backward recomputes
+    ``groupnorm_silu_conv3x3_reference`` and takes its gradients with respect
+    to x, gn_scale, gn_bias, the float32 w (through the bf16 rounding of a
+    bf16 x, as ``w.astype(compute_dtype)`` in JAX), bias_total and skip.
+    ``w_packed`` is a copy of w for the bf16 kernel and carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, w, bias_total, skip, w_packed, num_groups, eps,
+                skip_coef):
+        ctx.save_for_backward(x, gn_scale, gn_bias, w, bias_total, skip)
+        ctx.settings = (num_groups, eps, skip_coef)
+        return groupnorm_silu_conv3x3(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
+                                      skip, skip_coef, w_packed)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        num_groups, eps, skip_coef = ctx.settings
+
+        def plain(x, gn_scale, gn_bias, w, bias_total, skip):
+            return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
+                                                    num_groups, eps, skip, skip_coef)
+
+        grads = _recompute_grads("gn_silu_conv3x3", ctx, plain, grad_out, ctx.saved_tensors)
+        return (*grads, None, None, None, None)
+
+
+class GroupNormSiLU(torch.autograd.Function):
+    """``groupnorm_silu`` with a gradient. The JAX package gives K3 no custom
+    VJP: its gradient is that of ``_groupnorm_silu_jnp``
+    (pallas_kernels.py:195), the same function. The forward runs the wrapper
+    and saves the inputs; the backward recomputes
+    ``groupnorm_silu_reference`` and takes its gradients with respect to x,
+    scale and bias."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu, out_dtype):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.settings = (num_groups, eps, apply_silu, out_dtype)
+        return groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        num_groups, eps, apply_silu, out_dtype = ctx.settings
+
+        def plain(x, scale, bias):
+            return groupnorm_silu_reference(x, scale, bias, num_groups, eps, apply_silu,
+                                            out_dtype)
+
+        grads = _recompute_grads("groupnorm_silu", ctx, plain, grad_out, ctx.saved_tensors)
+        return (*grads, None, None, None, None)
+
+
+def groupnorm_silu_conv3x3_op(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+                              w: torch.Tensor, bias_total: torch.Tensor, num_groups: int,
+                              eps: float = 1e-6, skip: Optional[torch.Tensor] = None,
+                              skip_coef: float = 1.0,
+                              w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``groupnorm_silu_conv3x3`` (same arguments) that autograd can
+    differentiate (``GroupNormSiLUConv3x3``); the wrapper itself when no
+    input needs a gradient (under ``torch.no_grad()``, for one)."""
+    if not needs_grad(x, gn_scale, gn_bias, w, bias_total, skip):
+        return groupnorm_silu_conv3x3(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
+                                      skip, skip_coef, w_packed)
+    return GroupNormSiLUConv3x3.apply(x, gn_scale, gn_bias, w, bias_total, skip, w_packed,
+                                      num_groups, eps, skip_coef)
+
+
+def groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      num_groups: int, eps: float = 1e-6, apply_silu: bool = True,
+                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``groupnorm_silu`` (same arguments) that autograd can differentiate
+    (``GroupNormSiLU``); the wrapper itself when no input needs a gradient."""
+    if not needs_grad(x, scale, bias):
+        return groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
+    return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
 
 
 def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,

@@ -3,7 +3,8 @@ and ``groupnorm_silu`` call of one forward of the 65M NCSN++ (F=256), at
 T=64 frames; at T=128 and T=192 every width W scales by 2 and 3, and the
 calls per forward stay the same. The batch and the activations' dtype come
 from the run (``RUNS``): the float32 enhance paths take one utterance at a
-time, the bf16 trunk one utterance or bench.py's batch of 16 at 64 frames.
+time, the bf16 trunk one utterance or bench.py's batch of 16 at 64 frames,
+and training (``TRAIN_RUNS``) a batch of 4 crops of 256 frames.
 
 The launch plans are held to these shapes on the CPU
 (tests/test_torch_conv_plan.py) and timed at them on the card
@@ -20,6 +21,13 @@ BENCH_FRAMES = 64
 # (batch, frames, activation dtype) of the main path's forwards
 RUNS = [(1, 64, torch.float32), (1, 128, torch.float32), (1, 192, torch.float32),
         (1, 64, torch.bfloat16), (BENCH_BATCH, BENCH_FRAMES, torch.bfloat16)]
+# training (the JAX package's command line: --batch_size 4 --num_frames 256):
+# square maps from [256, 256] at level 0 to [4, 4] at the deepest, forward
+# and, through the ops' recompute, backward; in float32 and the bf16 trunk
+TRAIN_BATCH = 4
+TRAIN_FRAMES = 256
+TRAIN_RUNS = [(TRAIN_BATCH, TRAIN_FRAMES, torch.float32),
+              (TRAIN_BATCH, TRAIN_FRAMES, torch.bfloat16)]
 
 # (H, W, Cin, Cout, calls per forward) of gn_silu_conv3x3, with and without skip
 CONV_SHAPES_T64 = [

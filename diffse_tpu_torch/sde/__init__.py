@@ -58,6 +58,12 @@ class SDE(abc.ABC):
     def _std(self, t) -> torch.Tensor:
         ...
 
+    @staticmethod
+    def add_argparse_args(parser):
+        """The SDE's command-line flags (the JAX package's names and
+        defaults); none for the base class."""
+        return parser
+
     def prior_sampling(self, noise: NoiseFn, y: torch.Tensor):
         """x_T = y + z * std(T) with z = noise(y). Returns (x_T, z)."""
         t = torch.full((y.shape[0],), self.T, dtype=torch.float32, device=y.device)
@@ -193,6 +199,16 @@ class OUVESDE(SDE):
         alpha = torch.exp(-self.theta * t)
         return alpha, 1.0 - alpha
 
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--sde-n", dest="N", type=int, default=1000,
+                            help="The number of timesteps in the SDE discretization.")
+        parser.add_argument("--theta", type=float, default=1.5,
+                            help="The constant stiffness of the Ornstein-Uhlenbeck process.")
+        parser.add_argument("--sigma-min", dest="sigma_min", type=float, default=0.05)
+        parser.add_argument("--sigma-max", dest="sigma_max", type=float, default=0.5)
+        return parser
+
 
 @SDERegistry.register("bbed")
 @dataclasses.dataclass(frozen=True)
@@ -243,6 +259,18 @@ class BBED(SDE):
     def mean_coeffs(self, t):
         beta = t / self.Tc
         return 1.0 - beta, beta
+
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--sde-n", dest="N", type=int, default=30,
+                            help="The number of timesteps in the SDE discretization.")
+        parser.add_argument("--T_sampling", type=float, default=0.999,
+                            help="The T so that t < T during sampling in the train step.")
+        parser.add_argument("--k", type=float, default=2.6,
+                            help="base factor for diffusion term")
+        parser.add_argument("--theta", type=float, default=0.52,
+                            help="root scale factor for diffusion term.")
+        return parser
 
 
 @SDERegistry.register("proposed_1")
@@ -296,6 +324,15 @@ class PROPOSED_1(SDE):
     def mean_coeffs(self, t):
         beta = t / self.Tc
         return 1.0 - beta, beta
+
+    @staticmethod
+    def add_argparse_args(parser):
+        parser.add_argument("--sde-n", dest="N", type=int, default=1000)
+        parser.add_argument("--T_sampling", type=float, default=0.99)
+        parser.add_argument("--sigma-min", dest="sigma_min", type=float, default=1.0)
+        parser.add_argument("--sigma-max", dest="sigma_max", type=float, default=1.0)
+        parser.add_argument("--theta", type=float, default=0.53)
+        return parser
 
 
 __all__ = ["SDERegistry", "SDE", "ReverseSDE", "OUVESDE", "BBED", "PROPOSED_1"]

@@ -1,0 +1,186 @@
+"""The training loop (port of diffse_tpu/train/loop.py's ``train_score_model``):
+
+  - epochs over the threaded DataLoader, one eager optimizer step per batch
+    (``train/steps.py``), ``max_steps_per_epoch`` and ``log_every_n_steps``;
+  - ``accum_steps`` consecutive batches stacked into one update
+    (``_stack_groups``);
+  - validation loss on the EMA weights every ``eval_every_n_epochs`` epochs
+    (and on the last), then a checkpoint ranked by its metrics;
+  - ``resume`` from the latest checkpoint, continuing the epoch numbering;
+  - SIGTERM: a checkpoint, then a clean return (``_PreemptionGuard``).
+
+The enhancement metrics of each validation (``evaluate_model``,
+``deep_evaluate_model``: PESQ, SI-SDR, ESTOI) need the evaluation package,
+which is not ported yet (ROADMAP.md queue 1, item 3): the loop raises when
+``num_eval_files`` asks for them. Nor are ``chain_steps`` and the device
+mesh (``tp_size``).
+"""
+
+from __future__ import annotations
+
+import signal
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .checkpoints import CheckpointManager
+from .logging import MetricsLogger
+from .state import TrainState, eval_variables
+from .steps import make_eval_step, make_train_step
+
+SCORE_MONITORS = ({"monitor": "pesq", "mode": "max", "top_k": 10},
+                  {"monitor": "si_sdr", "mode": "max", "top_k": 2})
+
+
+class _PreemptionGuard:
+    """While installed, SIGTERM sets a flag instead of killing the process;
+    the loop checks it after each step, saves a checkpoint and returns, so
+    that ``resume`` continues from it. Outside the main thread (where no
+    handler can be installed) the loop runs unguarded."""
+
+    def __init__(self):
+        self.triggered = False
+        self._prev = None
+        self._installed = False
+
+    def __enter__(self):
+        try:
+            self._prev = signal.signal(signal.SIGTERM, self._on_signal)
+            self._installed = True
+        except ValueError:
+            self._installed = False
+        return self
+
+    def _on_signal(self, signum, frame):
+        self.triggered = True
+
+    def __exit__(self, *exc):
+        if self._installed:
+            # getsignal() gives None for a handler installed outside Python
+            prev = self._prev if self._prev is not None else signal.SIG_DFL
+            signal.signal(signal.SIGTERM, prev)
+        return False
+
+
+def _stack_groups(loader, k: int):
+    """Group k consecutive loader batches into one with a leading microbatch
+    axis (k, b, ...) for gradient accumulation. A trailing group that is
+    incomplete or ragged (the epoch's short last batch) is dropped."""
+    buf = []
+    for b in loader:
+        buf.append(b)
+        if len(buf) == k:
+            uniform = all(np.shape(bb[i]) == np.shape(buf[0][i])
+                          for bb in buf for i in range(len(buf[0])))
+            if uniform:
+                yield tuple(np.stack([np.asarray(bb[i]) for bb in buf])
+                            for i in range(len(buf[0])))
+            buf = []
+
+
+def eval_model_type(snr_conditioned: str, model_type: str) -> str:
+    """(snr_conditioned, model_type) -> the evaluation's branch name."""
+    if snr_conditioned == "false":
+        return model_type
+    if snr_conditioned == "fixed":
+        return f"{model_type}_fixed"
+    if snr_conditioned == "true":
+        return f"{model_type}_snr"
+    raise ValueError(snr_conditioned)
+
+
+def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[str] = None,
+                      logger: Optional[MetricsLogger] = None, seed: int = 0,
+                      log_every_n_steps: int = 10, resume: bool = False,
+                      max_steps_per_epoch: Optional[int] = None, variables: Optional[dict] = None,
+                      accum_steps: int = 1, eval_every_n_epochs: int = 1, chain_steps: int = 1,
+                      tp_size: int = 1) -> TrainState:
+    """Train ``model`` (a ScoreModel) on ``data_module``'s batches; returns
+    the final ``TrainState``.
+
+    ``variables``: a state_dict to start the backbone from (default: its
+    weights as constructed). ``seed`` seeds the loss's draws (a generator on
+    the model's device). ``accum_steps`` > 1 averages the gradients of that
+    many consecutive batches into each update. ``eval_every_n_epochs`` runs
+    validation and the checkpoint only every k-th epoch, and always on the
+    last. The checkpoint keys are epochs, and a resumed run goes on from the
+    latest one's next epoch, so that keys keep increasing.
+    """
+    cfg = model.cfg
+    if cfg.num_eval_files != 0:
+        raise NotImplementedError(
+            f"num_eval_files={cfg.num_eval_files}: the enhancement metrics of validation "
+            "need the evaluation package, which is not ported yet (ROADMAP.md queue 1, "
+            "item 3); pass num_eval_files=0 (--num_eval_files 0)")
+    if chain_steps != 1 or tp_size != 1:
+        raise NotImplementedError("chain_steps and tp_size are not ported: one device, one "
+                                  "update per step")
+    logger = logger or MetricsLogger()
+    data_module.setup("fit")
+    if variables is not None:
+        model.backbone.load_state_dict(variables)
+    state = TrainState(model.backbone, lr=cfg.lr, ema_decay=cfg.ema_decay)
+    train_step = make_train_step(model, preprocess=model.prepare_batch, accum_steps=accum_steps)
+    valid_step = make_eval_step(model, preprocess=model.prepare_batch)
+    generator = torch.Generator(model.device).manual_seed(seed)
+
+    ckpt_mgr, start_epoch = None, 0
+    if ckpt_dir:
+        ckpt_mgr = CheckpointManager(ckpt_dir, monitors=SCORE_MONITORS, hparams=model.hparams)
+        if resume and ckpt_mgr.latest_step() is not None:
+            ckpt_mgr.restore(state)
+            start_epoch = ckpt_mgr.latest_step() + 1
+
+    def _preempt_exit(epoch):
+        if ckpt_mgr is not None:
+            print(f"SIGTERM: checkpointing at step {state.step} and exiting "
+                  "(resume with --resume)")
+            ckpt_mgr.save(epoch, state, {})
+        else:
+            print(f"SIGTERM: exiting at step {state.step} (no --ckpt_dir, nothing checkpointed)")
+        return state
+
+    warned_empty_epoch = False
+    with _PreemptionGuard() as guard:
+        for epoch in range(start_epoch, max_epochs):
+            loader = data_module.train_dataloader()
+            if accum_steps > 1:
+                loader = _stack_groups(loader, accum_steps)
+            stepped = False
+            for i, batch in enumerate(loader):
+                if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                    break
+                stepped = True
+                state, metrics = train_step(state, batch, generator)
+                if guard.triggered:
+                    return _preempt_exit(epoch)
+                if i % log_every_n_steps == 0:
+                    logger.log({"epoch": epoch, "train_loss": metrics["train_loss"]},
+                               step=state.step)
+            if not stepped and not warned_empty_epoch:
+                warned_empty_epoch = True
+                print(f"warning: epoch {epoch} produced no training steps: the dataset yields "
+                      f"fewer than accum_steps (= {accum_steps}) batches per epoch")
+            if guard.triggered:  # SIGTERM while the batches were fetched
+                return _preempt_exit(epoch)
+
+            if (epoch + 1) % eval_every_n_epochs != 0 and epoch != max_epochs - 1:
+                continue  # off-cadence epoch: no validation, no save
+
+            ev = eval_variables(state)
+            val_losses = [float(valid_step(ev, batch, generator)["valid_loss"])
+                          for batch in data_module.val_dataloader()]
+            epoch_metrics = {"valid_loss": float(np.mean(val_losses))} if val_losses else {}
+            sanitized = {k: v for k, v in epoch_metrics.items() if np.isfinite(v)}
+            logger.log({"epoch": epoch, **sanitized}, step=state.step)
+            if ckpt_mgr is not None:
+                ckpt_mgr.save(epoch, state, sanitized)
+            if guard.triggered:
+                print(f"SIGTERM during validation: exiting after the epoch-{epoch} checkpoint "
+                      "(resume with --resume)")
+                return state
+
+    if ckpt_mgr is not None:
+        logger.log_artifact(ckpt_dir, name="score_model")
+    return state

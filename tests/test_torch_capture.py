@@ -454,6 +454,7 @@ def test_fir_filter_and_cast_weights_are_not_made_in_a_capture(capturing):
     class CardParam:
         device = torch.device("cuda", 0)
         _version = 0
+        requires_grad = False  # the cached cast is for weights autograd does not record
 
         def data_ptr(self):
             return 4096

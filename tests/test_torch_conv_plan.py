@@ -16,7 +16,8 @@ import torch.nn.functional as F
 
 from diffse_tpu_torch.ops import cuda_kernels as ck
 from diffse_tpu_torch.ops.main_path_shapes import (BENCH_BATCH, BENCH_FRAMES, CONV_SHAPES_T64,
-                                                   FRAMES, GN_SHAPES_T64, RUNS, at_frames)
+                                                   FRAMES, GN_SHAPES_T64, RUNS, TRAIN_RUNS,
+                                                   at_frames)
 
 torch.set_num_threads(2)
 
@@ -93,6 +94,49 @@ def test_conv_plan_bf16_fills_the_card_and_covers_once(batch, frames, shape):
         assert plan.splits == 1
 
 
+# training's forwards: a batch of 4 crops of 256 frames (square maps), in
+# float32 and bf16
+TRAIN_CONV_CASES = [(b, t, dtype, s[:4]) for b, t, dtype in TRAIN_RUNS
+                    for s in at_frames(t, CONV_SHAPES_T64)]
+
+
+@pytest.mark.parametrize("batch,frames,dtype,shape", TRAIN_CONV_CASES,
+                         ids=[f"B{b}-T{t}-{str(d)[6:]}-{'x'.join(map(str, s))}"
+                              for b, t, d, s in TRAIN_CONV_CASES])
+def test_conv_plan_at_the_training_shapes(batch, frames, dtype, shape):
+    """Every conv shape of a training forward has a plan that covers it once,
+    fits the shared memory and gives every SM a block."""
+    plan = _check_conv_plan(batch, *shape, dtype)
+    assert plan.config == ck.conv_config(batch, *shape, dtype)
+    assert plan.ctas >= ck.SMS, plan
+
+
+ALL_RUNS = RUNS + TRAIN_RUNS + [(BENCH_BATCH, BENCH_FRAMES, torch.float32)]
+
+
+def test_float32_plans_keep_k_ranges_short():
+    """In float32 no block sums more than ``CONV_F32_MAX_UNITS`` K units on
+    the tensor cores (their truncating accumulation drifts with the chain's
+    length), at every shape of every run; the bf16 plans are the rule's
+    without that cap."""
+    for b, t, dtype in ALL_RUNS:
+        for shape in at_frames(t, CONV_SHAPES_T64):
+            h, w, cin, cout = shape[:4]
+            plan = ck.conv_plan(b, h, w, cin, cout, dtype)
+            uncapped = ck.make_conv_plan(b, h, w, cin, cout, plan.config, dtype=dtype)
+            if dtype == torch.float32:
+                assert plan.units_per_split <= ck.CONV_F32_MAX_UNITS, (b, t, shape, plan)
+                assert plan.splits >= uncapped.splits
+            else:
+                assert plan == uncapped
+
+
+@pytest.mark.parametrize("shape", at_frames(TRAIN_RUNS[0][1], GN_SHAPES_T64),
+                         ids=["x".join(map(str, s)) for s in at_frames(256, GN_SHAPES_T64)])
+def test_stats_plan_covers_once_at_the_training_shapes(shape):
+    _check_stats_plan(TRAIN_RUNS[0][0], *shape)
+
+
 @pytest.mark.parametrize("h,w,cout,config", [
     (4, 1, 256, ck.CONV_MMA), (4, 3, 256, ck.CONV_MMA), (16, 12, 256, ck.CONV_MMA),
     (32, 8, 256, ck.CONV_MMA), (1, 64, 256, ck.CONV_MMA), (64, 16, 256, ck.CONV_WGMMA),
@@ -103,6 +147,49 @@ def test_conv_config_by_map_and_cout(h, w, cout, config):
     nine taps the wgmma kernel; the rest (a map of height 1 too) mma.sync."""
     assert ck.conv_config(1, h, w, 256, cout) == config
     assert ck.conv_plan(1, h, w, 256, cout).config == config
+
+
+# training's forwards: a batch of 4 crops of 256 frames (square maps), in
+# float32 and bf16
+TRAIN_CONV_CASES = [(b, t, dtype, s[:4]) for b, t, dtype in TRAIN_RUNS
+                    for s in at_frames(t, CONV_SHAPES_T64)]
+
+
+@pytest.mark.parametrize("batch,frames,dtype,shape", TRAIN_CONV_CASES,
+                         ids=[f"B{b}-T{t}-{str(d)[6:]}-{'x'.join(map(str, s))}"
+                              for b, t, d, s in TRAIN_CONV_CASES])
+def test_conv_plan_at_the_training_shapes(batch, frames, dtype, shape):
+    """Every conv shape of a training forward has a plan that covers it once,
+    fits the shared memory and gives every SM a block."""
+    plan = _check_conv_plan(batch, *shape, dtype)
+    assert plan.config == ck.conv_config(batch, *shape, dtype)
+    assert plan.ctas >= ck.SMS, plan
+
+
+ALL_RUNS = RUNS + TRAIN_RUNS + [(BENCH_BATCH, BENCH_FRAMES, torch.float32)]
+
+
+def test_float32_plans_keep_k_ranges_short():
+    """In float32 no block sums more than ``CONV_F32_MAX_UNITS`` K units on
+    the tensor cores (their truncating accumulation drifts with the chain's
+    length), at every shape of every run; the bf16 plans are the rule's
+    without that cap."""
+    for b, t, dtype in ALL_RUNS:
+        for shape in at_frames(t, CONV_SHAPES_T64):
+            h, w, cin, cout = shape[:4]
+            plan = ck.conv_plan(b, h, w, cin, cout, dtype)
+            uncapped = ck.make_conv_plan(b, h, w, cin, cout, plan.config, dtype=dtype)
+            if dtype == torch.float32:
+                assert plan.units_per_split <= ck.CONV_F32_MAX_UNITS, (b, t, shape, plan)
+                assert plan.splits >= uncapped.splits
+            else:
+                assert plan == uncapped
+
+
+@pytest.mark.parametrize("shape", at_frames(TRAIN_RUNS[0][1], GN_SHAPES_T64),
+                         ids=["x".join(map(str, s)) for s in at_frames(256, GN_SHAPES_T64)])
+def test_stats_plan_covers_once_at_the_training_shapes(shape):
+    _check_stats_plan(TRAIN_RUNS[0][0], *shape)
 
 
 @pytest.mark.parametrize("h,w,cout,config", [

@@ -136,18 +136,20 @@ def cuda():
     return torch.device("cuda")
 
 
-# The main path's conv shapes: the large levels (wgmma; at T=192 with all of
-# K in one block), the deep ones (K split across blocks), the latency-bound
-# middle levels, [1,16,12,256]->256 whose split does not divide K, a W=1 head
-# (dead taps, Cout=4), and the wgmma kernel on partial tiles (H, W not
-# multiples of the tile), a batch of two and an uneven split.
+# The main path's conv shapes: the large levels (wgmma; K in ranges of at
+# most CONV_F32_MAX_UNITS), the deep ones (K split across blocks), the
+# latency-bound middle levels, [1,16,12,256]->256 whose split does not divide
+# K, a W=1 head (dead taps, Cout=4), and the wgmma kernel on partial tiles
+# (H, W not multiples of the tile), a batch of two and an uneven split; and
+# [8,64,64,64]->128, whose 72 units and 256 tiles keep all of K in one block
+# (the kernel's own epilogue).
 GPU_CONV_SHAPES = [(1, 256, 64, 128, 128), (1, 256, 192, 128, 128), (1, 128, 32, 384, 128),
                    (1, 256, 64, 128, 4),
                    (1, 16, 4, 256, 256), (1, 8, 2, 256, 256), (1, 4, 1, 256, 256),
                    (1, 16, 12, 512, 256), (1, 8, 6, 256, 256), (1, 4, 3, 256, 256),
                    (1, 32, 16, 256, 256), (1, 32, 24, 256, 256), (1, 64, 32, 256, 256),
                    (1, 16, 12, 256, 256), (1, 4, 1, 256, 4), (1, 5, 96, 128, 128),
-                   (2, 8, 64, 128, 128), (1, 5, 40, 64, 128)]
+                   (2, 8, 64, 128, 128), (1, 5, 40, 64, 128), (8, 64, 64, 64, 128)]
 
 
 def test_gpu_conv_shapes_include_an_uneven_split():
