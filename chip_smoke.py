@@ -8,7 +8,9 @@ Phases, each of which must pass:
 1. Print the card's name and power limit, then build the CUDA kernels from
    ``diffse_tpu_torch/csrc`` (nvcc, sm_90a) and print the build time.
 2. Hold each GroupNorm kernel to its plain PyTorch version on the card (TF32
-   off for cuDNN and matmul) at the main path's shapes; print errors, median
+   off for cuDNN and matmul) at the main path's shapes, those at B=1 and
+   the serving chunk program's at B=16 (``BATCH16_K1_SHAPES``, whose launch
+   plans follow the batch); print errors, median
    times over CUDA events, the bound and, where one PyTorch call computes
    the same function, that call's time. For the conv, print its launch plan
    (``conv_plan``) and both bounds: float32 on the CUDA cores and 3xTF32 on
@@ -75,10 +77,9 @@ Phases, each of which must pass:
    accept/reject flip is reported as one) and the waveform within
    ``ODE_WAVEFORM_TOL``. Each part's kernel runs on the card.
 6. The bf16 kernels (the trunk of ``NCSNpp(dtype="bf16")``): each against its
-   plain version on the card at phase 2's shapes and at bench.py's batch of
-   16 at 64 frames (the large level with and without skip, the deep levels,
-   the heads; GroupNorm bf16 -> bf16 and bf16 -> float32; the statistics
-   pass), within one bfloat16 ulp but on at most ``BF16_SHARE`` of the
+   plain version on the card at phase 2's shapes, bench.py's batch of 16 at
+   64 frames among them (GroupNorm bf16 -> bf16 and bf16 -> float32; the
+   statistics pass), within one bfloat16 ulp but on at most ``BF16_SHARE`` of the
    elements (``bf16_agreement``), with each conv shape's plan (the
    packed-weight ``wgmma.ss`` kernel where the plan sends it, given
    ``pack_conv_weight_bf16``'s weight as the model gives it), times, bounds
@@ -137,6 +138,29 @@ Phases, each of which must pass:
    port's wavio: one epoch of 2 steps into a checkpoint, ``--resume`` for a
    second, and ``load_score_model`` on the result.
 
+10. Serving ("serve"): ``EnhanceService`` (``ServiceConfig`` defaults: chunk
+   64, overlap 2, batch 16, flights of 16, 25 ms linger) behind the HTTP
+   front (``make_server``) on the 65.6M bbed model (weights redrawn from
+   seed 13, float32 trunk) with the certified sampler ``rd_ald_logit_N20``:
+   8 client threads POST 2 WAVs each (0.6 to 3.0 s); every answer 200, of
+   its input's length and finite; ``/healthz`` and ``/stats``; flights,
+   chunk batches and their occupancy, the chunk program's capture time on
+   the first flight and the card memory kept, the service's wall per flight
+   and audio seconds per second, p50/p95/p99 latency, and the kernel runs
+   (one capture: 81 / 28 a forward, 40 forwards a batch). Then stage 2 of
+   one chunk batch under ``set_sync_debug_mode("error")``, its replay
+   against the eager run on the same generator state (``GRAPH_TOL``,
+   bitwise printed); packed (batch 16, utterances split across batches)
+   against each utterance alone on ``sebridge`` (``PACKING_TOL``);
+   ``eval_enhance_file`` over more width buckets than the model keeps
+   programs (``PROGRAMS_KEPT``), with the card memory reserved after each;
+   a 1-NFE ``sebridge_v3_snr`` flight (redrawn SNRNet) of one full batch of
+   the service's 16 chunks on the card against the CPU with the same draws
+   (``WAVEFORM_TOL``); and
+   ``python -m diffse_tpu_torch.cli.serve`` (``main(block=False)``) on
+   checkpoints that the port's ``CheckpointManager`` wrote, with
+   ``--snr_ckpt``, answering one POST.
+
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
 
@@ -192,10 +216,22 @@ K2_SHAPES = [  # the deep levels at T=64, then at T=192 (odd widths, the concat)
     (1, 16, 12, 512, 256, False), (1, 8, 6, 256, 256, True), (1, 4, 3, 256, 256, False),
     (1, 32, 16, 256, 256, False), (1, 32, 24, 256, 256, False), (1, 64, 32, 256, 256, False),
 ]
+# bench.py's and the serving chunk program's batch of 16 at 64 frames (the
+# launch plans follow the batch): the large level (with and without skip),
+# the 384-channel concat, the heads, a W = 8 level and the deep levels (K
+# split across blocks)
+BATCH16_K1_SHAPES = [
+    (16, 256, 64, 128, 128, False), (16, 256, 64, 128, 128, True), (16, 128, 32, 384, 128, False),
+    (16, 256, 64, 128, 4, False), (16, 32, 8, 512, 256, False),
+    (16, 16, 4, 256, 256, False), (16, 8, 2, 256, 256, False),
+    (16, 4, 1, 256, 256, False), (16, 16, 4, 512, 256, False), (16, 8, 2, 256, 256, True),
+    (16, 4, 1, 256, 4, False)]
+BATCH16_K3_SHAPES = [(16, 256, 64, 128), (16, 16, 4, 256)]
 FORWARD_FRAMES = (64, 128, 192)
-K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256)]
+K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256)] + BATCH16_K3_SHAPES
 # the statistics pass alone: K3's shapes, the largest map (T=192) and a small one
-STATS_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256), (1, 256, 192, 128), (1, 16, 12, 256)]
+STATS_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256), (1, 256, 192, 128),
+                (1, 16, 12, 256)] + BATCH16_K3_SHAPES
 K4_SHAPES = [((1, 256, 64, 128), "float32"), ((16, 512), "float32"), ((3, 7, 5, 6), "float32"),
              ((1, 256, 64, 128), "bfloat16")]
 # K4, kernel vs plain version: float32 is the same few operations in the same
@@ -219,17 +255,8 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
 
-# bf16 kernels (phase 6): phase 2's conv shapes, then bench.py's batch of 16
-# at 64 frames: the large level (with and without skip), the 384-channel
-# concat, the heads, a W = 8 level (wgmma in bf16) and the deep levels (K
-# split across blocks).
-BF16_K1_SHAPES = K1_SHAPES + K2_SHAPES + [
-    (16, 256, 64, 128, 128, False), (16, 256, 64, 128, 128, True), (16, 128, 32, 384, 128, False),
-    (16, 256, 64, 128, 4, False), (16, 32, 8, 512, 256, False),
-    (16, 16, 4, 256, 256, False), (16, 8, 2, 256, 256, False),
-    (16, 4, 1, 256, 256, False), (16, 16, 4, 512, 256, False), (16, 8, 2, 256, 256, True),
-    (16, 4, 1, 256, 4, False)]
-BF16_K3_SHAPES = [(1, 256, 64, 128), (1, 128, 32, 256), (16, 256, 64, 128), (16, 16, 4, 256)]
+# bf16 kernels (phase 6): phase 2's conv shapes (at W = 8 wgmma in bf16)
+BF16_K1_SHAPES = K1_SHAPES + K2_SHAPES + BATCH16_K1_SHAPES
 BF16_STATS_SHAPES = [(1, 256, 64, 128), (16, 256, 64, 128), (16, 16, 4, 256)]
 BF16_REPORT_CONV = (16, 256, 64, 128, 128, True)   # the wgmma.ss kernel's line
 BF16_REPORT_DEEP = (16, 16, 4, 512, 256, False)    # the other bf16 instantiations'
@@ -352,6 +379,30 @@ TRAIN_CONV_SHAPES = [(4, 256, 256, 128, 128, True), (4, 256, 256, 128, 4, False)
 TRAIN_GN_SHAPES = [(4, 256, 256, 128), (4, 8, 8, 256)]
 # the CLI's data: crops of 2.5 s, 8 training pairs (2 batches of 4), 2 valid
 CLI_SECONDS, CLI_TRAIN_FILES, CLI_VALID_FILES = 2.5, 8, 2
+# phase 10 ("serve"): the service over HTTP on the 65.6M bbed model (weights
+# redrawn from seed 13, float32 trunk) with the certified serving sampler
+# rd_ald_logit_N20 (reverse_diffusion + ald on the logit grid, N = 20: 40
+# forwards a chunk batch); 8 client threads send 2 requests each, request k
+# of SERVE_SECONDS[k % 8] seconds
+SERVE_SAMPLER = {"timestep_type": "logit", "N": 20}
+SERVE_FORWARDS = 40
+SERVE_SECONDS = (0.6, 1.0, 1.4, 1.8, 2.0, 2.2, 2.6, 3.0)
+SERVE_CLIENTS, SERVE_REQUESTS_EACH = 8, 2
+# the chunk batch replayed against the eager run, and run under
+# set_sync_debug_mode("error"): 1.4 + 1.8 + 2.0 s, 12 chunks and 4 padding rows
+SERVE_CHECK_SECONDS = (1.4, 1.8, 2.0)
+# packed (batch 16, utterances split across batches) vs each utterance alone
+# (a batch of its own chunks), sebridge: the rows' computation is the same,
+# but the conv's launch plan (and so its sum order) follows the batch, so
+# the waveforms are held as the card holds the forward to the CPU
+PACKING_TOL = 1e-4
+# eval_enhance_file on sebridge, one utterance in each of 6 width buckets (64
+# to 384 frames): more buckets than the model keeps programs
+SERVE_BUCKET_SECONDS = (0.45, 0.9, 1.4, 1.9, 2.4, 3.0)
+# the 1-NFE sebridge_v3_snr flight, card vs CPU: 0.6 + 1.0 + 1.4 + 1.8 + 2.0
+# s, 16 chunks, one batch of the service's 16 (the served batches' launch
+# plans)
+SERVE_CPU_SECONDS = (0.6, 1.0, 1.4, 1.8, 2.0)
 # gn_silu_conv3x3's instantiations (ops/cuda_kernels.py CONV_CONFIGS), by id
 # what the JSON line's launches count
 LAUNCHES_COUNTED = ("kernel runs on the card: eager launches, and each captured program's "
@@ -444,7 +495,7 @@ def check_kernels(torch, ck, dev):
 
     result = {"gn_silu_conv3x3": {"max_abs_err": 0.0}, "groupnorm_silu": {"max_abs_err": 0.0}}
     failures = []
-    for b, h, w, cin, cout, with_skip in K1_SHAPES + K2_SHAPES:
+    for b, h, w, cin, cout, with_skip in K1_SHAPES + K2_SHAPES + BATCH16_K1_SHAPES:
         x = t(rng.standard_normal((b, h, w, cin)))
         gs = t(1 + 0.1 * rng.standard_normal(cin))
         gb = t(0.1 * rng.standard_normal(cin))
@@ -665,7 +716,7 @@ def check_bf16_kernels(torch, ck, dev):
             failures.append(name)
     if "ms" not in result["gn_silu_conv3x3_ws"]:
         failures.append(f"{BF16_REPORT_CONV} is not planned on the wgmma.ss kernel")
-    for shape in BF16_K3_SHAPES:
+    for shape in K3_SHAPES:
         b, h, w, c = shape
         x = t(2 * rng.standard_normal(shape) + 1, torch.bfloat16)
         sc = t(1 + 0.1 * rng.standard_normal(c))
@@ -2132,6 +2183,312 @@ def run_training(torch, ck, dev):
     return f32, {"training, bf16 trunk step (eager)": bf16["path"]}
 
 
+def serve_wavs(seconds, seed):
+    """Phase 10's noisy utterances of ``seconds`` each (synthetic_pair)."""
+    rng = np.random.default_rng(seed)
+    return [synthetic_pair(rng, int(s * SR))[1] for s in seconds]
+
+
+def http_clients(base, wavs):
+    """``SERVE_CLIENTS`` threads, client c POSTing requests c, c + 8, ...
+    (float32 WAV) one after another, all clients starting together. A 503
+    is retried after its Retry-After, as a client of the service would.
+    Returns each request's (status, output or None, latency, 503s retried)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from diffse_tpu_torch.data.wavio import parse_wav, wav_bytes
+
+    results = [None] * len(wavs)
+    bodies = [wav_bytes(w, SR, subtype="float32") for w in wavs]
+    start = threading.Barrier(SERVE_CLIENTS)
+
+    def client(c):
+        start.wait(timeout=60)
+        for k in range(c, len(wavs), SERVE_CLIENTS):
+            t0, retried = time.perf_counter(), 0
+            while True:
+                req = urllib.request.Request(base + "/enhance", data=bodies[k], method="POST")
+                try:
+                    with urllib.request.urlopen(req, timeout=600) as r:
+                        results[k] = (r.status, parse_wav(r.read())[0][0],
+                                      time.perf_counter() - t0, retried)
+                    break
+                except urllib.error.HTTPError as e:
+                    if e.code != 503 or retried == 3:
+                        results[k] = (e.code, None, time.perf_counter() - t0, retried)
+                        break
+                    retried += 1
+                    time.sleep(float(e.headers["Retry-After"]))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: an HTTP client did not finish in 900 s")
+    return results
+
+
+def run_serving(torch, ck, dev):
+    """Phase 10 ("serve"): EnhanceService behind the HTTP front on the card,
+    its chunk program against the eager run, packing against each utterance
+    alone, the eval programs' bound, a 1-NFE flight against the CPU, stage 2
+    under set_sync_debug_mode("error"), and ``python -m
+    diffse_tpu_torch.cli.serve``.
+    Returns the serving paths' kernel runs."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from diffse_tpu_torch.cli import serve as serve_cli
+    from diffse_tpu_torch.data.wavio import parse_wav, wav_bytes
+    from diffse_tpu_torch.evaluation import inference, streaming
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.models.snr_model import SNRModel
+    from diffse_tpu_torch.serving import EnhanceService, ServiceConfig
+    from diffse_tpu_torch.serving.http import make_server, serve_forever_in_thread
+    from diffse_tpu_torch.train import CheckpointManager, TrainState
+    from diffse_tpu_torch.utils import generator_noise
+
+    t_phase = time.time()
+    failures = []
+    # earlier phases' models and programs are gone: give their memory back
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    weights = sampler_weights(torch)
+    model = sampler_model(torch, weights, device=dev)
+    fs = model.cfg.fixed_snr
+
+    # 1. the service over HTTP, the chunk program captured by the first flight
+    wavs = serve_wavs(SERVE_SECONDS * SERVE_REQUESTS_EACH, seed=40)
+    svc = EnhanceService(model, config=ServiceConfig(sampler_kwargs=SERVE_SAMPLER))
+    server = make_server(svc, port=0)
+    thread = serve_forever_in_thread(server)
+    host, port = server.server_address[:2]
+    base = f"http://{host}:{port}"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    try:
+        gc.collect()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = http_clients(base, wavs)
+        wall = time.perf_counter() - t0
+        counts = dict(ck.launch_counts)
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        thread.join(timeout=30)
+        svc.close()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() - reserved0
+    programs = [p for _, p in model._stream_programs.values()]
+    statuses = [r[0] for r in results]
+    good = [r[0] == 200 and r[1] is not None and r[1].shape == w.shape
+            and bool(np.isfinite(r[1]).all()) for r, w in zip(results, wavs)]
+    audio_s = sum(len(w) for w in wavs) / SR
+    lat = stats["latency_ms"]
+    print(f"serve: {len(wavs)} HTTP requests from {SERVE_CLIENTS} clients ({audio_s:.1f} s of "
+          f"audio, {SERVE_SECONDS} s cycled): statuses {statuses} (503s retried after "
+          f"Retry-After: {sum(r[3] for r in results)}); of its input's length and finite "
+          f"{sum(good)}/{len(wavs)}; /healthz {health}")
+    print(f"serve: {stats['flights']} flights, {stats['chunks']} chunks in "
+          f"{stats['chunk_batches']} batches of 16 (occupancy {stats['chunk_occupancy']:.3f} "
+          f"chunks per row; {stats['occupancy']:.2f} utterances a flight); the service's wall "
+          f"{stats['wall_seconds']:.3f} s, {stats['wall_seconds'] / stats['flights']:.3f} s a "
+          f"flight, {stats['rtf_x_realtime']:.3f} s of audio per s; clients' wall {wall:.3f} s "
+          f"({audio_s / wall:.3f} s of audio per s); latency p50 {lat['p50']} ms, p95 "
+          f"{lat['p95']} ms, p99 {lat['p99']} ms, max {lat['max']} ms")
+    if not all(good) or len(good) != SERVE_CLIENTS * SERVE_REQUESTS_EACH:
+        failures.append(f"serve: HTTP results {statuses}, good {good}")
+    if health != {"status": "ok"} or stats["requests"] != len(wavs) or stats["errors"]:
+        failures.append(f"serve: /healthz {health}, /stats {stats}")
+    if len(programs) != 1:
+        failures.append(f"serve: {len(programs)} chunk programs kept; expected one")
+    program = programs[0]
+    print(f"serve: the chunk program ([16, 1, 256, 64], {SERVE_FORWARDS} forwards): warm-up run "
+          f"+ capture {program.capture_seconds:.3f} s on the first flight; card memory reserved "
+          f"after the run, beyond that before it (the program and the engine's caches) "
+          f"{kept / 2**20:.1f} MiB; replayed {program.replays} times (one per chunk batch)")
+    check_recorded("serve chunk program", program, SERVE_FORWARDS, failures)
+    if program.replays != stats["chunk_batches"]:
+        failures.append(f"serve: {program.replays} replays for {stats['chunk_batches']} batches")
+    # through the wrappers: the warm-up run and the capture; on the card the
+    # warm-up run and the replays
+    want = {"gn_silu_conv3x3": 81 * 2 * SERVE_FORWARDS,
+            "groupnorm_silu": 28 * 2 * SERVE_FORWARDS, "fused_bias_leaky_relu": 0}
+    if counts != want:
+        failures.append(f"serve: wrapper launches {counts}, expected {want}")
+    serve_path = card_runs(counts, programs)
+    print(f"serve: kernel runs on the card {serve_path['runs']} (81 / 28 a forward, "
+          f"{SERVE_FORWARDS} forwards a batch, the warm-up run and {program.replays} replays), "
+          f"recorded at capture {serve_path['recorded']}")
+
+    # 2. + 5. one chunk batch: stage 2 under set_sync_debug_mode("error"),
+    # its replay against the eager run on the same generator state
+    pool = streaming.pack_chunks(model, serve_wavs(SERVE_CHECK_SECONDS, seed=41), "bbed")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        samples = streaming.run_chunks(model, pool, "bbed", torch.Generator(dev).manual_seed(21),
+                                       sampler_kwargs=SERVE_SAMPLER)
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    outs = streaming.finish_chunks(model, pool, samples)
+    with torch.no_grad():
+        gen = torch.Generator(dev).manual_seed(21)
+        t0 = time.perf_counter()
+        eager = streaming._chunk_fn(model, "bbed", fs, SERVE_SAMPLER)(generator_noise(gen),
+                                                                      **pool.batch(0))
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+    err = relative_gap(samples, eager)
+    print(f"serve: stage 2 of a {pool.chunks}-chunk batch under set_sync_debug_mode('error'): "
+          f"clean, enqueued in {enqueue_s:.4f} s, done in {replay_s:.3f} s (one replay); eager "
+          f"on the same generator state {eager_s:.3f} s; replay vs eager max|diff|/max|eager| "
+          f"{err:.3e} (tol {GRAPH_TOL}), bitwise equal {torch.equal(samples, eager)}; waveforms "
+          f"finite {all(np.isfinite(o).all() for o in outs)}")
+    if err > GRAPH_TOL or not all(np.isfinite(o).all() for o in outs):
+        failures.append(f"serve: replay vs eager {err:.3e}")
+    del model, svc, program, programs, pool, samples, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. packing against each utterance alone, on the deterministic sebridge
+    seb = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge",
+                                      snr_conditioned="false"),
+                     sde_kwargs=SAMPLER_SDE_KWARGS["bbed"], device=dev)
+    seb.backbone.load_state_dict(weights)
+    ys = serve_wavs(SERVE_SECONDS, seed=42)
+    packed = streaming.enhance_streamed_packed(seb, ys, "sebridge", batch_size=16)
+    alone = [streaming.enhance_streamed_spec(seb, y, "sebridge") for y in ys]
+    gaps = [float(np.max(np.abs(p - a)) / np.max(np.abs(a))) for p, a in zip(packed, alone)]
+    chunks = sum(streaming._packed_geometry(len(y), 128, 64, 2)[1] for y in ys)
+    print(f"serve: sebridge packed (batch 16, {chunks} chunks, utterances split across "
+          f"batches) vs each utterance alone: max|diff|/max|ref| per utterance "
+          f"{['%.2e' % g for g in gaps]} (tol {PACKING_TOL})")
+    if max(gaps) > PACKING_TOL:
+        failures.append(f"serve: packed vs per-utterance {max(gaps):.3e}")
+
+    # 3b. eval_enhance_file over more width buckets than the model keeps
+    # programs: the least recently used program is dropped before a capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0, reserved, finite = torch.cuda.memory_reserved(), [], []
+    ys = serve_wavs(SERVE_BUCKET_SECONDS, seed=44)
+    for y in ys:
+        out = inference.eval_enhance_file(seb, y, y, "sebridge")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # what stays reserved is what the programs keep
+        reserved.append((torch.cuda.memory_reserved() - reserved0) / 2**20)
+        finite.append(out.shape == y.shape and bool(np.isfinite(out).all()))
+    kept_programs = len(seb._eval_programs)
+    print(f"serve: eval_enhance_file (sebridge, batch 1) on {SERVE_BUCKET_SECONDS} s, one "
+          f"width bucket each: {kept_programs} programs kept (PROGRAMS_KEPT "
+          f"{inference.PROGRAMS_KEPT}); card memory reserved after each beyond that before "
+          f"the first, MiB {['%.0f' % r for r in reserved]}; of its input's length and finite "
+          f"{finite}")
+    if kept_programs != inference.PROGRAMS_KEPT or not all(finite):
+        failures.append(f"serve: eval programs kept {kept_programs}, outputs good {finite}")
+    del seb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. a 1-NFE sebridge_v3_snr flight, card against CPU, the same draws
+    v3_cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="sebridge_v3",
+                              snr_conditioned="true", fixed_snr=FIXED_SNR, sigma_max=1.0)
+    snrnet = redraw_snrnet(torch, seed=5)
+    card = ScoreModel(v3_cfg, sde_kwargs=SAMPLER_SDE_KWARGS["bbed"], device=dev,
+                      snr_model=copy.deepcopy(snrnet))
+    card.backbone.load_state_dict(weights)
+    cpu = ScoreModel(v3_cfg, sde_kwargs=SAMPLER_SDE_KWARGS["bbed"], device="cpu",
+                     snr_model=copy.deepcopy(snrnet))
+    cpu.backbone.load_state_dict(weights)
+    ys = serve_wavs(SERVE_CPU_SECONDS, seed=43)
+    est = [card.estimate_snr(y[None])[0].item() for y in ys]
+    est_cpu = [cpu.estimate_snr(y[None])[0].item() for y in ys]
+    batch = ServiceConfig().batch_size
+    chunks = sum(streaming._packed_geometry(len(y), 128, 64, 2)[1] for y in ys)
+    if chunks != batch:
+        failures.append(f"serve: the 1-NFE flight has {chunks} chunks, not one batch of {batch}")
+    kw = dict(batch_size=batch, est_snrs=est, fixed_snr=FIXED_SNR)
+    ck.reset_launch_counts()
+    out_card = streaming.enhance_streamed_packed(card, ys, "sebridge_v3_snr",
+                                                 noise=cpu_noise(torch, 23), **kw)
+    v3_counts = dict(ck.launch_counts)
+    out_cpu = streaming.enhance_streamed_packed(cpu, ys, "sebridge_v3_snr",
+                                                noise=cpu_noise(torch, 23), **kw)
+    gaps = [float(np.max(np.abs(a - b)) / np.max(np.abs(b))) for a, b in zip(out_card, out_cpu)]
+    print(f"serve: sebridge_v3_snr flight of {SERVE_CPU_SECONDS} s ({chunks} chunks, one batch "
+          f"of the service's {batch}, eager with the CPU's draws): est_snr card {est}, CPU "
+          f"{est_cpu}, snap margins {['%.2e' % snap_margin(e) for e in est]}; waveforms card vs CPU "
+          f"{['%.2e' % g for g in gaps]} (tol {WAVEFORM_TOL}); launches {v3_counts}")
+    if max(gaps) > WAVEFORM_TOL or min(snap_margin(e) for e in est) < SNAP_MARGIN:
+        failures.append(f"serve: 1-NFE flight card vs CPU {max(gaps):.3e}")
+    if v3_counts != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}:
+        failures.append(f"serve: 1-NFE flight launches {v3_counts}, expected one forward's")
+
+    # 6. the CLI on checkpoints the port's CheckpointManager wrote
+    root = tempfile.mkdtemp(prefix="diffse_serve_cli_")
+    try:
+        CheckpointManager(os.path.join(root, "score"), hparams=card.hparams).save(
+            1, TrainState(card.backbone))
+        snr_model = SNRModel(device=dev, dnn=copy.deepcopy(snrnet))
+        CheckpointManager(os.path.join(root, "snr"), hparams=snr_model.hparams, monitors=(
+            {"monitor": "snr_error", "mode": "min", "top_k": 3},)).save(
+            1, TrainState(snr_model.dnn), {"snr_error": 1.0})
+        del card, cpu, snr_model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        server, svc, thread = serve_cli.main(
+            ["--ckpt", os.path.join(root, "score"), "--snr_ckpt", os.path.join(root, "snr"),
+             "--port", "0"], block=False)
+        try:
+            host, port = server.server_address[:2]
+            y = ys[1]
+            req = urllib.request.Request(f"http://{host}:{port}/enhance", method="POST",
+                                         data=wav_bytes(y, SR, subtype="float32"))
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, out = r.status, parse_wav(r.read())[0][0]
+            cli_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            thread.join(timeout=30)
+            svc.close()
+        print(f"serve CLI (sebridge_v3_snr, --snr_ckpt): {svc.model_type} answered a POST of "
+              f"{len(y) / SR} s with {status}, {out.shape[0]} samples, finite "
+              f"{bool(np.isfinite(out).all())}, {cli_s:.1f} s from start (load + capture)")
+        if status != 200 or out.shape != y.shape or not np.isfinite(out).all():
+            failures.append(f"serve CLI: status {status}, shape {out.shape}")
+        del svc
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase serve: {time.time() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"serve: HTTP flights, bbed rd_ald_logit_N20 chunk program (graphed)": serve_path,
+            "serve: sebridge_v3_snr packed flight (eager, caller's noise)":
+                card_runs(v3_counts, [])}
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -2181,7 +2538,8 @@ def main(argv=None) -> int:
                         ("bf16_kernels", lambda: check_bf16_kernels(torch, ck, dev)),
                         ("bf16_forward", lambda: check_bf16_forward(torch, ck, dev)),
                         ("bf16_program", lambda: run_bf16_program(torch, ck, dev)),
-                        ("train", lambda: run_training(torch, ck, dev))):
+                        ("train", lambda: run_training(torch, ck, dev)),
+                        ("serve", lambda: run_serving(torch, ck, dev))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -2204,7 +2562,7 @@ def main(argv=None) -> int:
     # program)
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
-             **results["train"][0]}
+             **results["train"][0], **results["serve"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1]}

@@ -29,6 +29,8 @@ before the capture. Building a ``Program``:
    kernels without passing through the wrappers, so the counts do not
    advance on replay. ``replays`` counts the replays: a program's kernel
    runs on the card are ``launch_counts`` times ``replays``.
+   ``capture_seconds`` is the host time of steps 1-3 (the capture begins
+   with a device synchronisation, so the warm-up run is in it).
 
 Calling it copies the inputs into the buffers, sets the program's generator
 to the caller's generator's state, replays, and hands the advanced state
@@ -50,6 +52,7 @@ A capture that fails raises; nothing falls back to running ``fn`` eagerly.
 from __future__ import annotations
 
 import numbers
+import time
 from typing import Callable, Dict, Union
 
 import torch
@@ -89,6 +92,7 @@ class Program:
     """
 
     def __init__(self, fn: Callable, inputs: Dict[str, Value], device):
+        t0 = time.perf_counter()
         self.device = torch.device(device)
         self.generator = torch.Generator(self.device)
         self.inputs = {}
@@ -113,6 +117,7 @@ class Program:
         self.conv_config_launches = [a - b for a, b in zip(after[1], before[1])]
         self.weight_casts = {k: after[2][k] - before[2][k] for k in after[2]}
         self.replays = 0
+        self.capture_seconds = time.perf_counter() - t0
 
     def _fill(self, inputs: Dict[str, Value]) -> None:
         for name, value in inputs.items():

@@ -66,7 +66,7 @@ from ..transforms import (
     stft,
     width_bucket,
 )
-from ..utils import model_device, randn_like, to_device
+from ..utils import generator_noise, model_device, randn_like, to_device
 from . import ncsnpp  # noqa: F401  (registers the "ncsnpp" and "ncsnpp_snr" backbones)
 from .shared import BackboneRegistry
 from .snr_model import snr_from_normalized_wav
@@ -604,10 +604,14 @@ class ScoreModel:
                    corrector_steps: int, oracle: bool, batch: int,
                    timestep_type: str = "linear") -> EnhanceKey:
         return EnhanceKey(branch, t_pad, n_steps, predictor, corrector, corrector_steps, oracle,
-                          mesh_key=None, timestep_type=timestep_type, batch=batch,
-                          dtype=getattr(self.backbone, "compute_dtype", torch.float32),
-                          device=self.device,
-                          settings=(dataclasses.astuple(self.cfg), self.sde))
+                          None, timestep_type, batch, *self._program_settings())
+
+    def _program_settings(self) -> tuple:
+        """What every captured program of this model also depends on: the
+        trunk's dtype, the device, and the model's settings (its config and
+        SDE)."""
+        return (getattr(self.backbone, "compute_dtype", torch.float32), self.device,
+                (dataclasses.astuple(self.cfg), self.sde))
 
     def _params_key(self) -> tuple:
         """Every parameter's and buffer's device, ``data_ptr()`` and
@@ -627,30 +631,46 @@ class ScoreModel:
         ``capture.Program``, or for ``bbed_ode`` a ``capture.LoopProgram``."""
         key = self._graph_key(branch, t_pad, n_steps, predictor, corrector, corrector_steps,
                               oracle, batch=inputs["y"].shape[0], timestep_type=timestep_type)
-        params = self._params_key()
-        entry = self._graphs.get(key)
-        if entry is not None and entry[0] == params:
-            return entry[1]
-        self._graphs.pop(key, None)  # free a stale program's memory first
 
-        def noise_from(generator):
-            return lambda like: randn_like(like, generator)
+        def make():
+            if branch == "bbed_ode":
+                return LoopProgram(
+                    lambda generator, **tensors: self._ode_start(generator_noise(generator),
+                                                                 n_steps, **tensors),
+                    lambda carry: self._ode_attempt(n_steps, carry),
+                    lambda generator, carry: self._ode_finish(generator_noise(generator), n_steps,
+                                                              carry),
+                    inputs, self.device)
 
-        if branch == "bbed_ode":
-            program = LoopProgram(
-                lambda generator, **tensors: self._ode_start(noise_from(generator), n_steps,
-                                                             **tensors),
-                lambda carry: self._ode_attempt(n_steps, carry),
-                lambda generator, carry: self._ode_finish(noise_from(generator), n_steps, carry),
-                inputs, self.device)
-        else:
             def fn(generator, **tensors):
-                return self._enhance_on_device(branch, noise_from(generator), n_steps, predictor,
-                                               corrector, corrector_steps,
+                return self._enhance_on_device(branch, generator_noise(generator), n_steps,
+                                               predictor, corrector, corrector_steps,
                                                timestep_type=timestep_type, **tensors)
 
-            program = Program(fn, inputs, self.device)
-        self._graphs[key] = (params, program)
+            return Program(fn, inputs, self.device)
+
+        return self.cached_program(self._graphs, key, make)
+
+    def cached_program(self, cache: dict, key, make: Callable[[], Program],
+                       limit: Optional[int] = None):
+        """The captured program of ``key`` in ``cache`` (a dict kept on this
+        model): made by ``make()`` on first use, and again when the
+        backbone's parameters moved or changed (``_params_key``). With
+        ``limit``, the cache keeps at most that many programs, dropping the
+        least recently used before it captures another: the programs of a
+        device share one graph memory pool, whose blocks a dropped program's
+        outputs hand to the next capture, so the card memory kept stops
+        growing with the number of distinct keys."""
+        params = self._params_key()
+        entry = cache.pop(key, None)  # re-inserted last: the most recently used
+        if entry is not None and entry[0] == params:
+            cache[key] = entry
+            return entry[1]
+        del entry  # free a stale program's memory first
+        while limit is not None and len(cache) >= limit:
+            cache.pop(next(iter(cache)))
+        program = make()
+        cache[key] = (params, program)
         return program
 
     @torch.no_grad()
@@ -725,7 +745,7 @@ class ScoreModel:
                 x_hat, nfe = program(generator, **inputs)
         else:
             if noise is None:
-                noise = lambda like: randn_like(like, generator)  # noqa: E731
+                noise = generator_noise(generator)
             tensors = {name: to_device(v, self.device) if torch.is_tensor(v) else
                        torch.full((), v, dtype=torch.float32, device=self.device)
                        for name, v in inputs.items()}

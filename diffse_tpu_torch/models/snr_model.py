@@ -1,6 +1,7 @@
 """SNRModel: inference around the SNR-estimator CNN (port of the inference
-part of diffse_tpu/models/snr_model.py; training's ``loss_fn`` and
-``valid_metrics`` come with training).
+part of diffse_tpu/models/snr_model.py, and its ``hparams`` /
+``from_hparams``; training's ``loss_fn`` and ``valid_metrics`` come with
+SNR-estimator training).
 
 The data contract is transform_type='none': the specs fed to SNRNet are raw,
 uncompressed STFTs. ``snr_from_normalized_wav`` is the one estimation path;
@@ -23,12 +24,19 @@ from .snrnet import SNRNet
 
 @dataclasses.dataclass
 class SNRModelConfig:
-    """The fields of diffse_tpu's SNRModelConfig that inference reads, with
-    the same names and defaults (training's fields come with training)."""
+    """diffse_tpu's SNRModelConfig: the same fields, names, defaults and
+    order (``hparams`` round-trips through it). Inference reads the STFT's;
+    ``lr`` and ``ema_decay`` size a checkpoint's ``TrainState``."""
 
+    lr: float = 1e-4
+    ema_decay: float = 0.999
+    num_eval_files: int = 10
+    loss_type: str = "mse"
     n_fft: int = 510
     hop_length: int = 128
+    num_frames: int = 256
     window: str = "hann"
+    transform_type: str = "none"
 
 
 def complex_to_2ch(y: torch.Tensor) -> torch.Tensor:
@@ -65,6 +73,17 @@ class SNRModel:
         self.stft_cfg = StftConfig(n_fft=config.n_fft, hop_length=config.hop_length,
                                    window=config.window)
         self._window = get_window(config.window, config.n_fft, device=self.device)
+
+    @property
+    def hparams(self) -> dict:
+        """The hyperparameters as the JAX package stores them."""
+        return {"config": dataclasses.asdict(self.cfg)}
+
+    @classmethod
+    def from_hparams(cls, hparams: dict, device="cuda", **config_overrides) -> "SNRModel":
+        """A model (a fresh SNRNet) from ``hparams``, with ``config_overrides``
+        over its config."""
+        return cls(SNRModelConfig(**{**hparams["config"], **config_overrides}), device=device)
 
     @torch.no_grad()
     def forward(self, y_spec2ch: torch.Tensor) -> torch.Tensor:

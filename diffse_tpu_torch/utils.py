@@ -51,6 +51,12 @@ def randn_like(x: torch.Tensor, generator: Optional[torch.Generator] = None) -> 
     return torch.randn(x.shape, dtype=x.dtype, device=x.device, generator=generator)
 
 
+def generator_noise(generator: Optional[torch.Generator]):
+    """The noise source ``noise(like)`` of the port's samplers drawing from
+    ``generator``."""
+    return lambda like: randn_like(like, generator)
+
+
 def bc(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``a`` with trailing singleton axes added to broadcast against ``x``."""
     return a.reshape(a.shape + (1,) * (x.ndim - a.ndim))

@@ -507,6 +507,7 @@ def test_graphed_enhance_matches_eager_on_the_card(cuda, dtype):
                    if key.t_pad == 1 + samples // HOP + (-(1 + samples // HOP)) % 64][0]
         assert program.launch_counts == eager_counts and eager_counts["gn_silu_conv3x3"] > 0
         assert not any(program.weight_casts.values())
+        assert program.capture_seconds > 0
 
 
 @pytest.mark.gpu

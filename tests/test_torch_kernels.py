@@ -142,14 +142,20 @@ def cuda():
 # K, a W=1 head (dead taps, Cout=4), and the wgmma kernel on partial tiles
 # (H, W not multiples of the tile), a batch of two and an uneven split; and
 # [8,64,64,64]->128, whose 72 units and 256 tiles keep all of K in one block
-# (the kernel's own epilogue).
+# (the kernel's own epilogue); then bench.py's and the serving chunk
+# program's batch of 16 at 64 frames (the large level, middle ones, the deep
+# levels and a head), whose plans follow the batch.
+GPU_BATCH16_SHAPES = [(16, 256, 64, 128, 128), (16, 64, 16, 256, 256), (16, 32, 8, 512, 256),
+                      (16, 16, 4, 256, 256), (16, 4, 1, 512, 256), (16, 256, 64, 128, 4),
+                      (16, 8, 2, 256, 4)]
 GPU_CONV_SHAPES = [(1, 256, 64, 128, 128), (1, 256, 192, 128, 128), (1, 128, 32, 384, 128),
                    (1, 256, 64, 128, 4),
                    (1, 16, 4, 256, 256), (1, 8, 2, 256, 256), (1, 4, 1, 256, 256),
                    (1, 16, 12, 512, 256), (1, 8, 6, 256, 256), (1, 4, 3, 256, 256),
                    (1, 32, 16, 256, 256), (1, 32, 24, 256, 256), (1, 64, 32, 256, 256),
                    (1, 16, 12, 256, 256), (1, 4, 1, 256, 4), (1, 5, 96, 128, 128),
-                   (2, 8, 64, 128, 128), (1, 5, 40, 64, 128), (8, 64, 64, 64, 128)]
+                   (2, 8, 64, 128, 128), (1, 5, 40, 64, 128),
+                   (8, 64, 64, 64, 128)] + GPU_BATCH16_SHAPES
 
 
 def test_gpu_conv_shapes_include_an_uneven_split():
@@ -230,11 +236,8 @@ def test_gn_silu_conv3x3_kernel_repeats_bitwise(cuda, shape):
         assert torch.equal(first, again)
 
 
-# bf16: the same shapes plus bench.py's batch of 16 at 64 frames (the large
-# level, middle ones, the deep levels and a head) and W = 8 on wgmma.
-GPU_BF16_CONV_SHAPES = GPU_CONV_SHAPES + [
-    (16, 256, 64, 128, 128), (16, 64, 16, 256, 256), (16, 32, 8, 512, 256), (16, 16, 4, 256, 256),
-    (16, 4, 1, 512, 256), (16, 256, 64, 128, 4), (16, 8, 2, 256, 4), (1, 32, 8, 256, 256)]
+# bf16: the same shapes and W = 8 on wgmma.
+GPU_BF16_CONV_SHAPES = GPU_CONV_SHAPES + [(1, 32, 8, 256, 256)]
 
 
 def _bf16_chain_inputs(cuda, shape, with_skip, seed):
