@@ -67,15 +67,16 @@ Phases, each of which must pass:
    eager path on the same generator state (``GRAPH_TOL``, bitwise printed),
    its first call's time and the card memory it keeps; each predictor, the
    langevin corrector, each grid and the OUVE and PROPOSED_1 SDEs
-   (``SAMPLER_CASES``, N = 2) on the card against the CPU with the same
-   draws (``SAMPLER_TOL``); heun and the exponential predictors under
+   (``SAMPLER_CASES``, N = 2, on an NCSN++ of the same depth but
+   ``SAMPLER_CPU_NF`` channels wide) on the card against the CPU with the
+   same draws (``SAMPLER_TOL``); heun and the exponential predictors under
    ``set_sync_debug_mode("error")``; then ``bbed_ode`` (RK45, rtol = atol
    = 1e-5) through its three captured programs (``capture.LoopProgram``)
    against the eager path, with 1 and 4 step attempts between two host
    reads of its done flag, its nfev, attempts, status, host reads and
-   synchronisations, and on the card against the CPU: the same flags (an
-   accept/reject flip is reported as one) and the waveform within
-   ``ODE_WAVEFORM_TOL``. Each part's kernel runs on the card.
+   synchronisations, and (on the narrow NCSN++) on the card against the
+   CPU: the same flags (an accept/reject flip is reported as one) and the
+   waveform within ``ODE_WAVEFORM_TOL``. Each part's kernel runs on the card.
 6. The bf16 kernels (the trunk of ``NCSNpp(dtype="bf16")``): each against its
    plain version on the card at phase 2's shapes, bench.py's batch of 16 at
    64 frames among them (GroupNorm bf16 -> bf16 and bf16 -> float32; the
@@ -133,10 +134,11 @@ Phases, each of which must pass:
    ``ema_decay_schedule``; the median step wall after 2 warm-up steps, audio
    seconds trained per second, the peak memory, and one profiled step's
    device time by part and by kernel family with its idle share. Last, the
-   training CLI (``python -m diffse_tpu_torch.cli.train``, the paper's
-   flags, ``--num_eval_files 0``) on a tiny wav directory written with the
-   port's wavio: one epoch of 2 steps into a checkpoint, ``--resume`` for a
-   second, and ``load_score_model`` on the result.
+   training CLI (``diffse_tpu_torch.cli.train.main`` in this process, the
+   paper's flags, ``--num_eval_files 0``) on a tiny wav directory written
+   with the port's wavio: one epoch of 2 steps into a checkpoint,
+   ``--resume`` for a second, and ``load_score_model`` on the result. Each
+   part's wall time is printed.
 
 10. Serving ("serve"): ``EnhanceService`` (``ServiceConfig`` defaults: chunk
    64, overlap 2, batch 16, flights of 16, 25 ms linger) behind the HTTP
@@ -160,6 +162,33 @@ Phases, each of which must pass:
    ``python -m diffse_tpu_torch.cli.serve`` (``main(block=False)``) on
    checkpoints that the port's ``CheckpointManager`` wrote, with
    ``--snr_ckpt``, answering one POST.
+
+11. Evaluation ("eval"): the evaluation package on a synthetic VBD-style
+   dataset written by the port's ``make_synthetic_dataset`` (a test split of
+   six files of 0.8-2.5 s in the 128- and 320-frame buckets), with
+   checkpoints saved by the port's ``CheckpointManager``: the 65.6M bbed
+   model and the paper's sebridge_v3 SNR-conditioned ``ncsnpp`` (weights
+   redrawn from seed 13, float32 trunk) and a redrawn SNRNet. Each CLI runs
+   through its ``main(argv)`` in this process: ``cli.eval`` one file at a
+   time (``bbed_pc``, 30 steps), then ``--eval_batch_size 4 --N 20
+   --timestep_type logit`` (``rd_ald_logit_N20`` through ``batch_enhance``:
+   a captured full batch and an eager tail) and with
+   ``--streaming_chunk_frames 64`` (the packed engine), each writing
+   ``_results.csv``, ``_avg_results.txt`` and finite wavs of their inputs'
+   lengths; ``batch_enhance`` on the 1-NFE ``sebridge_v3_snr`` with CPU-drawn
+   noise against ``eval_enhance_file`` file by file on the card
+   (``PACKING_TOL``) and against the same call on the CPU
+   (``WAVEFORM_TOL``); ``cli.deep_eval`` on the two valid2 files
+   (``_results_deep.csv``, 27 finite values a file) and
+   ``deep_evaluate_model`` (each file one 9-row batch, 27 finite scalars);
+   the training CLI with ``--num_eval_files 2`` (the checkpoint's metadata
+   carries pesq, si_sdr and estoi, ``load_score_model(monitor="pesq")`` picks
+   it, the trained weights after validation equal those before it);
+   ``cli.eval_snr_est``. Printed beside the card's name and power limit:
+   each step's wall, files and audio seconds per second, the enhance and the
+   host's scoring seconds apart, each captured program's capture time and
+   the memory reserved after it, and the kernel runs of the phase
+   (``launches_by_path["eval"]``).
 
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
@@ -296,8 +325,13 @@ SERVING_SAMPLER = dict(predictor="reverse_diffusion", corrector="ald", N=20,
 SERVING_SECONDS = (1.0, 1.5)
 # Each predictor, the langevin corrector, each grid and each SDE, the card
 # against the CPU at N = 2 on the 1.0 s utterance: (sde, predictor,
-# corrector, grid, N).
+# corrector, grid, N). These hold the samplers' arithmetic on the card to
+# the CPU's, so they run the NCSN++ at the full depth (the same 81 / 28
+# kernel launches a forward) but SAMPLER_CPU_NF channels wide, with its
+# weights redrawn from the same seed: the CPU's side of a 65M forward is ~1 s,
+# and phase 3 holds the full width's forward to the CPU already.
 SAMPLER_SECONDS = 1.0
+SAMPLER_CPU_NF = 32
 SAMPLER_CASES = [
     ("bbed", "euler_maruyama", "langevin", "linear", 2),
     ("bbed", "heun", "none", "bridge_geom", 2),
@@ -330,9 +364,9 @@ SYNC_FREE_CASES = [("heun", "none", "bridge_geom"), ("exp_euler", "none", "logit
                    ("exp_heun", "langevin", "logit")]
 # bbed_ode at rtol = atol = 1e-5: graphed vs eager on the 1.0 s utterance
 # (128 frames; ~490 evaluations at these weights). Card vs CPU on its first
-# ODE_CPU_SAMPLES (64 frames) with the output layer scaled by
-# ODE_CPU_OUTPUT_SCALE, so that the CPU's side (~1 s a 65M forward there)
-# takes ~100 evaluations: the same accepted and rejected steps (flags equal;
+# ODE_CPU_SAMPLES (64 frames), on the SAMPLER_CPU_NF-wide NCSN++ with the
+# output layer scaled by ODE_CPU_OUTPUT_SCALE, so that the CPU's side takes
+# ~100 evaluations of a narrow forward: the same accepted and rejected steps (flags equal;
 # a difference is reported as an accept/reject flip), and the waveform
 # within ODE_WAVEFORM_TOL: each drift evaluation differs by up to
 # FORWARD_TOL, and the backward flow grows |x - y| ~1000-fold from T = 0.999
@@ -407,6 +441,16 @@ SERVE_CPU_SECONDS = (0.6, 1.0, 1.4, 1.8, 2.0)
 # what the JSON line's launches count
 LAUNCHES_COUNTED = ("kernel runs on the card: eager launches, and each captured program's "
                     "launches recorded at its capture times its replays")
+# phase 11 ("eval"): the evaluation package on a synthetic VBD-style
+# dataset (the port's make_synthetic_dataset): a test split of one file per
+# duration, four in the 128-frame bucket and two in the 320-frame one (so
+# that cli.eval --eval_batch_size 4 runs a full captured batch and an eager
+# tail); train / valid / valid2 splits of EVAL_SPLIT_SECONDS files
+EVAL_TEST_SECONDS = (0.8, 0.85, 0.9, 1.0, 2.3, 2.5)
+EVAL_SPLIT_SECONDS = 2.0
+EVAL_BATCH = 4
+# cli.eval's certified sampler rd_ald_logit_N20 through batch_enhance
+EVAL_LOGIT_FLAGS = ["--N", "20", "--timestep_type", "logit"]
 CONV_NAMES = ("mma.sync 64x64", "mma.sync 128x8", "wgmma", "wgmma.ss")
 
 
@@ -1112,11 +1156,12 @@ def count_syncs(torch, fn):
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
-def sampler_weights(torch):
-    """The 65M NCSN++'s weights for phase 5c, redrawn from a seed."""
+def sampler_weights(torch, **backbone):
+    """The NCSN++'s weights for phase 5c (the 65M one unless ``backbone``
+    says otherwise), redrawn from a seed."""
     from diffse_tpu_torch.models.ncsnpp import NCSNpp
 
-    net = NCSNpp(generator=torch.Generator().manual_seed(0))
+    net = NCSNpp(**backbone, generator=torch.Generator().manual_seed(0))
     redraw_weights(torch, net, seed=13)
     return net.state_dict()
 
@@ -1330,6 +1375,7 @@ def run_pc_samplers(torch, ck, dev, weights):
 
     failures, paths = [], {}
     by_seconds = dict(zip(UTTERANCE_SECONDS, [noisy for _, noisy in main_path_pairs()]))
+    narrow = sampler_weights(torch, nf=SAMPLER_CPU_NF)
 
     def model_for(sde="bbed", device=dev, **backbone):
         return sampler_model(torch, weights, sde, device, **backbone)
@@ -1382,11 +1428,13 @@ def run_pc_samplers(torch, ck, dev, weights):
                          "recorded": {**path["recorded"], **conv_launches(ck, recorded)}}
         del model, programs
 
-    # 2. each new name, the card against the CPU, eager, the same draws
+    # 2. each new name, the card against the CPU, eager, the same draws, on
+    # the narrow NCSN++
     y = by_seconds[SAMPLER_SECONDS][None]
     ck.reset_launch_counts()
     for sde in sorted({case[0] for case in SAMPLER_CASES}):
-        card, cpu = model_for(sde), model_for(sde, device="cpu")
+        card, cpu = (sampler_model(torch, narrow, sde, device, nf=SAMPLER_CPU_NF)
+                     for device in (dev, "cpu"))
         floor = torch.full((1,), 1e-5)
         std_card, std_cpu = card.sde._std(floor.to(dev)).item(), cpu.sde._std(floor).item()
         print(f"{sde}: marginal std at t = 1e-5 {std_card!r} card, {std_cpu!r} CPU (rel "
@@ -1400,7 +1448,7 @@ def run_pc_samplers(torch, ck, dev, weights):
             wall = time.perf_counter() - t0
             ref, nfe_ref, _ = cpu.enhance(y, y, noise=cpu_noise(torch, 60 + i), **kw)
             err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
-            label = f"{sde} {predictor} + {corrector}, {grid} grid, N = {n}"
+            label = f"{sde} {predictor} + {corrector}, {grid} grid, N = {n}, nf {SAMPLER_CPU_NF}"
             tol = (EXP_SAMPLER_TOL if sde == "bbed" and predictor.startswith("exp_")
                    else SAMPLER_TOL)
             print(f"{label}: nfe {nfe} (CPU {nfe_ref}); card vs CPU max|diff|/max|ref| {err:.3e} "
@@ -1488,11 +1536,11 @@ def run_ode(torch, ck, dev, weights):
     paths["bbed_ode (graphed and eager)"] = card_runs(dict(ck.launch_counts), program.programs)
     del model, program
 
-    scaled = dict(weights)
+    scaled = sampler_weights(torch, nf=SAMPLER_CPU_NF)
     for name in ("output_layer.weight", "output_layer.bias"):
-        scaled[name] = weights[name] * ODE_CPU_OUTPUT_SCALE
-    card = sampler_model(torch, scaled, device=dev)
-    cpu = sampler_model(torch, scaled)
+        scaled[name] = scaled[name] * ODE_CPU_OUTPUT_SCALE
+    card = sampler_model(torch, scaled, device=dev, nf=SAMPLER_CPU_NF)
+    cpu = sampler_model(torch, scaled, nf=SAMPLER_CPU_NF)
     t_pad, wave = padded_wave(torch, y[0, :ODE_CPU_SAMPLES])
     ck.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1504,7 +1552,8 @@ def run_ode(torch, ck, dev, weights):
     cpu_wall = time.perf_counter() - t0
     out, ref = out.cpu().numpy(), ref.numpy()
     err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
-    print(f"bbed_ode card vs CPU, {t_pad} frames, output layer x {ODE_CPU_OUTPUT_SCALE}, the "
+    print(f"bbed_ode card vs CPU, {t_pad} frames, nf {SAMPLER_CPU_NF}, output layer x "
+          f"{ODE_CPU_OUTPUT_SCALE}, the "
           f"same draws: flags [done, nfev, attempts, status] {flags} card, {flags_cpu} CPU; "
           f"waveform max|diff|/max|ref| {err:.3e} (tol {ODE_WAVEFORM_TOL}); eager wall "
           f"{card_wall:.3f} s card, {cpu_wall:.3f} s CPU")
@@ -2102,15 +2151,15 @@ def write_cli_data(root, seed):
 
 
 def run_train_cli(torch, dev):
-    """Phase 9, last part: ``python -m diffse_tpu_torch.cli.train`` with the
-    paper's flags for one epoch of 2 steps into a checkpoint, then
-    ``--resume`` for a second epoch; the checkpoint read back with
-    ``load_score_model``."""
+    """Phase 9, last part: the training CLI (its ``main(argv)``, in this
+    process) with the paper's flags for one epoch of 2 steps into a
+    checkpoint, then ``--resume`` for a second epoch; the checkpoint read
+    back with ``load_score_model``."""
     import os
     import shutil
     import tempfile
-    from pathlib import Path
 
+    from diffse_tpu_torch.cli.train import main as train_main
     from diffse_tpu_torch.train import CheckpointManager
     from diffse_tpu_torch.train.restore import load_score_model
 
@@ -2118,20 +2167,16 @@ def run_train_cli(torch, dev):
     try:
         write_cli_data(os.path.join(root, "data"), seed=20)
         ckpt = os.path.join(root, "ckpt")
-        args = [sys.executable, "-m", "diffse_tpu_torch.cli.train", "--modeltype", "sebridge_v3",
-                "--snr_conditioned", "true", "--fixed_snr", str(FIXED_SNR), "--transform_type",
-                "exponent", "--sigma-max", "1.0", "--num_eval_files", "0", "--base_dir",
-                os.path.join(root, "data"), "--ckpt_dir", ckpt, "--max_steps_per_epoch", "2",
-                "--num_workers", "1"]
+        args = ["--modeltype", "sebridge_v3", "--snr_conditioned", "true", "--fixed_snr",
+                str(FIXED_SNR), "--transform_type", "exponent", "--sigma-max", "1.0",
+                "--num_eval_files", "0", "--base_dir", os.path.join(root, "data"),
+                "--ckpt_dir", ckpt, "--max_steps_per_epoch", "2", "--num_workers", "1"]
         for extra in (["--max_epochs", "1"], ["--max_epochs", "2", "--resume"]):
             t0 = time.time()
-            proc = subprocess.run(args + extra, cwd=Path(__file__).resolve().parent,
-                                  capture_output=True, text=True, timeout=600)
-            lines = proc.stdout.strip().splitlines()
-            print(f"train CLI {' '.join(extra)}: exit {proc.returncode} in "
-                  f"{time.time() - t0:.1f} s; its last lines: {lines[-3:]}")
-            if proc.returncode != 0:
-                raise AssertionError(f"train CLI {extra} failed:\n{proc.stderr[-3000:]}")
+            state = train_main(args + extra)
+            print(f"train CLI {' '.join(extra)}: step {state.step} in {time.time() - t0:.1f} s")
+            del state
+            torch.cuda.empty_cache()
         mgr = CheckpointManager(ckpt)
         rows = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
         train_losses = [r["train_loss"] for r in rows if "train_loss" in r]
@@ -2161,21 +2206,27 @@ def run_training(torch, ck, dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     print("phase 9: torch.backends.cudnn.allow_tf32=False, "
           "torch.backends.cuda.matmul.allow_tf32=False")
-    check_train_kernels(torch, ck, dev)
-    model_path = check_train_model(torch, ck, dev)
-    torch.cuda.empty_cache()
-    paper = run_train_steps(torch, ck, dev, "sebridge_v3 (paper), float32", PAPER_CONFIG,
-                            PAPER_SDE_KWARGS, {}, TRAIN_STEPS, profile_step=True)
+    parts = {}
+
+    def part(name, fn, *args, **kwargs):
+        start = time.time()
+        out = fn(*args, **kwargs)
+        parts[name] = round(time.time() - start, 1)
+        torch.cuda.empty_cache()
+        return out
+
+    part("ops", check_train_kernels, torch, ck, dev)
+    model_path = part("kernel vs plain", check_train_model, torch, ck, dev)
+    paper = part("paper steps", run_train_steps, torch, ck, dev, "sebridge_v3 (paper), float32",
+                 PAPER_CONFIG, PAPER_SDE_KWARGS, {}, TRAIN_STEPS, profile_step=True)
     if not paper["losses"][-1] < paper["losses"][0]:
         raise AssertionError(f"the paper model's loss did not fall: {paper['losses']}")
-    torch.cuda.empty_cache()
-    bbed = run_train_steps(torch, ck, dev, "bbed score matching, float32", BBED_TRAIN_CONFIG,
-                           dict(T_sampling=0.999, k=2.6, theta=0.52), {}, BBED_STEPS)
-    torch.cuda.empty_cache()
-    bf16 = run_train_steps(torch, ck, dev, "sebridge_v3 (paper), bf16 trunk", PAPER_CONFIG,
-                           PAPER_SDE_KWARGS, {"dtype": "bf16"}, 1)
-    torch.cuda.empty_cache()
-    run_train_cli(torch, dev)
+    bbed = part("bbed steps", run_train_steps, torch, ck, dev, "bbed score matching, float32",
+                BBED_TRAIN_CONFIG, dict(T_sampling=0.999, k=2.6, theta=0.52), {}, BBED_STEPS)
+    bf16 = part("bf16 step", run_train_steps, torch, ck, dev, "sebridge_v3 (paper), bf16 trunk",
+                PAPER_CONFIG, PAPER_SDE_KWARGS, {"dtype": "bf16"}, 1)
+    part("CLI", run_train_cli, torch, dev)
+    print(f"phase train, seconds by part: {parts}")
     print(f"phase train: {time.time() - t0:.1f} s")
     f32 = {"training, kernel vs plain (eager)": model_path,
            "training, sebridge_v3 steps (eager)": paper["path"],
@@ -2489,6 +2540,380 @@ def run_serving(torch, ck, dev):
                 card_runs(v3_counts, [])}
 
 
+class ProgramLog:
+    """Every ``capture.Program`` built inside the block: its launches
+    recorded at capture, its replays (counted on, after the model drops it),
+    its capture seconds and the card memory reserved right after it; the
+    records feed ``card_runs`` as programs do."""
+
+    def __init__(self, torch):
+        self.torch, self.records = torch, []
+
+    def __enter__(self):
+        import types
+
+        from diffse_tpu_torch.capture import Program
+
+        self.cls, self.init, self.call = Program, Program.__init__, Program.__call__
+        log, init, call, torch = self, Program.__init__, Program.__call__, self.torch
+
+        def tracked_init(program, *args, **kwargs):
+            init(program, *args, **kwargs)
+            program.smoke_record = types.SimpleNamespace(
+                launch_counts=dict(program.launch_counts), replays=0,
+                capture_seconds=program.capture_seconds,
+                reserved_after=torch.cuda.memory_reserved())
+            log.records.append(program.smoke_record)
+
+        def tracked_call(program, *args, **kwargs):
+            out = call(program, *args, **kwargs)
+            program.smoke_record.replays += 1
+            return out
+
+        Program.__init__, Program.__call__ = tracked_init, tracked_call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__, self.cls.__call__ = self.init, self.call
+        return False
+
+
+def eval_dataset(root):
+    """The phase's dataset under ``root``, written by the port's
+    ``make_synthetic_dataset``: train / valid / valid2 splits, and a test
+    split of one file per ``EVAL_TEST_SECONDS`` (one call per duration, its
+    one test file renamed into the split)."""
+    import os
+    import shutil
+
+    from diffse_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    make_synthetic_dataset(root, num_train=4, num_valid=2, num_valid2=2, num_test=0,
+                           duration_s=EVAL_SPLIT_SECONDS, seed=30, noise_type="white_amod")
+    for i, seconds in enumerate(EVAL_TEST_SECONDS):
+        one = make_synthetic_dataset(os.path.join(root, f"one{i}"), num_train=0, num_valid=0,
+                                     num_valid2=0, num_test=1, duration_s=seconds, seed=31 + i,
+                                     noise_type="white_amod")
+        for kind in ("clean", "noisy"):
+            os.makedirs(os.path.join(root, "test", kind), exist_ok=True)
+            os.replace(os.path.join(one, "test", kind, "pte_000.wav"),
+                       os.path.join(root, "test", kind, f"t{i:02d}_{seconds:.2f}s.wav"))
+        shutil.rmtree(one)
+
+
+def eval_checkpoints(torch, dev, root):
+    """The phase's checkpoints, saved with the port's ``CheckpointManager``
+    (EMA = the weights): the 65.6M bbed model and the paper's sebridge_v3
+    SNR-conditioned ``ncsnpp`` (weights redrawn from seed 13, float32
+    trunk), and a redrawn SNRNet. Returns their directories."""
+    import os
+
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.models.snr_model import SNRModel
+    from diffse_tpu_torch.train import CheckpointManager, TrainState
+
+    dirs = {}
+    for name, config, sde_kwargs in (
+            ("bbed", BBED_TRAIN_CONFIG, SAMPLER_SDE_KWARGS["bbed"]),
+            ("paper", PAPER_CONFIG, PAPER_SDE_KWARGS)):
+        model = ScoreModel(ScoreModelConfig(**config), sde_kwargs=sde_kwargs, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        redraw_weights(torch, model.backbone, seed=13)
+        dirs[name] = os.path.join(root, name)
+        CheckpointManager(dirs[name], hparams=model.hparams).save(
+            0, TrainState(model.backbone), {})
+        del model
+    snr = SNRModel(device=dev, dnn=redraw_snrnet(torch, seed=12))
+    dirs["snr"] = os.path.join(root, "snr")
+    CheckpointManager(dirs["snr"], monitors=[{"monitor": "snr_error", "mode": "min", "top_k": 3}],
+                      hparams=snr.hparams).save(0, TrainState(snr.dnn), {"snr_error": 1.0})
+    return dirs
+
+
+def row_noise(torch, seeds):
+    """A noise source whose row ``i`` is drawn on the CPU from a generator
+    seeded ``seeds[i]``: a file gets the same draw in a batch as alone."""
+    from diffse_tpu_torch.utils import randn_like
+
+    gens = [torch.Generator().manual_seed(s) for s in seeds]
+
+    def noise(like):
+        rows = [randn_like(like[:1].cpu(), g) for g in gens]
+        return torch.cat(rows).to(like.device)
+
+    return noise
+
+
+def check_eval_outputs(label, out_dir, test_dir, failures):
+    """cli.eval's files: ``_results.csv`` (header, one row per file),
+    ``_avg_results.txt``, and each enhanced wav finite and of its input's
+    length. Returns the per-file rows."""
+    import csv
+    import os
+
+    from diffse_tpu_torch.data.wavio import read_wav
+
+    names = sorted(os.listdir(os.path.join(test_dir, "noisy")))
+    with open(os.path.join(out_dir, "_results.csv")) as f:
+        rows = list(csv.reader(f))
+    if rows[0] != ["filename", "pesq", "si_sdr", "estoi"] or [r[0] for r in rows[1:]] != names:
+        failures.append(f"{label}: _results.csv has {rows[:1]} and files "
+                        f"{[r[0] for r in rows[1:]]}, expected {names}")
+    if not os.path.exists(os.path.join(out_dir, "_avg_results.txt")):
+        failures.append(f"{label}: no _avg_results.txt")
+    if not all(np.isfinite(float(r[2])) for r in rows[1:]):  # a NaN wave shows as SI-SDR
+        failures.append(f"{label}: SI-SDR not finite in {rows[1:]}")
+    for name in names:
+        out, _ = read_wav(os.path.join(out_dir, "all", name))
+        noisy, _ = read_wav(os.path.join(test_dir, "noisy", name))
+        if out.shape != noisy.shape or not np.isfinite(out).all():
+            failures.append(f"{label}: {name} is {out.shape} (input {noisy.shape}), finite "
+                            f"{bool(np.isfinite(out).all())}")
+    return rows[1:]
+
+
+def run_eval(torch, ck, dev, card):
+    """Phase 11 ("eval"): the evaluation package on the card, through the
+    CLIs' ``main(argv)`` in this process: cli.eval per file, batched and
+    packed; ``batch_enhance`` on the 1-NFE branch against the per-file path
+    and the CPU; cli.deep_eval and ``deep_evaluate_model``; the training CLI
+    with validation metrics; cli.eval_snr_est. ``card`` is nvidia-smi's name
+    and power limit, printed beside every time. Returns the path's kernel
+    runs ``{"eval": ...}``."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import types
+
+    from diffse_tpu_torch.cli import deep_eval as deep_eval_cli
+    from diffse_tpu_torch.cli import eval as eval_cli
+    from diffse_tpu_torch.cli import eval_snr_est as snr_est_cli
+    from diffse_tpu_torch.cli import train as train_cli
+    from diffse_tpu_torch.data.wavio import read_wav
+    from diffse_tpu_torch.evaluation.batch_eval import batch_enhance, iter_buckets
+    from diffse_tpu_torch.evaluation.deep_inference import deep_evaluate_model
+    from diffse_tpu_torch.evaluation.inference import eval_enhance_file, estimate_snrs
+    from diffse_tpu_torch.train import CheckpointManager, loop
+    from diffse_tpu_torch.train.restore import load_score_model, load_snr_model
+    from diffse_tpu_torch.train.state import load_ema
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    failures, steps = [], {}
+    root = tempfile.mkdtemp(prefix="diffse_eval_")
+    try:
+        t0 = time.time()
+        data = os.path.join(root, "data")
+        eval_dataset(data)
+        ckpts = eval_checkpoints(torch, dev, os.path.join(root, "ckpt"))
+        test_dir = os.path.join(data, "test")
+        test_audio = sum(read_wav(os.path.join(test_dir, "noisy", f))[0].shape[-1]
+                         for f in os.listdir(os.path.join(test_dir, "noisy"))) / SR
+        print(f"eval setup: dataset ({len(EVAL_TEST_SECONDS)} test files, {test_audio:.2f} s of "
+              f"audio) and 3 checkpoints in {time.time() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ck.reset_launch_counts()
+
+        def report(step, wall, summary):
+            steps[step] = round(wall, 3)
+            files, audio = summary["files"], summary["audio_seconds"]
+            print(f"{card}: eval step {step}: wall {wall:.3f} s, {files} files, {audio:.2f} s of "
+                  f"audio; {files / wall:.3f} files/s, {audio / wall:.3f} audio s per s; card "
+                  f"enhance (host clock around the enhance calls) "
+                  f"{summary['enhance_seconds']:.3f} s, host scoring (PESQ, SI-SDR, ESTOI, wav "
+                  f"write) {summary['scoring_seconds']:.3f} s; memory_reserved "
+                  f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB")
+
+        def cli(step, module, args):
+            start = time.time()
+            summary = module.main(args)
+            report(step, time.time() - start, summary)
+            gc.collect()
+            return summary
+
+        with ProgramLog(torch) as programs:
+            # 1. cli.eval, one file at a time through enhance (bbed_pc, 30 steps)
+            out1 = os.path.join(root, "eval_per_file")
+            cli("1 cli.eval per file (bbed_pc, N 30)", eval_cli,
+                ["--destination_folder", out1, "--test_dir", test_dir, "--ckpt", ckpts["bbed"]])
+            rows = check_eval_outputs("cli.eval per file", out1, test_dir, failures)
+            print(f"cli.eval per file: rows {rows}")
+
+            # 2. batched (rd_ald_logit_N20 through batch_enhance), then packed
+            for label, extra in (("2a cli.eval batched", []),
+                                 ("2b cli.eval packed", ["--streaming_chunk_frames", "64"])):
+                out2 = os.path.join(root, label.split()[0])
+                cli(f"{label} (rd_ald_logit_N20, batch {EVAL_BATCH})", eval_cli,
+                    ["--destination_folder", out2, "--test_dir", test_dir, "--ckpt",
+                     ckpts["bbed"], "--eval_batch_size", str(EVAL_BATCH), *EVAL_LOGIT_FLAGS,
+                     *extra])
+                rows = check_eval_outputs(label, out2, test_dir, failures)
+                print(f"{label}: rows {rows}")
+
+            # 3. batch_enhance on the 1-NFE branch, the caller's CPU draws:
+            # against eval_enhance_file file by file, and against the CPU
+            start = time.time()
+            snr_card, snr_state = load_snr_model(ckpts["snr"], device=dev)
+            load_ema(snr_state)
+            model, state = load_score_model(ckpts["paper"], snr_model=snr_card.dnn, device=dev)
+            load_ema(state)
+            names = sorted(os.listdir(os.path.join(test_dir, "noisy")))
+            xs = [read_wav(os.path.join(test_dir, "clean", n))[0][0] for n in names]
+            ys = [read_wav(os.path.join(test_dir, "noisy", n))[0][0] for n in names]
+            est = estimate_snrs(model, ys)
+            batches = [idxs for _, idxs in iter_buckets([len(y) for y in ys], EVAL_BATCH)]
+
+            def batch_noise(b):
+                return row_noise(torch, [80 + i for i in batches[b]])
+
+            t_batch = time.time()
+            outs = batch_enhance(model, xs, ys, "sebridge_v3_snr", batch_size=EVAL_BATCH,
+                                 est_snrs=est, fixed_snr=FIXED_SNR, noise=batch_noise)
+            t_batch = time.time() - t_batch
+            singles = [eval_enhance_file(model, x, y, "sebridge_v3_snr", est_snr=e,
+                                         fixed_snr=FIXED_SNR, noise=row_noise(torch, [80 + i]))
+                       for i, (x, y, e) in enumerate(zip(xs, ys, est))]
+            del model, state
+            snr_cpu, snr_cpu_state = load_snr_model(ckpts["snr"], device="cpu")
+            load_ema(snr_cpu_state)
+            cpu_model, cpu_state = load_score_model(ckpts["paper"], snr_model=snr_cpu.dnn,
+                                                    device="cpu")
+            load_ema(cpu_state)
+            t_cpu = time.time()
+            refs = batch_enhance(cpu_model, xs, ys, "sebridge_v3_snr", batch_size=EVAL_BATCH,
+                                 est_snrs=est, fixed_snr=FIXED_SNR, noise=batch_noise)
+            t_cpu = time.time() - t_cpu
+            del cpu_model, cpu_state
+            packing = max(float(np.max(np.abs(o - s)) / np.max(np.abs(s)))
+                          for o, s in zip(outs, singles))
+            cpu_gap = max(float(np.max(np.abs(o - r)) / np.max(np.abs(r)))
+                          for o, r in zip(outs, refs))
+            finite = all(np.isfinite(o).all() and o.shape == y.shape for o, y in zip(outs, ys))
+            steps["3 batch_enhance sebridge_v3_snr"] = round(time.time() - start, 3)
+            print(f"{card}: eval step 3, batch_enhance on sebridge_v3_snr (batch {EVAL_BATCH}, "
+                  f"batches {batches}, SNRNet estimates {[round(e, 4) for e in est]}): card "
+                  f"{t_batch:.3f} s, CPU {t_cpu:.3f} s; batch rows vs eval_enhance_file file "
+                  f"by file on the card max|diff|/max|ref| {packing:.3e} (tol {PACKING_TOL}); "
+                  f"card vs CPU {cpu_gap:.3e} (tol {WAVEFORM_TOL}); finite and of the inputs' "
+                  f"lengths {finite}")
+            if packing > PACKING_TOL or cpu_gap > WAVEFORM_TOL or not finite:
+                failures.append(f"batch_enhance: vs per file {packing:.3e}, vs CPU "
+                                f"{cpu_gap:.3e}, finite {finite}")
+
+            # 4. the 9-SNR sweep: cli.deep_eval on the 2 valid2 files, and
+            # deep_evaluate_model (each file one 9-row batch)
+            out4 = os.path.join(root, "deep")
+            valid2 = os.path.join(data, "valid2")
+            cli("4a cli.deep_eval (sebridge_v3_snr)", deep_eval_cli,
+                ["--destination_folder", out4, "--test_dir", valid2, "--ckpt", ckpts["paper"],
+                 "--snr_ckpt", ckpts["snr"]])
+            import csv
+
+            with open(os.path.join(out4, "_results_deep.csv")) as f:
+                table = list(csv.reader(f))
+            values = [float(v) for row in table[1:] for v in row[1:]]
+            print(f"cli.deep_eval: header {table[0][:4]}..., {len(table) - 1} rows of "
+                  f"{len(table[0]) - 1} values")
+            if (len(table) != 3 or len(table[0]) != 28 or not np.isfinite(values).all()):
+                failures.append(f"cli.deep_eval: {len(table) - 1} rows of {len(table[0])} "
+                                f"columns, finite {bool(np.isfinite(values).all())}")
+            start = time.time()
+            model, state = load_score_model(ckpts["paper"], snr_model=snr_card.dnn, device=dev)
+            load_ema(state)
+            split = types.SimpleNamespace(
+                clean_files=[os.path.join(valid2, "clean", f)
+                             for f in sorted(os.listdir(os.path.join(valid2, "clean")))],
+                noisy_files=[os.path.join(valid2, "noisy", f)
+                             for f in sorted(os.listdir(os.path.join(valid2, "noisy")))])
+            vals = deep_evaluate_model(model, types.SimpleNamespace(valid_set_2=split), 2,
+                                       model_type="sebridge_v3_snr", fixed_snr=FIXED_SNR)
+            steps["4b deep_evaluate_model"] = round(time.time() - start, 3)
+            print(f"{card}: eval step 4b, deep_evaluate_model on 2 valid2 files (9-row batches): "
+                  f"{time.time() - start:.3f} s; 27 scalars {[round(float(v), 4) for v in vals]}")
+            if len(vals) != 27 or not np.isfinite(vals).all():
+                failures.append(f"deep_evaluate_model: {len(vals)} values, finite "
+                                f"{bool(np.isfinite(vals).all())}")
+            model.drop_programs()
+            del model, state
+
+            # 5. the training CLI with validation metrics (one epoch of 2 steps)
+            trained, real_ema_weights = [], loop.ema_weights
+
+            class checked_ema_weights:
+                """loop.ema_weights, checking that the trained weights come
+                back bit for bit and noting the card memory around it."""
+
+                def __init__(self, state):
+                    self.state, self.inner = state, real_ema_weights(state)
+
+                def __enter__(self):
+                    self.before = [p.detach().clone() for p in self.state.params]
+                    self.reserved = torch.cuda.memory_reserved()
+                    return self.inner.__enter__()
+
+                def __exit__(self, *exc):
+                    self.inner.__exit__(*exc)
+                    same = all(torch.equal(p, b) for p, b in zip(self.state.params, self.before))
+                    trained.append((same, self.reserved, torch.cuda.memory_reserved()))
+                    return False
+
+            loop.ema_weights = checked_ema_weights
+            ckpt5 = os.path.join(root, "train")
+            start = time.time()
+            try:
+                state = train_cli.main([
+                    "--modeltype", "sebridge_v3", "--snr_conditioned", "true", "--fixed_snr",
+                    str(FIXED_SNR), "--transform_type", "exponent", "--sigma-max", "1.0",
+                    "--base_dir", data, "--ckpt_dir", ckpt5, "--snr_ckpt", ckpts["snr"],
+                    "--num_eval_files", "2", "--batch_size", "2", "--max_epochs", "1",
+                    "--max_steps_per_epoch", "2", "--num_workers", "1"])
+            finally:
+                loop.ema_weights = real_ema_weights
+            steps["5 train CLI"] = round(time.time() - start, 3)
+            meta = CheckpointManager(ckpt5)._meta
+            best_model, best = load_score_model(ckpt5, monitor="pesq", device=dev)
+            print(f"{card}: eval step 5, training CLI (2 steps, validation on 2 files): "
+                  f"{time.time() - start:.3f} s; step {state.step}; checkpoint metadata {meta}; "
+                  f"load_score_model(monitor='pesq') -> step {best.step}; trained weights after "
+                  f"validation equal to before, memory_reserved before / after validation (MiB) "
+                  f"{[(s, round(a / 2**20), round(b / 2**20)) for s, a, b in trained]}")
+            if (state.step != 2 or not all(k in meta.get("0", {}) for k in
+                                           ("pesq", "si_sdr", "estoi"))
+                    or best.step != 2 or [t[0] for t in trained] != [True]):
+                failures.append(f"train CLI: step {state.step}, metadata {meta}, best step "
+                                f"{best.step}, trained weights kept {trained}")
+            del state, best_model, best
+            gc.collect()
+
+            # 6. the SNR estimator's CLI
+            start = time.time()
+            out6 = os.path.join(root, "snr_est")
+            err = snr_est_cli.main(["--destination_folder", out6, "--test_dir", test_dir,
+                                    "--ckpt", ckpts["snr"]])
+            steps["6 cli.eval_snr_est"] = round(time.time() - start, 3)
+            written = open(os.path.join(out6, "_snr_est_results.txt")).read().strip()
+            print(f"{card}: eval step 6, cli.eval_snr_est: {time.time() - start:.3f} s; mean abs "
+                  f"SNR error {err:.4f} dB (redrawn SNRNet); {written!r}")
+            if not np.isfinite(err) or not written.startswith("mean_abs_snr_error_db"):
+                failures.append(f"cli.eval_snr_est: error {err}, file {written!r}")
+
+        for i, r in enumerate(programs.records):
+            print(f"{card}: eval program {i}: capture {r.capture_seconds:.3f} s, replays "
+                  f"{r.replays}, memory_reserved after it {r.reserved_after / 2**20:.0f} MiB, "
+                  f"launches recorded {r.launch_counts}")
+        path = card_runs(dict(ck.launch_counts), programs.records)
+        print(f"eval step walls (s): {steps}")
+        report_paths({"eval": path}, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"eval": path}
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -2516,7 +2941,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -2539,7 +2965,8 @@ def main(argv=None) -> int:
                         ("bf16_forward", lambda: check_bf16_forward(torch, ck, dev)),
                         ("bf16_program", lambda: run_bf16_program(torch, ck, dev)),
                         ("train", lambda: run_training(torch, ck, dev)),
-                        ("serve", lambda: run_serving(torch, ck, dev))):
+                        ("serve", lambda: run_serving(torch, ck, dev)),
+                        ("eval", lambda: run_eval(torch, ck, dev, card))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -2562,7 +2989,7 @@ def main(argv=None) -> int:
     # program)
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
-             **results["train"][0], **results["serve"]}
+             **results["train"][0], **results["serve"], **results["eval"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1]}

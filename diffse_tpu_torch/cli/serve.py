@@ -18,15 +18,6 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
-
-def _load_ema(state) -> None:
-    """Copy a TrainState's EMA into its module's parameters."""
-    with torch.no_grad():
-        for p, e in zip(state.params, state.ema):
-            p.copy_(e)
-
 
 def main(argv=None, block=True):
     """``block=False`` starts the server and returns ``(server, service,
@@ -66,15 +57,16 @@ def main(argv=None, block=True):
     from ..serving.http import make_server, serve_forever_in_thread
     from ..serving.service import EnhanceService, ServiceConfig
     from ..train.restore import load_score_model, load_snr_model
+    from ..train.state import load_ema
 
     snr_net = None
     if args.snr_ckpt:
         snr_model, snr_state = load_snr_model(args.snr_ckpt, device=args.device)
-        _load_ema(snr_state)
+        load_ema(snr_state)
         snr_net = snr_model.dnn
     model, state = load_score_model(args.ckpt, step=args.ckpt_step, monitor=args.monitor,
                                     snr_model=snr_net, device=args.device)
-    _load_ema(state)
+    load_ema(state)
 
     sampler_kwargs = {
         k: v for k, v in (("predictor", args.predictor), ("corrector", args.corrector),

@@ -6,16 +6,17 @@ then add their own flags; the grouped arguments go to the constructors. Flag
 names, defaults and the experiment's name are the JAX package's. The port
 adds ``--device`` (the card unless "cpu" is given).
 
-Not ported, so accepted only at their defaults: --no_mesh and --tp_size (the
-port trains on one device), --chain_steps (one update a step) and
---snr_ckpt (SNR-estimator checkpoints). The enhancement metrics of
-validation are not ported either (ROADMAP.md queue 1, item 3): pass
-``--num_eval_files 0``.
+Each validation scores ``--num_eval_files`` validation files (PESQ,
+SI-SDR, ESTOI on the EMA weights; 0 turns it off) in batches of
+``--eval_batch_size``; ``--snr_ckpt`` gives an SNR-conditioned model the
+SNR estimator they need. Not ported, so accepted only at their defaults:
+--no_mesh and --tp_size (the port trains on one device) and --chain_steps
+(one update a step).
 
 Usage (the paper's configuration):
     python -m diffse_tpu_torch.cli.train --modeltype sebridge_v3 \
         --snr_conditioned true --fixed_snr 0.17783 --transform_type exponent \
-        --sigma-max 1.0 --base_dir /data/VBD_SNR-5 --num_eval_files 0
+        --sigma-max 1.0 --base_dir /data/VBD_SNR-5 --snr_ckpt runs/snr_est
 """
 
 from __future__ import annotations
@@ -100,9 +101,11 @@ def add_trainer_args(group):
                        help="not ported: the port trains on one device")
     group.add_argument("--tp_size", type=int, default=1, help="not ported: 1 only")
     group.add_argument("--wandb", action="store_true")
-    group.add_argument("--snr_ckpt", type=str, default=None, help="not ported")
+    group.add_argument("--snr_ckpt", type=str, default=None,
+                       help="SNR-estimator checkpoint dir (for snr_conditioned=true validation)")
     group.add_argument("--eval_batch_size", type=int, default=1,
-                       help="the batch of the validation's enhancement metrics (not ported)")
+                       help="Per-epoch validation enhances files in bucketed batches of this "
+                            "size (1 = one at a time; the same semantics, throughput only)")
     group.add_argument("--accum_steps", type=int, default=1,
                        help="Gradient accumulation: average grads over this many consecutive "
                             "loader batches per optimizer step")
@@ -114,11 +117,11 @@ def add_trainer_args(group):
 
 def _refuse_unported(args) -> None:
     unported = {"--no_mesh": args.no_mesh, "--tp_size": args.tp_size != 1,
-                "--chain_steps": args.chain_steps != 1, "--snr_ckpt": args.snr_ckpt is not None}
+                "--chain_steps": args.chain_steps != 1}
     given = [flag for flag, set_ in unported.items() if set_]
     if given:
         raise SystemExit(f"{', '.join(given)}: not ported to diffse_tpu_torch (one device, one "
-                         "update a step, no SNR-estimator checkpoints); leave at the default")
+                         "update a step); leave at the default")
 
 
 def main(argv=None):
@@ -161,8 +164,17 @@ def main(argv=None):
                        for k, v in vars(groups["Backbone"]).items()
                        if v is not None and k not in backbone_cls.TPU_KERNEL_FLAGS}
 
+    snr_net = None
+    if args.snr_conditioned == "true" and args.snr_ckpt:
+        from ..train.restore import load_snr_model
+        from ..train.state import load_ema
+
+        snr_model, snr_state = load_snr_model(args.snr_ckpt, device=args.device)
+        load_ema(snr_state)
+        snr_net = snr_model.dnn
     model = ScoreModel(cfg, backbone_kwargs=backbone_kwargs, sde_kwargs=sde_kwargs,
-                       device=args.device, generator=torch.Generator().manual_seed(args.seed))
+                       device=args.device, generator=torch.Generator().manual_seed(args.seed),
+                       snr_model=snr_net)
     dm = SpecsDataModule(DataModuleConfig(
         base_dir=args.base_dir, format=args.format, batch_size=args.batch_size,
         n_fft=args.n_fft, hop_length=args.hop_length, num_frames=args.num_frames,
@@ -184,7 +196,7 @@ def main(argv=None):
         model, dm, max_epochs=args.max_epochs, ckpt_dir=None if args.nolog else ckpt_dir,
         logger=logger, seed=args.seed, resume=args.resume,
         max_steps_per_epoch=args.max_steps_per_epoch, accum_steps=args.accum_steps,
-        eval_every_n_epochs=args.eval_every_n_epochs,
+        eval_every_n_epochs=args.eval_every_n_epochs, eval_batch_size=args.eval_batch_size,
     )
 
 

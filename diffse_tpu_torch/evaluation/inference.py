@@ -1,6 +1,5 @@
-"""The evaluation harness's enhancement (port of spec_sample, _eval_fn and
-eval_enhance_file of diffse_tpu/evaluation/inference.py; ``evaluate_model``
-and the metrics come with the evaluation package).
+"""The evaluation harness (port of diffse_tpu/evaluation/inference.py):
+``spec_sample``, ``_eval_fn``, ``eval_enhance_file`` and ``evaluate_model``.
 
 These are the eval harness's branch semantics, which differ from
 ``ScoreModel.enhance``'s: ``sebridge_v2`` starts at t = 1.0, the ``_snr``
@@ -14,17 +13,26 @@ runs as a captured program (``capture.Program``) per input shape, kept on
 the model and made anew when the backbone's parameters change, as
 ``ScoreModel._enhance_graph`` keeps enhance's, but at most
 ``PROGRAMS_KEPT`` of them (the least recently used is dropped); on the CPU,
-and with a caller's ``noise`` callable, it runs eagerly.
+with a caller's ``noise`` callable, and when the caller asks (a one-off
+shape), it runs eagerly.
+
+``evaluate_model`` scores uniformly picked validation files with PESQ,
+SI-SDR and ESTOI on the host. Draws: file ``i`` (its index among the picked
+files) draws from a generator seeded with ``dispatch_seed(seed, i)``, or
+from ``noise(i)``: the JAX package's ``fold_in(key, i)``. With
+``batch_size`` > 1 the files go through ``batch_eval.batch_enhance`` under
+``seed`` (the same rule over its dispatches).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..capture import Program
+from ..data.wavio import read_wav
 from ..models.score_model import (
     T_30_F32,
     ScoreModel,
@@ -33,10 +41,13 @@ from ..models.score_model import (
     noise_mag,
 )
 from ..sampling import get_pc_sampler
-from ..transforms import pad_spec, spec_fwd
+from ..transforms import pad_spec, spec_fwd, width_bucket
 from ..utils import forbid_capture, generator_noise, to_device
+from .metrics import estoi, pesq_wb, si_sdr
 
 NoiseFn = Callable[[torch.Tensor], torch.Tensor]
+# dispatch index (a file's, a batch's) -> the noise source of that dispatch
+NoiseFor = Callable[[int], NoiseFn]
 
 # Settings (inference.py:11-15)
 SR = 16000
@@ -52,6 +63,18 @@ PROGRAMS_KEPT = 4
 # train.loop.eval_model_type
 BRANCHES = ("bbed", "sebridge", "sebridge_v2", "sebridge_v2_fixed", "sebridge_v3_fixed",
             "sebridge_v2_snr", "sebridge_v3_snr")
+
+
+def dispatch_seed(seed: int, index: int) -> int:
+    """The seed of dispatch ``index`` under ``seed`` (both >= 0), the
+    counterpart of ``jax.random.fold_in(key, index)``: a function of the two
+    numbers only, so the order in which dispatches run changes no draw."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
+
+
+def dispatch_generator(device: torch.device, seed: int, index: int) -> torch.Generator:
+    """A generator on ``device`` seeded with ``dispatch_seed(seed, index)``."""
+    return torch.Generator(device).manual_seed(dispatch_seed(seed, index))
 
 
 def captures(model: ScoreModel, noise: Optional[NoiseFn]) -> bool:
@@ -139,15 +162,17 @@ def spec_sample(model: ScoreModel, branch: str, X: torch.Tensor, Y: torch.Tensor
 def _eval_fn(model: ScoreModel, branch: str, t_pad: int, fixed_snr: Optional[float] = None,
              sampler_kwargs: Optional[dict] = None):
     """Eval-time enhancement of one branch and width bucket (``t_pad``
-    frames): ``fn(x_wav, y_wav, est_snr, generator=None, noise=None)`` ->
-    the enhanced waveforms ``[B, samples']`` on the model's device.
+    frames): ``fn(x_wav, y_wav, est_snr, generator=None, noise=None,
+    graphed=True)`` -> the enhanced waveforms ``[B, samples']`` on the
+    model's device.
 
     ``x_wav``/``y_wav``: ``[B, samples]`` (numpy or tensors), each row one
     utterance, normalised by its own max-abs; ``est_snr``: a number or one
     per row. Draws come from ``noise`` when given (run eagerly), else from
     ``generator`` (on the model's device; seed 0 when None), through the
-    captured program on the card. ``sampler_kwargs`` (``bbed`` only): the
-    sampler overrides of ``spec_sample``."""
+    captured program on the card unless ``graphed`` is False (a shape met
+    once, which a capture would not pay back). ``sampler_kwargs`` (``bbed``
+    only): the sampler overrides of ``spec_sample``."""
     fs = model.cfg.fixed_snr if fixed_snr is None else fixed_snr
     sk = dict(sampler_kwargs or {})
 
@@ -172,7 +197,7 @@ def _eval_fn(model: ScoreModel, branch: str, t_pad: int, fixed_snr: Optional[flo
 
     @torch.no_grad()
     def fn(x_wav, y_wav, est_snr, generator: Optional[torch.Generator] = None,
-           noise: Optional[NoiseFn] = None) -> torch.Tensor:
+           noise: Optional[NoiseFn] = None, graphed: bool = True) -> torch.Tensor:
         inputs = {"x_wav": _wave(x_wav, model.device), "y_wav": _wave(y_wav, model.device)}
         batch = inputs["y_wav"].shape[0]
         est = np.array(np.broadcast_to(np.asarray(est_snr, dtype=np.float32).reshape(-1),
@@ -180,7 +205,7 @@ def _eval_fn(model: ScoreModel, branch: str, t_pad: int, fixed_snr: Optional[flo
         inputs["est_snr"] = to_device(torch.from_numpy(est), model.device)
         if noise is None and generator is None:
             generator = torch.Generator(model.device).manual_seed(0)
-        if not captures(model, noise):
+        if not (graphed and captures(model, noise)):
             return enhance(noise or generator_noise(generator), **inputs)
         key = ("eval", branch, t_pad, fs, tuple(sorted(sk.items())),
                tuple(inputs["y_wav"].shape)) + model._program_settings()
@@ -225,3 +250,78 @@ def eval_enhance_file(model: ScoreModel, x_wav: np.ndarray, y_wav: np.ndarray, m
         # iSTFT: zero-pad back to the input length
         x_hat = np.pad(x_hat, (0, t_orig - x_hat.shape[-1]))
     return x_hat
+
+
+def pick_files(split, num_eval_files: int) -> Tuple[list, list]:
+    """``num_eval_files`` (clean, noisy) paths spread uniformly over a data
+    split (all of them for -1), as the reference picks its validation files."""
+    total = len(split.clean_files)
+    if num_eval_files == -1:
+        num_eval_files = total
+    indices = np.linspace(0, total - 1, num_eval_files).astype(int)
+    return [split.clean_files[i] for i in indices], [split.noisy_files[i] for i in indices]
+
+
+def read_pairs(clean_files, noisy_files) -> Tuple[list, list]:
+    """The first channel of each (clean, noisy) wav pair."""
+    xs, ys = [], []
+    for cf, nf in zip(clean_files, noisy_files):
+        xs.append(read_wav(cf)[0][0])
+        ys.append(read_wav(nf)[0][0])
+    return xs, ys
+
+
+def bucket_order(wavs, hop_length: int) -> list:
+    """The indices of ``wavs`` ordered by width bucket (by index within one),
+    so that a bucket's captured program serves its files in a row."""
+    return sorted(range(len(wavs)), key=lambda i: (
+        width_bucket(np.asarray(wavs[i]).reshape(-1).shape[-1], hop_length)[0], i))
+
+
+def score_files(xs, x_hats, sr: int = SR) -> Tuple[float, float, float]:
+    """The sums of PESQ, SI-SDR and ESTOI over the files, in their order."""
+    pesq_sum = si_sdr_sum = estoi_sum = 0.0
+    for x, x_hat in zip(xs, x_hats):
+        si_sdr_sum += si_sdr(x, x_hat)
+        pesq_sum += pesq_wb(sr, x, x_hat)
+        estoi_sum += estoi(x, x_hat, sr)
+    return pesq_sum, si_sdr_sum, estoi_sum
+
+
+def estimate_snrs(model: ScoreModel, ys) -> list:
+    """SNRNet's estimate of each noisy waveform, one at a time."""
+    return [model.estimate_snr(np.asarray(y)[None])[0].item() for y in ys]
+
+
+def evaluate_model(model: ScoreModel, data_module, num_eval_files: int, model_type: str = "bbed",
+                   fixed_snr: float = 1.0, seed: int = 0, batch_size: int = 1,
+                   noise: Optional[NoiseFor] = None) -> Tuple[float, float, float]:
+    """Mean (pesq, si_sdr, estoi) over ``num_eval_files`` validation files
+    picked uniformly (valid2 for ``sebridge_v3_fixed``, else valid), each
+    enhanced by the eval branch ``model_type`` with the backbone's own
+    weights (load the EMA into it first: ``train.state.ema_weights``).
+
+    ``batch_size`` > 1 enhances the files as bucketed batches
+    (``batch_eval.batch_enhance``): per-row semantics are the same, so only
+    throughput changes. At 1 the files go one at a time in bucket order,
+    each drawing by its index (module docstring). The ``_snr`` branches
+    estimate each file's SNR with SNRNet first."""
+    split = (data_module.valid_set_2 if model_type == "sebridge_v3_fixed"
+             else data_module.valid_set)
+    xs, ys = read_pairs(*pick_files(split, num_eval_files))
+    est = estimate_snrs(model, ys) if model_type.endswith("_snr") else [1.0] * len(ys)
+    if batch_size > 1:
+        from .batch_eval import batch_enhance
+
+        x_hats = batch_enhance(model, xs, ys, model_type, seed=seed, batch_size=batch_size,
+                               est_snrs=est if model_type.endswith("_snr") else None,
+                               fixed_snr=fixed_snr, noise=noise)
+    else:
+        x_hats = [None] * len(ys)
+        for i in bucket_order(ys, model.cfg.hop_length):
+            draws = ({"noise": noise(i)} if noise is not None
+                     else {"generator": dispatch_generator(model.device, seed, i)})
+            x_hats[i] = eval_enhance_file(model, xs[i], ys[i], model_type, est_snr=est[i],
+                                          fixed_snr=fixed_snr, **draws)
+    sums = score_files(xs, x_hats)
+    return tuple(v / len(xs) for v in sums)

@@ -673,6 +673,17 @@ class ScoreModel:
         cache[key] = (params, program)
         return program
 
+    def drop_programs(self) -> None:
+        """Drop every captured program kept on this model (enhance's, the eval
+        harness's and the chunk programs) and, on the card, hand the memory
+        their graph pool kept back to the device (a validation's programs
+        must not stay on top of training's peak)."""
+        self._graphs.clear()
+        for name in ("_eval_programs", "_stream_programs"):
+            self.__dict__.pop(name, None)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     @torch.no_grad()
     def enhance(self, x, y, generator: Optional[torch.Generator] = None,
                 noise: Optional[NoiseFn] = None, sampler_type: str = "pc",

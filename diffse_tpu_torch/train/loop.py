@@ -4,16 +4,19 @@
     (``train/steps.py``), ``max_steps_per_epoch`` and ``log_every_n_steps``;
   - ``accum_steps`` consecutive batches stacked into one update
     (``_stack_groups``);
-  - validation loss on the EMA weights every ``eval_every_n_epochs`` epochs
-    (and on the last), then a checkpoint ranked by its metrics;
+  - validation on the EMA weights every ``eval_every_n_epochs`` epochs (and
+    on the last): the validation loss, ``evaluate_model`` (PESQ, SI-SDR,
+    ESTOI over ``num_eval_files`` files) and every
+    ``DEEP_INFERENCE_EVERY_EPOCH`` epochs the 9-SNR sweep
+    (``deep_evaluate_model``), then a checkpoint ranked by its metrics;
   - ``resume`` from the latest checkpoint, continuing the epoch numbering;
   - SIGTERM: a checkpoint, then a clean return (``_PreemptionGuard``).
 
-The enhancement metrics of each validation (``evaluate_model``,
-``deep_evaluate_model``: PESQ, SI-SDR, ESTOI) need the evaluation package,
-which is not ported yet (ROADMAP.md queue 1, item 3): the loop raises when
-``num_eval_files`` asks for them. Nor are ``chain_steps`` and the device
-mesh (``tp_size``).
+The enhancement metrics run with the EMA copied into the backbone's own
+parameters (``state.ema_weights``), which get the trained weights back bit
+for bit after; the programs they captured are dropped with their card
+memory (``ScoreModel.drop_programs``). Not ported: ``chain_steps`` and the
+device mesh (``tp_size``).
 """
 
 from __future__ import annotations
@@ -24,10 +27,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..evaluation.deep_inference import SNR_GRID, deep_evaluate_model
+from ..evaluation.inference import dispatch_seed, evaluate_model
 from .checkpoints import CheckpointManager
 from .logging import MetricsLogger
-from .state import TrainState, eval_variables
+from .state import TrainState, ema_weights, eval_variables
 from .steps import make_eval_step, make_train_step
+
+DEEP_INFERENCE_EVERY_EPOCH = 10
+# the deep sweep's metric names: the effective input SNR (model.py:449-477)
+DEEP_LABELS = ["-5", "00", "05", "10", "15", "20", "25", "30", "35"]
 
 SCORE_MONITORS = ({"monitor": "pesq", "mode": "max", "top_k": 10},
                   {"monitor": "si_sdr", "mode": "max", "top_k": 2})
@@ -90,29 +99,65 @@ def eval_model_type(snr_conditioned: str, model_type: str) -> str:
     raise ValueError(snr_conditioned)
 
 
+def _enhancement_metrics(model, state: TrainState, data_module, mt: str, epoch: int, seed: int,
+                         eval_batch_size: int) -> dict:
+    """One validation's PESQ, SI-SDR and ESTOI (and, every
+    ``DEEP_INFERENCE_EVERY_EPOCH`` epochs, the deep sweep's 27), enhanced
+    with the EMA weights; {} when ``num_eval_files`` is 0 or an ``_snr``
+    branch has no SNRNet."""
+    cfg = model.cfg
+    if cfg.num_eval_files == 0:
+        return {}
+    if mt.endswith("_snr") and model.snr_model is None:
+        # the reference loads the SNR estimator's checkpoint at import
+        # (model.py:25-30); here it must be given (--snr_ckpt)
+        print("warning: snr_conditioned='true' but no snr_model injected; "
+              "skipping speech-enhancement validation metrics")
+        return {}
+    metrics = {}
+    with ema_weights(state):
+        try:
+            pesq_v, si_sdr_v, estoi_v = evaluate_model(
+                model, data_module, cfg.num_eval_files, model_type=mt, fixed_snr=cfg.fixed_snr,
+                seed=dispatch_seed(seed, 2 * epoch), batch_size=eval_batch_size)
+            metrics.update({"pesq": pesq_v, "si_sdr": si_sdr_v, "estoi": estoi_v})
+            if (cfg.snr_conditioned != "fixed" and epoch % DEEP_INFERENCE_EVERY_EPOCH == 0
+                    and epoch >= DEEP_INFERENCE_EVERY_EPOCH):
+                vals = deep_evaluate_model(model, data_module, cfg.num_eval_files, model_type=mt,
+                                           fixed_snr=cfg.fixed_snr,
+                                           seed=dispatch_seed(seed, 2 * epoch + 1))
+                n = len(SNR_GRID)
+                for j, label in enumerate(DEEP_LABELS):
+                    metrics[f"si_sdr_{label}"] = vals[j]
+                    metrics[f"pesq_{label}"] = vals[n + j]
+                    metrics[f"estoi_{label}"] = vals[2 * n + j]
+        finally:
+            model.drop_programs()
+    return metrics
+
+
 def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[str] = None,
                       logger: Optional[MetricsLogger] = None, seed: int = 0,
                       log_every_n_steps: int = 10, resume: bool = False,
                       max_steps_per_epoch: Optional[int] = None, variables: Optional[dict] = None,
                       accum_steps: int = 1, eval_every_n_epochs: int = 1, chain_steps: int = 1,
-                      tp_size: int = 1) -> TrainState:
+                      tp_size: int = 1, eval_batch_size: int = 1) -> TrainState:
     """Train ``model`` (a ScoreModel) on ``data_module``'s batches; returns
     the final ``TrainState``.
 
     ``variables``: a state_dict to start the backbone from (default: its
     weights as constructed). ``seed`` seeds the loss's draws (a generator on
-    the model's device). ``accum_steps`` > 1 averages the gradients of that
-    many consecutive batches into each update. ``eval_every_n_epochs`` runs
-    validation and the checkpoint only every k-th epoch, and always on the
-    last. The checkpoint keys are epochs, and a resumed run goes on from the
-    latest one's next epoch, so that keys keep increasing.
+    the model's device) and the enhancement metrics' (epoch ``e``'s
+    ``evaluate_model`` under ``dispatch_seed(seed, 2 e)``, its deep sweep
+    under ``dispatch_seed(seed, 2 e + 1)``). ``accum_steps`` > 1 averages
+    the gradients of that many consecutive batches into each update.
+    ``eval_every_n_epochs`` runs validation and the checkpoint only every
+    k-th epoch, and always on the last; ``eval_batch_size`` > 1 enhances the
+    validation files in bucketed batches. The checkpoint keys are epochs,
+    and a resumed run goes on from the latest one's next epoch, so that keys
+    keep increasing.
     """
     cfg = model.cfg
-    if cfg.num_eval_files != 0:
-        raise NotImplementedError(
-            f"num_eval_files={cfg.num_eval_files}: the enhancement metrics of validation "
-            "need the evaluation package, which is not ported yet (ROADMAP.md queue 1, "
-            "item 3); pass num_eval_files=0 (--num_eval_files 0)")
     if chain_steps != 1 or tp_size != 1:
         raise NotImplementedError("chain_steps and tp_size are not ported: one device, one "
                                   "update per step")
@@ -124,6 +169,7 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
     train_step = make_train_step(model, preprocess=model.prepare_batch, accum_steps=accum_steps)
     valid_step = make_eval_step(model, preprocess=model.prepare_batch)
     generator = torch.Generator(model.device).manual_seed(seed)
+    mt = eval_model_type(cfg.snr_conditioned, cfg.model_type)
 
     ckpt_mgr, start_epoch = None, 0
     if ckpt_dir:
@@ -172,6 +218,8 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
             val_losses = [float(valid_step(ev, batch, generator)["valid_loss"])
                           for batch in data_module.val_dataloader()]
             epoch_metrics = {"valid_loss": float(np.mean(val_losses))} if val_losses else {}
+            epoch_metrics.update(_enhancement_metrics(model, state, data_module, mt, epoch, seed,
+                                                      eval_batch_size))
             sanitized = {k: v for k, v in epoch_metrics.items() if np.isfinite(v)}
             logger.log({"epoch": epoch, **sanitized}, step=state.step)
             if ckpt_mgr is not None:

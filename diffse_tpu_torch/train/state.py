@@ -11,6 +11,7 @@ neither optimised nor averaged; it never changes in either package).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -88,3 +89,26 @@ def eval_variables(state: TrainState, no_ema: bool = False) -> dict:
     if not no_ema:
         variables.update(zip(state.names, state.ema))
     return variables
+
+
+def load_ema(state: TrainState) -> None:
+    """Copy the EMA into the module's own parameters (to evaluate or serve a
+    restored checkpoint, which is not trained further)."""
+    with torch.no_grad():
+        torch._foreach_copy_(state.params, state.ema)
+
+
+@contextlib.contextmanager
+def ema_weights(state: TrainState):
+    """The EMA in the module's own parameters inside the block, the trained
+    weights copied back bit for bit after it. Each copy advances the
+    parameters' ``_version``, so a program captured on the EMA weights
+    (``ScoreModel._params_key``) never replays on the trained ones."""
+    with torch.no_grad():
+        trained = [p.detach().clone() for p in state.params]
+        torch._foreach_copy_(state.params, state.ema)
+    try:
+        yield state.module
+    finally:
+        with torch.no_grad():
+            torch._foreach_copy_(state.params, trained)

@@ -206,10 +206,12 @@ def test_eval_every_n_epochs_gates_validation_and_saves(tmp_path):
 
 
 def test_loop_refuses_enhancement_metrics_and_unported_options():
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
-        train_score_model(_model(num_eval_files=10), _DataModule())
+    """``chain_steps`` and ``tp_size`` are not ported; the enhancement
+    metrics are (tests/test_torch_eval.py holds the loop's validation)."""
     with pytest.raises(NotImplementedError, match="chain_steps"):
         train_score_model(_model(), _DataModule(), chain_steps=2)
+    with pytest.raises(NotImplementedError, match="tp_size"):
+        train_score_model(_model(), _DataModule(), tp_size=2)
 
 
 def test_dropout_in_training_raises():
@@ -276,8 +278,7 @@ def test_train_cli_smoke_and_resume(dataset, tmp_path):
     assert torch.equal(_first_param(state), _first_param(resumed))
 
 
-@pytest.mark.parametrize("flag", [["--no_mesh"], ["--tp_size", "2"], ["--chain_steps", "2"],
-                                  ["--snr_ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--no_mesh"], ["--tp_size", "2"], ["--chain_steps", "2"]])
 def test_train_cli_refuses_unported_flags(dataset, tmp_path, flag):
     from diffse_tpu_torch.cli.train import main
 
