@@ -190,6 +190,30 @@ Phases, each of which must pass:
    the memory reserved after it, and the kernel runs of the phase
    (``launches_by_path["eval"]``).
 
+12. SNR-estimator training ("snr_train"): the train step of SNRNet at the
+   CLI's defaults (batch 4 x 256 frames, float32 pinned) on one fixed batch
+   (step wall, audio s per s, peak memory); ``cli.train_snr_est`` in this
+   process on a synthetic dataset written by the port's
+   ``make_synthetic_dataset``, an epoch of 2 steps into a checkpoint and a
+   ``--resume``d second (``snr_error`` after each); that checkpoint through
+   ``cli.eval_snr_est`` and, as ``--snr_ckpt``, through ``cli.eval`` on the
+   paper's 65.6M sebridge_v3 SNR-conditioned model (``sebridge_v3_snr``),
+   with that path's kernel runs.
+
+13. The exported artifact ("export", ``serving/export.py``): the paper's
+   65.6M sebridge_v3 SNR-conditioned model through ``cli.export_artifact``
+   with two buckets (128 and 192 frames) and the 65.6M bbed model as a
+   ``bbed_pc`` artifact of ``EXPORT_BBED_N`` steps; each one's export, save
+   and load (capture included) times and size on disk, the kernels'
+   launches recorded inside each program per forward (81 / 28), each
+   artifact against ``ScoreModel.enhance`` on the card at the same seed and
+   ``est_snr`` (``EXPORT_TOL``, bitwise printed) with both walls per
+   utterance; the card's ``sebridge_v3_snr`` artifact against one exported
+   on the CPU from the same checkpoint, on the same draws
+   (``WAVEFORM_TOL``); ``cli.serve --artifact`` answering one POST of each
+   ``EXPORT_POST_SECONDS`` with ``?est_snr=`` (status 200, the loader's
+   output). Every phase prints its seconds.
+
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
 
@@ -452,6 +476,23 @@ EVAL_BATCH = 4
 # cli.eval's certified sampler rd_ald_logit_N20 through batch_enhance
 EVAL_LOGIT_FLAGS = ["--N", "20", "--timestep_type", "logit"]
 CONV_NAMES = ("mma.sync 64x64", "mma.sync 128x8", "wgmma", "wgmma.ss")
+# phase 12 ("snr_train"): the SNR estimator's training at the CLI's defaults
+# (batch 4 x 256 frames = 2.04 s crops) on a synthetic dataset of 2.2 s files
+SNR_TRAIN_FILES = 8  # two steps an epoch
+SNR_VALID_FILES = 4
+SNR_TEST_FILES = 2
+SNR_SECONDS = 2.2
+SNR_STEP_WARMUP = 2
+SNR_STEP_REPS = 10
+# phase 13 ("export"): the sebridge_v3_snr artifact's two buckets (128 and
+# 192 frames), the est_snr its clients pass, the bbed_pc artifact's steps
+# (its times at N = 30: tools/artifact_times.py), the artifact against
+# enhance on the card, and the POSTs through cli.serve --artifact
+EXPORT_SECONDS = (1.0, 1.5)
+EXPORT_EST_SNRS = (0.35, 0.6, 1.2, 2.5)
+EXPORT_BBED_N = 4
+EXPORT_TOL = 1e-5
+EXPORT_POST_SECONDS = (0.6, 1.0, 1.2, 1.5)
 
 
 def median_ms(torch, fn, reps=20, warmup=3):
@@ -2914,6 +2955,351 @@ def run_eval(torch, ck, dev, card):
     return {"eval": path}
 
 
+
+def run_snr_train(torch, ck, dev, card):
+    """Phase 12 ("snr_train"): the SNR estimator's training on the card. The
+    train step at the CLI's defaults (batch 4 x 256 frames) on one fixed
+    batch: step wall, audio s per s, peak memory. Then
+    ``cli.train_snr_est`` (``main(argv)`` in this process) on a synthetic
+    VBD-style dataset for an epoch of 2 steps into a checkpoint and a
+    resumed second; its checkpoint through ``cli.eval_snr_est`` and, as
+    ``--snr_ckpt``, through ``cli.eval`` on the paper's 65.6M sebridge_v3
+    SNR-conditioned model (``sebridge_v3_snr``, weights redrawn from seed
+    6). Returns the kernel runs of that last part by path."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from diffse_tpu_torch.cli import eval as eval_cli
+    from diffse_tpu_torch.cli import eval_snr_est as snr_est_cli
+    from diffse_tpu_torch.cli import train_snr_est
+    from diffse_tpu_torch.data.synthetic import make_synthetic_dataset
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.models.snr_model import SNRModel, SNRModelConfig
+    from diffse_tpu_torch.train import CheckpointManager, TrainState
+    from diffse_tpu_torch.train.steps import make_train_step
+
+    failures, parts = [], {}
+    root = tempfile.mkdtemp(prefix="diffse_snr_train_")
+    try:
+        start = time.time()
+        data = make_synthetic_dataset(os.path.join(root, "data"), num_train=SNR_TRAIN_FILES,
+                                      num_valid=SNR_VALID_FILES, num_valid2=0,
+                                      num_test=SNR_TEST_FILES, duration_s=SNR_SECONDS, seed=21)
+        parts["dataset"] = round(time.time() - start, 1)
+
+        # the step at the CLI's defaults, on one fixed batch
+        start = time.time()
+        cfg = SNRModelConfig()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = SNRModel(cfg, device=dev)
+        state = TrainState(model.dnn, lr=cfg.lr, ema_decay=cfg.ema_decay)
+        step = make_train_step(model, preprocess=model.prepare_batch)
+        generator = torch.Generator(dev).manual_seed(0)
+        samples = (cfg.num_frames - 1) * cfg.hop_length
+        pairs = [synthetic_pair(np.random.default_rng(40 + i), samples) for i in range(4)]
+        batch = tuple(np.stack([p[k] for p in pairs]) for k in (0, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for _ in range(SNR_STEP_WARMUP + SNR_STEP_REPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            losses.append(float(metrics["train_loss"]))
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls[SNR_STEP_WARMUP:]))
+        audio = 4 * samples / SR
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"{card}: SNRNet train step (batch 4 x {cfg.num_frames} frames, "
+              f"{sum(p.numel() for p in model.dnn.parameters())} params, float32 pinned): median "
+              f"wall {wall * 1e3:.2f} ms after {SNR_STEP_WARMUP} warm-up steps, "
+              f"{audio / wall:.1f} s of audio per s, peak memory {peak:.3f} GiB; losses {losses}")
+        if not np.all(np.isfinite(losses)):
+            failures.append(f"SNRNet step: losses {losses}")
+        parts["steps"] = round(time.time() - start, 1)
+        del model, state, step
+        gc.collect()
+
+        # the CLI: an epoch of 2 steps, then --resume for a second
+        ckpt = os.path.join(root, "snr_ckpt")
+        args = ["--transform_type", "none", "--base_dir", data, "--ckpt_dir", ckpt,
+                "--max_steps_per_epoch", "2", "--num_workers", "1"]
+        for extra in (["--max_epochs", "1"], ["--max_epochs", "2", "--resume"]):
+            start = time.time()
+            state = train_snr_est.main(args + extra)
+            parts[f"CLI {' '.join(extra)}"] = round(time.time() - start, 1)
+            print(f"train_snr_est {' '.join(extra)}: step {state.step} in "
+                  f"{time.time() - start:.1f} s")
+        meta = json.load(open(os.path.join(ckpt, "metadata.json")))
+        errors = {k: v.get("snr_error") for k, v in meta.items()}
+        print(f"{card}: train_snr_est checkpoints {CheckpointManager(ckpt).all_steps()}, "
+              f"snr_error (dB) after each epoch {errors}, step {state.step}")
+        if state.step != 4 or not all(np.isfinite(v) for v in errors.values() if v is not None):
+            failures.append(f"train_snr_est: step {state.step}, snr_error {errors}")
+        del state
+        gc.collect()
+
+        start = time.time()
+        test_dir = os.path.join(data, "test")
+        err = snr_est_cli.main(["--destination_folder", os.path.join(root, "est"),
+                                "--test_dir", test_dir, "--ckpt", ckpt])
+        parts["cli.eval_snr_est"] = round(time.time() - start, 1)
+        print(f"cli.eval_snr_est on the trained checkpoint: mean abs SNR error {err:.4f} dB over "
+              f"{SNR_TEST_FILES} files")
+        if not np.isfinite(err):
+            failures.append(f"cli.eval_snr_est: {err}")
+
+        # --snr_ckpt: the paper's 1-NFE mode estimates with the trained SNRNet
+        start = time.time()
+        v3 = ScoreModel(ScoreModelConfig(**PAPER_CONFIG), sde_kwargs=PAPER_SDE_KWARGS,
+                        device=dev, generator=torch.Generator().manual_seed(0))
+        redraw_weights(torch, v3.backbone, seed=6)
+        score_dir = os.path.join(root, "paper")
+        CheckpointManager(score_dir, hparams=v3.hparams).save(0, TrainState(v3.backbone), {})
+        del v3
+        gc.collect()
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(root, "enhanced")
+        ck.reset_launch_counts()
+        with ProgramLog(torch) as programs:
+            summary = eval_cli.main(["--destination_folder", out_dir, "--test_dir", test_dir,
+                                     "--ckpt", score_dir, "--snr_ckpt", ckpt])
+        rows = check_eval_outputs("cli.eval --snr_ckpt", out_dir, test_dir, failures)
+        parts["cli.eval --snr_ckpt"] = round(time.time() - start, 1)
+        print(f"{card}: cli.eval sebridge_v3_snr --snr_ckpt <trained>: {summary['files']} files, "
+              f"rows {rows}")
+        path = card_runs(dict(ck.launch_counts), programs.records)
+        report_paths({"snr_train: cli.eval --snr_ckpt": path}, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase snr_train, seconds by part: {parts}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"snr_train: cli.eval --snr_ckpt": path}
+
+
+def artifact_size(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+
+
+def run_export(torch, ck, dev, card):
+    """Phase 13 ("export"): the exported enhance program. The paper's 65.6M
+    sebridge_v3 SNR-conditioned model (weights redrawn from seed 6, saved
+    with ``CheckpointManager``) through ``cli.export_artifact`` with two
+    buckets (1.0 and 1.5 s: 128 and 192 frames), and the 65.6M bbed model
+    (redrawn from seed 4) as a ``bbed_pc`` artifact of ``EXPORT_BBED_N``
+    steps: each one's export, save and load times (the load captures each
+    bucket's program) and size, the kernels' launches recorded inside each
+    program per forward, each artifact against ``ScoreModel.enhance`` on
+    the card at the same seed and ``est_snr`` (``EXPORT_TOL``, bitwise
+    printed) and the wall per utterance of both; the card's
+    ``sebridge_v3_snr`` artifact against one exported on the CPU from the
+    same checkpoint, given the same draws (``WAVEFORM_TOL``); TF32 allowed for cuDNN
+    (torch's default: the loader pins float32 itself); then
+    ``cli.serve --artifact`` answering a POST of each
+    ``EXPORT_POST_SECONDS`` with ``?est_snr=``. Returns the kernel runs of the phase by path."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from diffse_tpu_torch.cli import export_artifact
+    from diffse_tpu_torch.cli import serve as serve_cli
+    from diffse_tpu_torch.data.wavio import parse_wav, wav_bytes
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.serving.export import load_artifact, save_artifact
+    from diffse_tpu_torch.train import CheckpointManager, TrainState
+    from diffse_tpu_torch.train.restore import load_score_model
+    from diffse_tpu_torch.train.state import load_ema
+
+    failures, parts = [], {}
+    root = tempfile.mkdtemp(prefix="diffse_export_")
+    pairs = main_path_pairs()
+    # torch's default, as a user's process has it: the loader pins float32 itself
+    torch.backends.cudnn.allow_tf32 = True
+    print("phase 13 with torch's defaults: torch.backends.cudnn.allow_tf32=True, "
+          "torch.backends.cuda.matmul.allow_tf32=False")
+
+    def compare(label, out, ref, tol):
+        err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+        print(f"{label}: max|diff|/max|ref| {err:.3e} (tol {tol}), bitwise equal "
+              f"{bool(np.array_equal(out, ref))}")
+        if out.shape != ref.shape or not np.isfinite(out).all() or err > tol:
+            failures.append(f"{label}: shape {out.shape} vs {ref.shape}, deviates by {err:.3e}")
+
+    def per_forward(bucket, nfe):
+        counts = bucket.program.launch_counts
+        return {k: v / nfe for k, v in counts.items()}
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ck.reset_launch_counts()
+        with ProgramLog(torch) as programs:
+            # the paper's 1-NFE mode, through the export CLI
+            start = time.time()
+            v3 = ScoreModel(ScoreModelConfig(**PAPER_CONFIG), sde_kwargs=PAPER_SDE_KWARGS,
+                            device=dev, generator=torch.Generator().manual_seed(0))
+            redraw_weights(torch, v3.backbone, seed=6)
+            ckpt = os.path.join(root, "paper")
+            CheckpointManager(ckpt, hparams=v3.hparams).save(0, TrainState(v3.backbone), {})
+            del v3
+            gc.collect()
+            art = os.path.join(root, "art_v3")
+            meta = export_artifact.main(["--ckpt", ckpt, "--out", art, "--utt_seconds",
+                                         *map(str, EXPORT_SECONDS)])
+            parts["export sebridge_v3_snr (CLI)"] = round(time.time() - start, 1)
+            start = time.time()
+            enhance, meta = load_artifact(art)
+            parts["load sebridge_v3_snr"] = round(time.time() - start, 1)
+            print(f"{card}: sebridge_v3_snr artifact, buckets "
+                  f"{[b['t_pad_frames'] for b in meta['buckets']]} frames: export + save per "
+                  f"bucket (s) {meta['seconds']}, CLI wall {parts['export sebridge_v3_snr (CLI)']}"
+                  f" s (checkpoint load included), load {meta['load_seconds']:.2f} s (the "
+                  f"programs' warm-up and capture included), {artifact_size(art):.1f} MB on disk")
+            for b in enhance.buckets:
+                launches = per_forward(b, meta["nfe"])
+                print(f"sebridge_v3_snr artifact, {b.pad_samples} samples: launches recorded "
+                      f"per forward {launches}, capture {b.program.capture_seconds:.2f} s")
+                if launches != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28,
+                                "fused_bias_leaky_relu": 0}:
+                    failures.append(f"sebridge_v3_snr artifact: launches per forward {launches}")
+
+            model, state = load_score_model(ckpt, device=dev)
+            load_ema(state)
+            for i, (_, noisy) in enumerate(pairs):
+                est = float(np.float32(EXPORT_EST_SNRS[i]))
+                t0 = time.perf_counter()
+                out = enhance(noisy, seed=i, est_snr=est)
+                art_wall = time.perf_counter() - t0
+
+                def ref_call():
+                    return model.enhance(noisy[None], noisy[None],
+                                         generator=torch.Generator(dev).manual_seed(i),
+                                         oracle=True, noise_rms=est, clean_rms=1.0)
+
+                ref = ref_call()  # the bucket's first call captures its program
+                t0 = time.perf_counter()
+                ref = ref_call()
+                ref_wall = time.perf_counter() - t0
+                print(f"{card}: sebridge_v3_snr {UTTERANCE_SECONDS[i]} s, est_snr {est}: "
+                      f"artifact wall {art_wall:.4f} s, enhance (replay) {ref_wall:.4f} s")
+                compare(f"sebridge_v3_snr artifact vs enhance, utterance {i}", out, ref,
+                        EXPORT_TOL)
+
+            # the card's artifact against the CPU's, on the same draws
+            start = time.time()
+            cpu_model, cpu_state = load_score_model(ckpt, device="cpu")
+            load_ema(cpu_state)
+            art_cpu = os.path.join(root, "art_v3_cpu")
+            save_artifact(art_cpu, cpu_model, None, "sebridge_v3_snr", int(EXPORT_SECONDS[0] * SR))
+            cpu_enhance, cpu_meta = load_artifact(art_cpu)
+            _, noisy = pairs[0]
+            noise = cpu_meta["buckets"][0]["noise"]
+            rng = np.random.default_rng(8)
+            shape = (noise["draws"], *noise["shape"])
+            draws = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2)
+            est = float(np.float32(EXPORT_EST_SNRS[0]))
+            compare("sebridge_v3_snr artifact, card vs CPU artifact (same draws)",
+                    enhance(noisy, est_snr=est, draws=draws),
+                    cpu_enhance(noisy, est_snr=est, draws=draws), WAVEFORM_TOL)
+            parts["CPU artifact"] = round(time.time() - start, 1)
+            print(f"CPU artifact: export + save {cpu_meta['seconds']}, load "
+                  f"{cpu_meta['load_seconds']:.2f} s, {artifact_size(art_cpu):.1f} MB")
+            del cpu_model, cpu_state, cpu_enhance, model, state
+            gc.collect()
+
+            # bbed_pc, EXPORT_BBED_N steps
+            start = time.time()
+            sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=30)
+            bbed = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed",
+                                               snr_conditioned="false", sigma_max=0.5),
+                              sde_kwargs=sde_kwargs, device=dev,
+                              generator=torch.Generator().manual_seed(0))
+            redraw_weights(torch, bbed.backbone, seed=4)
+            art_pc = os.path.join(root, "art_pc")
+            pc_meta = save_artifact(art_pc, bbed, None, "bbed_pc", int(EXPORT_SECONDS[0] * SR),
+                                    n_steps=EXPORT_BBED_N)
+            parts[f"export bbed_pc N={EXPORT_BBED_N}"] = round(time.time() - start, 1)
+            start = time.time()
+            pc_enhance, pc_meta = load_artifact(art_pc)
+            parts[f"load bbed_pc N={EXPORT_BBED_N}"] = round(time.time() - start, 1)
+            (bucket,) = pc_enhance.buckets
+            launches = per_forward(bucket, pc_meta["nfe"])
+            print(f"{card}: bbed_pc artifact, N = {EXPORT_BBED_N} ({pc_meta['nfe']} forwards), "
+                  f"{bucket.pad_samples} samples: export + save {pc_meta['seconds']}, load "
+                  f"{pc_meta['load_seconds']:.2f} s, {artifact_size(art_pc):.1f} MB; launches "
+                  f"recorded per forward {launches}")
+            if launches != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28,
+                            "fused_bias_leaky_relu": 0}:
+                failures.append(f"bbed_pc artifact: launches per forward {launches}")
+            _, noisy = pairs[0]
+            t0 = time.perf_counter()
+            out = pc_enhance(noisy, seed=5)
+            art_wall = time.perf_counter() - t0
+
+            def pc_ref():
+                return bbed.enhance(noisy[None], noisy[None],
+                                    generator=torch.Generator(dev).manual_seed(5),
+                                    N=EXPORT_BBED_N)
+
+            ref = pc_ref()
+            t0 = time.perf_counter()
+            ref = pc_ref()
+            ref_wall = time.perf_counter() - t0
+            print(f"{card}: bbed_pc N = {EXPORT_BBED_N}, {UTTERANCE_SECONDS[0]} s: artifact wall "
+                  f"{art_wall:.4f} s, enhance (replay) {ref_wall:.4f} s")
+            compare("bbed_pc artifact vs enhance", out, ref, EXPORT_TOL)
+            del bbed, pc_enhance
+            gc.collect()
+
+            # cli.serve --artifact: EXPORT_POSTS requests, one after another
+            start = time.time()
+            server, service, thread = serve_cli.main(["--artifact", art, "--port", "0"],
+                                                     block=False)
+            try:
+                host, port = server.server_address[:2]
+                wavs = serve_wavs(EXPORT_POST_SECONDS, seed=23)
+                for k, y in enumerate(wavs):
+                    est = float(np.float32(EXPORT_EST_SNRS[k % len(EXPORT_EST_SNRS)]))
+                    req = urllib.request.Request(
+                        f"http://{host}:{port}/enhance?est_snr={est!r}",
+                        data=wav_bytes(y, SR, subtype="float32"), method="POST")
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(req, timeout=300) as r:
+                        status, got = r.status, parse_wav(r.read())[0][0]
+                    latency = time.perf_counter() - t0
+                    want = enhance(y, seed=k, est_snr=est)  # the service's request k: seed k
+                    print(f"cli.serve --artifact POST {k} ({len(y) / SR:.2f} s): status {status}, "
+                          f"latency {latency:.4f} s, equal to the loader's output "
+                          f"{bool(np.array_equal(got, want))}")
+                    if status != 200 or got.shape != y.shape or not np.isfinite(got).all():
+                        failures.append(f"POST {k}: status {status}, shape {got.shape}")
+                    elif not np.array_equal(got, want):
+                        failures.append(f"POST {k}: differs from the loader's output")
+                with urllib.request.urlopen(f"http://{host}:{port}/stats", timeout=30) as r:
+                    stats = json.loads(r.read())
+                print(f"cli.serve --artifact stats: {stats}")
+                if stats["requests"] != len(wavs) or stats["errors"]:
+                    failures.append(f"cli.serve --artifact stats {stats}")
+            finally:
+                server.shutdown()
+                service.close()
+            parts["cli.serve --artifact"] = round(time.time() - start, 1)
+        path = card_runs(dict(ck.launch_counts), programs.records)
+        report_paths({"export: artifacts, enhance, cli.serve --artifact": path}, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase export, seconds by part: {parts}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return {"export: artifacts, enhance, cli.serve --artifact": path}
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -2966,7 +3352,9 @@ def main(argv=None) -> int:
                         ("bf16_program", lambda: run_bf16_program(torch, ck, dev)),
                         ("train", lambda: run_training(torch, ck, dev)),
                         ("serve", lambda: run_serving(torch, ck, dev)),
-                        ("eval", lambda: run_eval(torch, ck, dev, card))):
+                        ("eval", lambda: run_eval(torch, ck, dev, card)),
+                        ("snr_train", lambda: run_snr_train(torch, ck, dev, card)),
+                        ("export", lambda: run_export(torch, ck, dev, card))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -2989,7 +3377,8 @@ def main(argv=None) -> int:
     # program)
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
-             **results["train"][0], **results["serve"], **results["eval"]}
+             **results["train"][0], **results["serve"], **results["eval"],
+             **results["snr_train"], **results["export"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1]}

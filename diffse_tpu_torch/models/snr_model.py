@@ -1,7 +1,12 @@
-"""SNRModel: inference around the SNR-estimator CNN (port of the inference
-part of diffse_tpu/models/snr_model.py, and its ``hparams`` /
-``from_hparams``; training's ``loss_fn`` and ``valid_metrics`` come with
-SNR-estimator training).
+"""SNRModel: training, validation and inference around the SNR-estimator CNN
+(port of diffse_tpu/models/snr_model.py).
+
+Training draws a noise-level target gt ~ U[0, 0.999), remixes the noisy
+spectrogram to the implied SNR, applies the normalisation-factor correction
+and regresses SNRNet's sigmoid output onto gt with MSE; validation converts
+both to dB and reports the mean absolute SNR error. The draw
+(``draw_loss_noise``) is apart from the arithmetic (``loss_from_draws``), as
+in ``ScoreModel``, so that tests can feed the JAX package's gt.
 
 The data contract is transform_type='none': the specs fed to SNRNet are raw,
 uncompressed STFTs. ``snr_from_normalized_wav`` is the one estimation path;
@@ -17,8 +22,9 @@ from typing import Optional
 
 import torch
 
+from ..karras import calculate_normfac_direct
 from ..transforms import StftConfig, get_window, pad_spec_16, stft
-from ..utils import model_device
+from ..utils import model_device, to_device
 from .snrnet import SNRNet
 
 
@@ -26,7 +32,7 @@ from .snrnet import SNRNet
 class SNRModelConfig:
     """diffse_tpu's SNRModelConfig: the same fields, names, defaults and
     order (``hparams`` round-trips through it). Inference reads the STFT's;
-    ``lr`` and ``ema_decay`` size a checkpoint's ``TrainState``."""
+    training ``lr`` and ``ema_decay`` (a checkpoint's ``TrainState``)."""
 
     lr: float = 1e-4
     ema_decay: float = 0.999
@@ -89,6 +95,82 @@ class SNRModel:
     def forward(self, y_spec2ch: torch.Tensor) -> torch.Tensor:
         """y_spec2ch: ``[B, 2, F, T]`` real/imag channels -> ``[B, 1]`` g_hat."""
         return self.dnn(y_spec2ch)
+
+    def _apply(self, y_spec2ch: torch.Tensor, variables: Optional[dict]) -> torch.Tensor:
+        """SNRNet on ``y_spec2ch`` with gradients, with ``variables`` (its
+        parameters by name, e.g. ``train.state.eval_variables``) in place of
+        its own when given."""
+        if variables is None:
+            return self.dnn(y_spec2ch)
+        return torch.func.functional_call(self.dnn, variables, (y_spec2ch,))
+
+    # -------------------------------------------------------------- training
+    def prepare_batch(self, wav_batch):
+        """Waveform crops -> raw spectrograms on the model's device: each row
+        normalised by the noisy row's max-abs, STFT (transform_type='none').
+
+        Args:
+            wav_batch: ``(x_wav [B, L], y_wav [B, L], *rest)``, tensors or
+                numpy arrays; ``rest`` (``Specs_SNR``'s clean and noise
+                active-RMS levels) is moved to the device as float32.
+        Returns:
+            ``(X [B, 1, F, T], Y [B, 1, F, T], *rest)``, X and Y complex.
+        """
+        x_wav, y_wav, *rest = (to_device(torch.as_tensor(a, dtype=torch.float32), self.device)
+                               for a in wav_batch)
+        normfac = torch.max(torch.abs(y_wav), dim=-1, keepdim=True).values
+        n_fft, hop = self.stft_cfg.n_fft, self.stft_cfg.hop_length
+        X = stft(x_wav / normfac, self._window, n_fft, hop)[:, None]
+        Y = stft(y_wav / normfac, self._window, n_fft, hop)[:, None]
+        return (X, Y, *rest)
+
+    @staticmethod
+    def draw_loss_noise(x: torch.Tensor, generator: torch.Generator) -> dict:
+        """The draw of one ``loss_fn`` call for a batch like ``x``: the target
+        ``"gt"``, uniform on [0, 0.999) as float32 ``[B]``, from ``generator``
+        (on x's device)."""
+        return {"gt": torch.rand(x.shape[0], generator=generator, device=x.device) * 0.999}
+
+    def loss_fn(self, batch, generator: torch.Generator, train: bool = True,
+                variables: Optional[dict] = None) -> torch.Tensor:
+        """The training loss of ``batch`` (``prepare_batch``'s output; entries
+        after X and Y are ignored) with its draw from ``generator``:
+        ``loss_from_draws`` of ``draw_loss_noise``. The contract of
+        ``ScoreModel.loss_fn``, so that ``train.steps`` applies unchanged."""
+        return self.loss_from_draws(batch, self.draw_loss_noise(batch[0], generator),
+                                    train=train, variables=variables)
+
+    def loss_from_draws(self, batch, draws: dict, train: bool = True,
+                        variables: Optional[dict] = None) -> torch.Tensor:
+        """The loss of ``batch = (X, Y, ...)`` given the target ``draws["gt"]``:
+        Y remixed to the SNR ``gt / (1 - gt)`` (``X + (Y - X) 0.56234 snr``),
+        times the normalisation-factor correction, SNRNet's estimate of gt,
+        MSE. The SNR is cast to the specs' complex dtype first, so that the
+        correction is computed in complex arithmetic as the JAX package's
+        is. ``train`` sets SNRNet's mode (it has no dropout);
+        ``variables`` as for ``_apply``."""
+        x, y = batch[0], batch[1]
+        self.dnn.train(train)
+        gt = draws["gt"]
+        snr_b = (gt / (1 - gt))[:, None, None, None].to(x.dtype)
+        y = (x + (y - x) * 0.56234 * snr_b) * calculate_normfac_direct(1.0, snr_b, 1.0)
+        est_gt = self._apply(complex_to_2ch(y), variables)[:, 0]
+        return torch.mean((gt - est_gt) ** 2)
+
+    def valid_metrics(self, batch, variables: Optional[dict] = None) -> dict:
+        """Validation of ``batch = (X, Y, s, n)`` (``prepare_batch`` of
+        ``Specs_SNR``'s crops with their active-RMS clean and noise levels):
+        ``valid_loss``, the MSE between gt = n / (s + n) and SNRNet's
+        estimate, and ``snr_error``, the mean absolute error of the two in dB
+        (``20 log10((1 - g) / g)``), as 0-d tensors on the device."""
+        x, y, s, n = batch
+        gt = n / (s + n)
+        real_snr_db = 20 * torch.log10((1 - gt) / gt)
+        with torch.no_grad():
+            est_gt = self._apply(complex_to_2ch(y), variables)[:, 0]
+        est_snr_db = 20 * torch.log10((1 - est_gt) / est_gt)
+        return {"valid_loss": torch.mean((gt - est_gt) ** 2),
+                "snr_error": torch.mean(torch.abs(real_snr_db - est_snr_db))}
 
     @torch.no_grad()
     def estimate_from_wav(self, y_wav: torch.Tensor) -> torch.Tensor:

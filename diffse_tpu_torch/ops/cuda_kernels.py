@@ -27,6 +27,12 @@ the plain version under autograd, as the JAX package's custom VJP
 (``_gn_silu_conv3x3_bwd``, pallas_kernels.py:544) recomputes its jnp
 reference. With no input needing grad they call the wrapper directly.
 
+Each of the three wrappers is also an operator, ``torch.ops.diffse.<name>``
+(registered at the end of this module, with a fake implementation for
+tracing), and the model and ``ops.fused_act`` reach the wrappers only through
+the operators: ``torch.export`` keeps each as one node, so that an exported
+program (``serving/export.py``) runs the same kernels.
+
 ``launch_counts`` counts each wrapper's kernel launches (nowhere else), so a
 run can show that the model went through the kernels;
 ``conv_config_launches`` splits the conv's by instantiation. The bf16
@@ -806,7 +812,7 @@ def _recompute_grads(name: str, ctx, plain, grad_out: torch.Tensor, inputs) -> t
 class GroupNormSiLUConv3x3(torch.autograd.Function):
     """``groupnorm_silu_conv3x3`` with a gradient: the counterpart of the
     JAX package's ``_gn_silu_conv3x3_vjp`` (pallas_kernels.py:524-559). The
-    forward runs the wrapper (the kernel on the card) and saves only the
+    forward runs the wrapper's op (the kernel on the card) and saves only the
     inputs, ``_gn_silu_conv3x3_fwd``'s residuals; the backward recomputes
     ``groupnorm_silu_conv3x3_reference`` and takes its gradients with respect
     to x, gn_scale, gn_bias, the float32 w (through the bf16 rounding of a
@@ -818,8 +824,8 @@ class GroupNormSiLUConv3x3(torch.autograd.Function):
                 skip_coef):
         ctx.save_for_backward(x, gn_scale, gn_bias, w, bias_total, skip)
         ctx.settings = (num_groups, eps, skip_coef)
-        return groupnorm_silu_conv3x3(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
-                                      skip, skip_coef, w_packed)
+        return gn_silu_conv3x3_custom_op(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
+                                         skip, skip_coef, w_packed)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -836,7 +842,7 @@ class GroupNormSiLUConv3x3(torch.autograd.Function):
 class GroupNormSiLU(torch.autograd.Function):
     """``groupnorm_silu`` with a gradient. The JAX package gives K3 no custom
     VJP: its gradient is that of ``_groupnorm_silu_jnp``
-    (pallas_kernels.py:195), the same function. The forward runs the wrapper
+    (pallas_kernels.py:195), the same function. The forward runs the op
     and saves the inputs; the backward recomputes
     ``groupnorm_silu_reference`` and takes its gradients with respect to x,
     scale and bias."""
@@ -845,7 +851,7 @@ class GroupNormSiLU(torch.autograd.Function):
     def forward(ctx, x, scale, bias, num_groups, eps, apply_silu, out_dtype):
         ctx.save_for_backward(x, scale, bias)
         ctx.settings = (num_groups, eps, apply_silu, out_dtype)
-        return groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
+        return groupnorm_silu_custom_op(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -865,11 +871,11 @@ def groupnorm_silu_conv3x3_op(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: 
                               skip_coef: float = 1.0,
                               w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``groupnorm_silu_conv3x3`` (same arguments) that autograd can
-    differentiate (``GroupNormSiLUConv3x3``); the wrapper itself when no
+    differentiate (``GroupNormSiLUConv3x3``); the wrapper's op when no
     input needs a gradient (under ``torch.no_grad()``, for one)."""
     if not needs_grad(x, gn_scale, gn_bias, w, bias_total, skip):
-        return groupnorm_silu_conv3x3(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
-                                      skip, skip_coef, w_packed)
+        return gn_silu_conv3x3_custom_op(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
+                                         skip, skip_coef, w_packed)
     return GroupNormSiLUConv3x3.apply(x, gn_scale, gn_bias, w, bias_total, skip, w_packed,
                                       num_groups, eps, skip_coef)
 
@@ -878,9 +884,9 @@ def groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                       num_groups: int, eps: float = 1e-6, apply_silu: bool = True,
                       out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``groupnorm_silu`` (same arguments) that autograd can differentiate
-    (``GroupNormSiLU``); the wrapper itself when no input needs a gradient."""
+    (``GroupNormSiLU``); the wrapper's op when no input needs a gradient."""
     if not needs_grad(x, scale, bias):
-        return groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
+        return groupnorm_silu_custom_op(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
     return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
 
 
@@ -925,3 +931,58 @@ def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
             _stream(x.device)), "fused_bias_leaky_relu")
     launch_counts["fused_bias_leaky_relu"] += 1
     return out
+
+
+# ------------------------------------------------------------------- custom ops
+#
+# The three wrappers as operators of the ``diffse`` namespace, so that a
+# program traced by ``torch.export`` keeps them as single nodes (a ctypes
+# call cannot be traced: a fake tensor has no memory). Each op's CPU and
+# CUDA implementation is the wrapper above, which picks the plain version or
+# the kernel by its input's device (``_dispatch_device``); the fake
+# implementation gives the output's shape and dtype. The model's layers reach
+# the GroupNorm ops through ``groupnorm_silu_conv3x3_op`` and
+# ``groupnorm_silu_op``; ``ops.fused_act`` reaches the third. Registering
+# them builds nothing.
+
+OP_NAMESPACE = "diffse"
+_OP_SCHEMAS = {
+    "groupnorm_silu_conv3x3": (
+        "(Tensor x, Tensor gn_scale, Tensor gn_bias, Tensor w, Tensor bias_total, "
+        "int num_groups, float eps=1e-06, Tensor? skip=None, float skip_coef=1.0, "
+        "Tensor? w_packed=None) -> Tensor", groupnorm_silu_conv3x3),
+    "groupnorm_silu": (
+        "(Tensor x, Tensor scale, Tensor bias, int num_groups, float eps=1e-06, "
+        "bool apply_silu=True, ScalarType? out_dtype=None) -> Tensor", groupnorm_silu),
+    "fused_bias_leaky_relu": (
+        "(Tensor x, Tensor? bias=None, float negative_slope=0.2, "
+        "float scale=1.4142135623730951) -> Tensor", fused_bias_leaky_relu),
+}
+
+
+def _conv_fake(x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
+               skip_coef=1.0, w_packed=None):
+    return x.new_empty((*x.shape[:3], w.shape[-1]))
+
+
+def _groupnorm_fake(x, scale, bias, num_groups, eps=1e-6, apply_silu=True, out_dtype=None):
+    return x.new_empty(x.shape, dtype=out_dtype or x.dtype)
+
+
+def _fused_act_fake(x, bias=None, negative_slope=0.2, scale=math.sqrt(2.0)):
+    return torch.empty_like(x)
+
+
+_OP_FAKES = {"groupnorm_silu_conv3x3": _conv_fake, "groupnorm_silu": _groupnorm_fake,
+             "fused_bias_leaky_relu": _fused_act_fake}
+
+for _name, (_schema, _wrapper) in _OP_SCHEMAS.items():
+    _qualname = f"{OP_NAMESPACE}::{_name}"
+    torch.library.define(_qualname, _schema)
+    torch.library.impl(_qualname, ("cpu", "cuda"), _wrapper)
+    torch.library.register_fake(_qualname, _OP_FAKES[_name])
+del _name, _schema, _wrapper, _qualname
+
+gn_silu_conv3x3_custom_op = torch.ops.diffse.groupnorm_silu_conv3x3.default
+groupnorm_silu_custom_op = torch.ops.diffse.groupnorm_silu.default
+fused_bias_leaky_relu_custom_op = torch.ops.diffse.fused_bias_leaky_relu.default

@@ -3,7 +3,8 @@
 ``leaky_relu(x + bias, 0.2) * sqrt(2)``, the op surface of the reference's
 fused_bias_act CUDA kernel. No path of the model calls it. On a CUDA tensor
 it runs the hand-written kernel (``cuda_kernels.fused_bias_leaky_relu``,
-``csrc/fused_act.cu``); on a CPU tensor that wrapper's plain PyTorch version.
+``csrc/fused_act.cu``) through its operator, ``torch.ops.diffse``'s; on a CPU
+tensor that wrapper's plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -30,5 +31,5 @@ def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
     x = x.contiguous() if last else x.movedim(axis, -1).contiguous()
     if bias is not None:
         bias = bias.to(x.dtype)
-    out = cuda_kernels.fused_bias_leaky_relu(x, bias, negative_slope, scale)
+    out = cuda_kernels.fused_bias_leaky_relu_custom_op(x, bias, negative_slope, scale)
     return out if last else out.movedim(-1, axis)

@@ -12,7 +12,10 @@ are what fills its flights):
 - ``GET /stats``: the service's counters (``EnhanceService.stats``).
 
 The handler threads hand the service numpy arrays only; the service's
-dispatcher is the one thread that touches the device.
+dispatcher is the one thread that touches the device. The same front serves
+an exported artifact (``serving.export.ArtifactService``, ``cli.serve
+--artifact``), whose handler threads replay its captured programs one at a
+time.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""The training loop (port of diffse_tpu/train/loop.py's ``train_score_model``):
+"""The training loops (port of diffse_tpu/train/loop.py's ``train_score_model``
+and ``train_snr_model``). The score model's:
 
   - epochs over the threaded DataLoader, one eager optimizer step per batch
     (``train/steps.py``), ``max_steps_per_epoch`` and ``log_every_n_steps``;
@@ -17,6 +18,11 @@ parameters (``state.ema_weights``), which get the trained weights back bit
 for bit after; the programs they captured are dropped with their card
 memory (``ScoreModel.drop_programs``). Not ported: ``chain_steps`` and the
 device mesh (``tp_size``).
+
+``train_snr_model`` trains the SNR estimator the same way: one step per
+batch, then each epoch the validation loss and ``snr_error`` on the EMA
+weights over ``Specs_SNR``'s batches, a checkpoint ranked by ``snr_error``
+(the lowest three kept), ``resume`` and the SIGTERM guard.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 
 from ..evaluation.deep_inference import SNR_GRID, deep_evaluate_model
 from ..evaluation.inference import dispatch_seed, evaluate_model
+from ..utils import float32_precision
 from .checkpoints import CheckpointManager
 from .logging import MetricsLogger
 from .state import TrainState, ema_weights, eval_variables
@@ -40,6 +47,7 @@ DEEP_LABELS = ["-5", "00", "05", "10", "15", "20", "25", "30", "35"]
 
 SCORE_MONITORS = ({"monitor": "pesq", "mode": "max", "top_k": 10},
                   {"monitor": "si_sdr", "mode": "max", "top_k": 2})
+SNR_MONITORS = ({"monitor": "snr_error", "mode": "min", "top_k": 3},)
 
 
 class _PreemptionGuard:
@@ -70,6 +78,18 @@ class _PreemptionGuard:
             prev = self._prev if self._prev is not None else signal.SIG_DFL
             signal.signal(signal.SIGTERM, prev)
         return False
+
+
+def _preempt_exit(ckpt_mgr: Optional[CheckpointManager], state: TrainState,
+                  epoch: int) -> TrainState:
+    """After SIGTERM: a checkpoint of ``state`` under ``epoch`` (no metrics)
+    when there is a manager; returns ``state``."""
+    if ckpt_mgr is not None:
+        print(f"SIGTERM: checkpointing at step {state.step} and exiting (resume with --resume)")
+        ckpt_mgr.save(epoch, state, {})
+    else:
+        print(f"SIGTERM: exiting at step {state.step} (no --ckpt_dir, nothing checkpointed)")
+    return state
 
 
 def _stack_groups(loader, k: int):
@@ -178,15 +198,6 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
             ckpt_mgr.restore(state)
             start_epoch = ckpt_mgr.latest_step() + 1
 
-    def _preempt_exit(epoch):
-        if ckpt_mgr is not None:
-            print(f"SIGTERM: checkpointing at step {state.step} and exiting "
-                  "(resume with --resume)")
-            ckpt_mgr.save(epoch, state, {})
-        else:
-            print(f"SIGTERM: exiting at step {state.step} (no --ckpt_dir, nothing checkpointed)")
-        return state
-
     warned_empty_epoch = False
     with _PreemptionGuard() as guard:
         for epoch in range(start_epoch, max_epochs):
@@ -200,7 +211,7 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
                 stepped = True
                 state, metrics = train_step(state, batch, generator)
                 if guard.triggered:
-                    return _preempt_exit(epoch)
+                    return _preempt_exit(ckpt_mgr, state, epoch)
                 if i % log_every_n_steps == 0:
                     logger.log({"epoch": epoch, "train_loss": metrics["train_loss"]},
                                step=state.step)
@@ -209,7 +220,7 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
                 print(f"warning: epoch {epoch} produced no training steps: the dataset yields "
                       f"fewer than accum_steps (= {accum_steps}) batches per epoch")
             if guard.triggered:  # SIGTERM while the batches were fetched
-                return _preempt_exit(epoch)
+                return _preempt_exit(ckpt_mgr, state, epoch)
 
             if (epoch + 1) % eval_every_n_epochs != 0 and epoch != max_epochs - 1:
                 continue  # off-cadence epoch: no validation, no save
@@ -231,4 +242,69 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
 
     if ckpt_mgr is not None:
         logger.log_artifact(ckpt_dir, name="score_model")
+    return state
+
+
+def train_snr_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[str] = None,
+                    logger: Optional[MetricsLogger] = None, seed: int = 0,
+                    log_every_n_steps: int = 10, resume: bool = False,
+                    max_steps_per_epoch: Optional[int] = None,
+                    variables: Optional[dict] = None) -> TrainState:
+    """Train ``model`` (an SNRModel) on ``data_module``'s batches; returns the
+    final ``TrainState`` of its SNRNet.
+
+    ``variables``: a state_dict to start SNRNet from (default: its weights
+    as constructed). ``seed`` seeds the loss's target draws (a generator on
+    the model's device). Each epoch ends with ``valid_loss`` and
+    ``snr_error`` averaged over ``val_dataloader()``'s ``(x, y, s, n)``
+    batches, computed with the EMA in SNRNet's own parameters (the trained
+    weights copied back after), and a checkpoint keyed by the epoch; a
+    resumed run goes on from the latest one's next epoch."""
+    cfg = model.cfg
+    logger = logger or MetricsLogger()
+    data_module.setup("fit")
+    if variables is not None:
+        model.dnn.load_state_dict(variables)
+    state = TrainState(model.dnn, lr=cfg.lr, ema_decay=cfg.ema_decay)
+    train_step = make_train_step(model, preprocess=model.prepare_batch)
+    generator = torch.Generator(model.device).manual_seed(seed)
+
+    ckpt_mgr, start_epoch = None, 0
+    if ckpt_dir:
+        ckpt_mgr = CheckpointManager(ckpt_dir, monitors=SNR_MONITORS, hparams=model.hparams)
+        if resume and ckpt_mgr.latest_step() is not None:
+            ckpt_mgr.restore(state)
+            start_epoch = ckpt_mgr.latest_step() + 1
+
+    with _PreemptionGuard() as guard:
+        for epoch in range(start_epoch, max_epochs):
+            for i, batch in enumerate(data_module.train_dataloader()):
+                if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
+                    break
+                state, metrics = train_step(state, batch, generator)
+                if guard.triggered:
+                    return _preempt_exit(ckpt_mgr, state, epoch)
+                if i % log_every_n_steps == 0:
+                    logger.log({"epoch": epoch, "train_loss": metrics["train_loss"]},
+                               step=state.step)
+            if guard.triggered:
+                return _preempt_exit(ckpt_mgr, state, epoch)
+
+            accum = {"valid_loss": [], "snr_error": []}
+            with ema_weights(state), torch.no_grad(), float32_precision(model.device):
+                for batch in data_module.val_dataloader():
+                    m = model.valid_metrics(model.prepare_batch(batch))
+                    for k in accum:
+                        accum[k].append(float(m[k]))
+            epoch_metrics = {k: float(np.mean(v)) for k, v in accum.items() if v}
+            logger.log({"epoch": epoch, **epoch_metrics}, step=state.step)
+            if ckpt_mgr is not None:
+                ckpt_mgr.save(epoch, state, epoch_metrics)
+            if guard.triggered:
+                print(f"SIGTERM during validation: exiting after the epoch-{epoch} checkpoint "
+                      "(resume with --resume)")
+                return state
+
+    if ckpt_mgr is not None:
+        logger.log_artifact(ckpt_dir, name="snr_model")
     return state
