@@ -214,6 +214,23 @@ Phases, each of which must pass:
    ``EXPORT_POST_SECONDS`` with ``?est_snr=`` (status 200, the loader's
    output). Every phase prints its seconds.
 
+14. The other backbones ("backbones"), at full width: DCUNet
+   (DilDCUNet-v2 at the training CLI's defaults, "bN", ``n_fft`` 512,
+   redrawn weights and running statistics, its output layer scaled by
+   ``DCUNET_OUTPUT_SCALE``): ``bbed_pc`` at N = 30 through its captured
+   programs on 1.0 and 1.5 s utterances against the eager path (bitwise),
+   card vs CPU at ``BACKBONE_CPU_N`` steps, three train steps at 4 x 256
+   frames with the running statistics moving and finite, and one
+   ``cli.eval`` file from its checkpoint; NCSN++ with score_sde's DDPM++
+   settings (``DDPMPP``: DDPM-style blocks, no FIR, no pyramids,
+   positional embedding, dropout 0.1; 57.7M parameters): ``bbed_pc``
+   graphed at 1.0 s against eager with its launches per forward (75 / 4),
+   a forward card vs CPU, three train steps with dropout on (38 / 41
+   launches a step), and every fused-conv and ``groupnorm_silu`` call
+   shape of both against the plain versions (``KERNEL_TOL``; the batch-1
+   shapes timed beside their bounds). Walls, capture times and peak
+   memory are printed beside the card's name and power limit.
+
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
 
@@ -3300,6 +3317,339 @@ def run_export(torch, ck, dev, card):
         raise AssertionError("; ".join(failures))
     return {"export: artifacts, enhance, cli.serve --artifact": path}
 
+# Phase 14: the other backbones at full width. DCUNet (DilDCUNet-v2 at the
+# training CLI's defaults; it needs n_fft 512, 257 bins) and score_sde's
+# DDPM++ configuration of NCSN++ (nf 128, 57.7M parameters)
+DCUNET_CLI = dict(dcunet_architecture="DilDCUNet-v2", dcunet_time_embedding="gfp",
+                  dcunet_temb_layers_global=1, dcunet_temb_layers_local=1,
+                  dcunet_temb_activation="silu", dcunet_time_embedding_complex=False,
+                  dcunet_fix_length="pad", dcunet_mask_bound="none", dcunet_norm_type="bN",
+                  dcunet_activation="leaky_relu")
+DCUNET_N_FFT = 512
+DDPMPP = dict(resblock_type="ddpm", fir=False, resamp_with_conv=True, progressive="none",
+              progressive_input="none", embedding_type="positional", dropout=0.1)
+# DCUNet's output layer scaled after the redraw: redrawn weights give outputs
+# near 90, which 30 reverse steps of BBED grow past float32's range; at 0.01
+# (outputs near 1) the samples stay finite
+DCUNET_OUTPUT_SCALE = 0.01
+BACKBONE_SECONDS = (1.0, 1.5)
+BACKBONE_CPU_N = 2        # bbed_pc steps of the card-vs-CPU check (4 forwards)
+BACKBONE_TRAIN_STEPS = 3
+# kernel launches a forward of the DDPM++ NCSN++: two fused chains in each of
+# its 37 residual blocks and the output head; the 4 attention blocks' norms.
+# In training with dropout each block runs one fused chain and one
+# groupnorm_silu (the dropout sits between the second SiLU and Conv_1).
+DDPMPP_EVAL_LAUNCHES = {"gn_silu_conv3x3": 75, "groupnorm_silu": 4, "fused_bias_leaky_relu": 0}
+DDPMPP_TRAIN_LAUNCHES = {"gn_silu_conv3x3": 38, "groupnorm_silu": 41, "fused_bias_leaky_relu": 0}
+
+
+def _kernel_calls(torch, model, run):
+    """The (B, H, W, Cin, Cout, skip_coef or None) of each fused-conv call and
+    the (B, H, W, C) of each groupnorm_silu call a DDPM++ forward makes,
+    from its blocks' input shapes (``run`` drives the forward)."""
+    from diffse_tpu_torch.models import layers
+
+    convs, norms, hooks = set(), set(), []
+
+    def block_hook(mod, args):
+        b, c, h, w = args[0].shape
+        convs.add((b, h, w, c, mod.out_ch, None))
+        if mod.training and mod.dropout > 0:
+            norms.add((b, h, w, mod.out_ch))
+        else:
+            convs.add((b, h, w, mod.out_ch, mod.out_ch, mod.skip_coef))
+
+    def attn_hook(mod, args):
+        b, c, h, w = args[0].shape
+        norms.add((b, h, w, c))
+
+    def head_hook(mod, args):  # GroupNorm -> SiLU -> conv3x3 to 4 channels
+        b, _, h, w = args[0].shape
+        convs.add((b, h, w, mod.nf, 4, None))
+
+    hooks.append(model.backbone.register_forward_pre_hook(head_hook))
+    for m in model.backbone.modules():
+        if isinstance(m, layers.ResnetBlockDDPMpp):
+            hooks.append(m.register_forward_pre_hook(block_hook))
+        elif isinstance(m, layers.AttnBlockpp):
+            hooks.append(m.register_forward_pre_hook(attn_hook))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return convs, norms
+
+
+def check_backbone_kernel_calls(torch, ck, dev, convs, norms):
+    """Each fused-conv and groupnorm_silu call shape of the DDPM++ path (and
+    the fused conv with ``skip_coef`` 1, which ``skip_rescale=False`` gives)
+    held against its plain version on the card (``KERNEL_TOL``), with the
+    max error, times and bound printed."""
+    rng = np.random.default_rng(50)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    failures, worst = [], {"gn_silu_conv3x3": 0.0, "groupnorm_silu": 0.0}
+    extra = {(1, 256, 128, 128, 128, 1.0)}
+    for b, h, w, cin, cout, coef in sorted(convs | extra, key=str):
+        x = t(rng.standard_normal((b, h, w, cin)))
+        args = (x, t(1 + 0.1 * rng.standard_normal(cin)), t(0.1 * rng.standard_normal(cin)),
+                t(0.05 * rng.standard_normal((3, 3, cin, cout))),
+                t(0.1 * rng.standard_normal((b, cout))), min(cin // 4, 32))
+        kw = {} if coef is None else dict(skip=t(rng.standard_normal((b, h, w, cout))),
+                                          skip_coef=coef)
+        out = ck.groupnorm_silu_conv3x3(*args, **kw)
+        ref = ck.groupnorm_silu_conv3x3_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ok = torch.allclose(out, ref, **KERNEL_TOL)
+        name = (f"gn_silu_conv3x3 {[b, h, w, cin]}->{cout}"
+                f"{'' if coef is None else f' +skip x{coef:.4f}'}")
+        timed = ""
+        if b == 1:  # the enhance path's shapes are timed; training's are checked
+            times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw),
+                           lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
+            bound_ms, bound_by = conv_bounds(b, h, w, cin, cout, coef is not None)["tf32x3"]
+            timed = f" | {describe(times, bound_ms, bound_by)}"
+        print(f"{name}: max_abs_err {err:.3e} ok {ok}{timed}")
+        worst["gn_silu_conv3x3"] = max(worst["gn_silu_conv3x3"], err)
+        if not ok:
+            failures.append(name)
+    for b, h, w, c in sorted(norms):
+        x = t(2 * rng.standard_normal((b, h, w, c)) + 1)
+        args = (x, t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c)),
+                min(c // 4, 32))
+        for apply_silu in (True, False):
+            out = ck.groupnorm_silu(*args, apply_silu=apply_silu)
+            ref = ck.groupnorm_silu_reference(*args, apply_silu=apply_silu)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            ok = torch.allclose(out, ref, **KERNEL_TOL)
+            name = f"groupnorm_silu {[b, h, w, c]} silu={apply_silu}"
+            timed = ""
+            if b == 1:
+                times = timing(torch, lambda: ck.groupnorm_silu(*args, apply_silu=apply_silu),
+                               lambda: ck.groupnorm_silu_reference(*args, apply_silu=apply_silu))
+                bound_ms, bound_by = bound((9 if apply_silu else 5) * x.numel(),
+                                           4 * (2 * x.numel() + 2 * c))
+                timed = f" | {describe(times, bound_ms, bound_by)}"
+            print(f"{name}: max_abs_err {err:.3e} ok {ok}{timed}")
+            worst["groupnorm_silu"] = max(worst["groupnorm_silu"], err)
+            if not ok:
+                failures.append(name)
+    print(f"backbones: {len(convs | extra)} fused-conv and {2 * len(norms)} groupnorm_silu call "
+          f"shapes against their plain versions; max_abs_err {worst} (tol {KERNEL_TOL})")
+    return failures
+
+
+def _graphed_vs_eager(torch, dev, label, model, waves, seed_base, failures, card):
+    """``enhance`` of each wave through its captured program against the eager
+    path on the same generator state (bitwise); prints each first call
+    (capture) and replay wall."""
+    from diffse_tpu_torch.utils import randn_like
+
+    for i, y in enumerate(waves):
+        seed = seed_base + i
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(seed))
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graphed = model.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(seed))
+        wall = time.perf_counter() - t0
+        gen = torch.Generator(dev).manual_seed(seed)
+        eager = model.enhance(y[None], y[None], noise=lambda like: randn_like(like, gen))
+        bitwise = bool(np.array_equal(graphed, eager))
+        err = float(np.max(np.abs(graphed - eager)) / np.max(np.abs(eager)))
+        print(f"{label}, {len(y) / SR:.2f} s utterance: first call (eager warm-up, capture, "
+              f"replay) {first:.3f} s, replay wall {wall:.4f} s per utterance, replay equal to "
+              f"eager bit for bit {bitwise} (max|diff|/max|eager| {err:.3e}), finite "
+              f"{bool(np.isfinite(graphed).all())} [{card}]")
+        if not bitwise or graphed.shape != y.shape or not np.isfinite(graphed).all():
+            failures.append(f"{label} {len(y) / SR} s: replay vs eager bitwise {bitwise}, "
+                            f"shape {graphed.shape}")
+
+
+def _card_vs_cpu(torch, label, model, make_cpu, y, failures):
+    """bbed_pc at ``BACKBONE_CPU_N`` steps, card against the port's CPU path,
+    both on CPU-drawn noise (``WAVEFORM_TOL``)."""
+    cpu = make_cpu()
+    cpu.backbone.load_state_dict({k: v.cpu() for k, v in model.backbone.state_dict().items()})
+    out = model.enhance(y[None], y[None], noise=cpu_noise(torch, 51), N=BACKBONE_CPU_N)
+    ref = cpu.enhance(y[None], y[None], noise=cpu_noise(torch, 51), N=BACKBONE_CPU_N)
+    err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+    print(f"{label}: bbed_pc N={BACKBONE_CPU_N}, card vs CPU on the same draws: "
+          f"max|diff|/max|ref| {err:.3e} (tol {WAVEFORM_TOL})")
+    if not err <= WAVEFORM_TOL:
+        failures.append(f"{label}: card vs CPU {err:.3e}")
+
+
+def _train_backbone(torch, ck, dev, label, model, steps, failures, card, expected=None):
+    """``steps`` train steps on one fixed batch of the CLI's 4 x 256 frames
+    (the same draws each step); finite losses, launches per step. Returns
+    the launch counts over the steps and the median step wall."""
+    from diffse_tpu_torch.train import TrainState, make_train_step
+
+    state = TrainState(model.backbone, lr=model.cfg.lr, ema_decay=model.cfg.ema_decay)
+    step = make_train_step(model, preprocess=model.prepare_batch)
+    n = (TRAIN_FRAMES - 1) * model.cfg.hop_length
+    rng = np.random.default_rng(52)
+    pairs = [synthetic_pair(rng, n) for _ in range(TRAIN_BATCH)]
+    wavs = (np.stack([c for c, _ in pairs]), np.stack([y for _, y in pairs]))
+    losses, walls, total = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, wavs, torch.Generator(dev).manual_seed(53))
+        losses.append(metrics["train_loss"].item())
+        walls.append(time.perf_counter() - t0)
+        counts = dict(ck.launch_counts)
+        total = counts if total is None else {k: total[k] + v for k, v in counts.items()}
+        if expected is not None and counts != expected:
+            failures.append(f"{label} step {i + 1}: launches {counts}, expected {expected}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: {steps} train steps on one batch of {TRAIN_BATCH} x {TRAIN_FRAMES} frames: "
+          f"losses {[f'{v:.6g}' for v in losses]}, step walls {[f'{w:.3f}' for w in walls]} s, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches per step "
+          f"{counts} [{card}]")
+    if not np.all(np.isfinite(losses)):
+        failures.append(f"{label}: losses {losses}")
+    return total
+
+
+def run_backbones(torch, ck, dev, card):
+    """Phase 14 ("backbones"): DCUNet and the DDPM++ NCSN++ at full width.
+    DCUNet (DilDCUNet-v2 at the training CLI's defaults, "bN", n_fft 512):
+    bbed_pc at N = 30 through its captured programs on 1.0 and 1.5 s
+    utterances against the eager path (bitwise), card vs CPU, three train
+    steps with the running statistics moving and finite, one ``cli.eval``
+    file from its checkpoint. DDPM++ (score_sde's settings, dropout 0.1):
+    bbed_pc graphed at 1.0 s with the kernels' launches per forward, a
+    forward card vs CPU, each of its fused-conv and groupnorm_silu call
+    shapes against the plain versions, three train steps with dropout on.
+    Returns the kernel runs by path."""
+    import os
+    import shutil
+    import tempfile
+
+    from diffse_tpu_torch.cli import eval as eval_cli
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.train import CheckpointManager, TrainState
+
+    sde_kwargs = SAMPLER_SDE_KWARGS["bbed"]
+    failures, paths = [], {}
+    rng = np.random.default_rng(54)
+    waves = [synthetic_pair(rng, int(s * SR))[1] for s in BACKBONE_SECONDS]
+
+    # (a) DCUNet
+    def dcunet(device):
+        cfg = ScoreModelConfig(backbone="dcunet", sde="bbed", model_type="bbed",
+                               n_fft=DCUNET_N_FFT)
+        return ScoreModel(cfg, backbone_kwargs=DCUNET_CLI, sde_kwargs=sde_kwargs, device=device,
+                          generator=torch.Generator().manual_seed(0))
+
+    model = dcunet(dev)
+    redraw_weights(torch, model.backbone, seed=55)
+    g = torch.Generator().manual_seed(56)
+    with torch.no_grad():
+        for p in model.backbone.output_layer.parameters():
+            p.mul_(DCUNET_OUTPUT_SCALE)
+        for name, b in model.backbone.named_buffers():
+            b.copy_((torch.rand(b.shape, generator=g) + 0.5) if name.endswith("var")
+                    else 0.1 * torch.randn(b.shape, generator=g))
+    n_params = sum(p.numel() for p in model.backbone.parameters())
+    ck.reset_launch_counts()
+    _graphed_vs_eager(torch, dev, f"dcunet ({n_params} params) bbed_pc N=30", model, waves, 60,
+                      failures, card)
+    paths["dcunet bbed_pc (graphed and eager)"] = card_runs(
+        dict(ck.launch_counts), [p for _, p in model._graphs.values()])
+    _card_vs_cpu(torch, "dcunet", model, lambda: dcunet("cpu"), waves[0], failures)
+    model.drop_programs()
+    before = {n: b.clone() for n, b in model.backbone.named_buffers()}
+    ck.reset_launch_counts()
+    paths["dcunet train"] = card_runs(_train_backbone(
+        torch, ck, dev, "dcunet", model, BACKBONE_TRAIN_STEPS, failures, card), [])
+    moved = sum(not torch.equal(before[n], b) for n, b in model.backbone.named_buffers())
+    finite = all(bool(torch.isfinite(b).all()) for b in model.backbone.buffers())
+    print(f"dcunet: running statistics moved in {moved} of {len(before)} buffers, finite {finite}")
+    if moved != len(before) or not finite:
+        failures.append(f"dcunet: statistics moved {moved}/{len(before)}, finite {finite}")
+    root = tempfile.mkdtemp(prefix="diffse_backbones_")
+    try:
+        ckpt = os.path.join(root, "dcunet")
+        CheckpointManager(ckpt, hparams=model.hparams).save(0, TrainState(model.backbone), {})
+        eval_dataset_root = os.path.join(root, "data")
+        from diffse_tpu_torch.data.synthetic import make_synthetic_dataset
+        make_synthetic_dataset(eval_dataset_root, num_train=0, num_valid=0, num_valid2=0,
+                               num_test=1, duration_s=1.2, seed=57)
+        out_dir = os.path.join(root, "out")
+        test_dir = os.path.join(eval_dataset_root, "test")
+        t0 = time.time()
+        eval_cli.main(["--destination_folder", out_dir, "--test_dir", test_dir, "--ckpt", ckpt])
+        rows = check_eval_outputs("dcunet cli.eval", out_dir, test_dir, failures)
+        print(f"dcunet: cli.eval of one file from its checkpoint in {time.time() - t0:.1f} s: "
+              f"{rows}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model
+
+    # (b) NCSN++ with score_sde's DDPM++ settings
+    def ddpmpp(device):
+        cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed")
+        return ScoreModel(cfg, backbone_kwargs=DDPMPP, sde_kwargs=sde_kwargs, device=device,
+                          generator=torch.Generator().manual_seed(0))
+
+    model = ddpmpp(dev)
+    redraw_weights(torch, model.backbone, seed=58)
+    n_params = sum(p.numel() for p in model.backbone.parameters())
+    y = waves[0]
+    ck.reset_launch_counts()
+    convs, norms = _kernel_calls(torch, model, lambda: _graphed_vs_eager(
+        torch, dev, f"ddpm++ ({n_params} params) bbed_pc N=30", model, [y], 70, failures, card))
+    programs = [p for _, p in model._graphs.values()]
+    per_forward = {k: v // 60 for k, v in programs[0].launch_counts.items()}
+    print(f"ddpm++: launches per forward in the captured program {per_forward} "
+          f"(expected {DDPMPP_EVAL_LAUNCHES})")
+    if per_forward != DDPMPP_EVAL_LAUNCHES:
+        failures.append(f"ddpm++: launches per forward {per_forward}")
+    paths["ddpm++ bbed_pc (graphed and eager)"] = card_runs(dict(ck.launch_counts), programs)
+    model.drop_programs()
+    shape = (1, 2, 256, 64)
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    x = torch.from_numpy(x.astype(np.complex64))
+    cpu = ddpmpp("cpu")
+    cpu.backbone.load_state_dict({k: v.cpu() for k, v in model.backbone.state_dict().items()})
+    with torch.no_grad():
+        out = model.backbone(x.to(dev), torch.tensor([0.5], device=dev)).cpu()
+        ref = cpu.backbone(x, torch.tensor([0.5]))
+    err = (out - ref).abs().max().item() / ref.abs().max().item()
+    print(f"ddpm++ forward (F=256 T=64): kernel path (card) vs plain path (CPU) "
+          f"max|diff|/max|ref| {err:.3e} (tol {FORWARD_TOL})")
+    if not err <= FORWARD_TOL:
+        failures.append(f"ddpm++ forward card vs CPU {err:.3e}")
+    del cpu
+    trained = []
+    train_convs, train_norms = _kernel_calls(torch, model, lambda: trained.append(_train_backbone(
+        torch, ck, dev, "ddpm++ (dropout 0.1)", model, BACKBONE_TRAIN_STEPS, failures, card,
+        expected=DDPMPP_TRAIN_LAUNCHES)))
+    paths["ddpm++ train (dropout)"] = card_runs(trained[0], [])
+    del model
+    failures += check_backbone_kernel_calls(torch, ck, dev, convs | train_convs,
+                                            norms | train_norms)
+    for label, path in paths.items():
+        print(f"{label}: kernel runs on the card {path['runs']}, recorded at capture "
+              f"{path['recorded']}")
+    if not paths["ddpm++ bbed_pc (graphed and eager)"]["runs"]["gn_silu_conv3x3"]:
+        failures.append("ddpm++: gn_silu_conv3x3 never ran")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -3354,7 +3704,8 @@ def main(argv=None) -> int:
                         ("serve", lambda: run_serving(torch, ck, dev)),
                         ("eval", lambda: run_eval(torch, ck, dev, card)),
                         ("snr_train", lambda: run_snr_train(torch, ck, dev, card)),
-                        ("export", lambda: run_export(torch, ck, dev, card))):
+                        ("export", lambda: run_export(torch, ck, dev, card)),
+                        ("backbones", lambda: run_backbones(torch, ck, dev, card))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -3378,7 +3729,7 @@ def main(argv=None) -> int:
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
              **results["train"][0], **results["serve"], **results["eval"],
-             **results["snr_train"], **results["export"]}
+             **results["snr_train"], **results["export"], **results["backbones"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1]}

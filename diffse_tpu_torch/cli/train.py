@@ -162,7 +162,8 @@ def main(argv=None):
     sde_kwargs = {k: v for k, v in vars(groups["SDE"]).items() if v is not None}
     backbone_kwargs = {k: (tuple(v) if isinstance(v, list) else v)
                        for k, v in vars(groups["Backbone"]).items()
-                       if v is not None and k not in backbone_cls.TPU_KERNEL_FLAGS}
+                       if v is not None
+                       and k not in getattr(backbone_cls, "TPU_KERNEL_FLAGS", ())}
 
     snr_net = None
     if args.snr_conditioned == "true" and args.snr_ckpt:

@@ -6,15 +6,20 @@ free. Parameter names and shapes follow the reference torch NCSN++ (conv
 weights OIHW, Linear ``[out, in]``, GroupNorm ``weight``/``bias``, NIN ``W``
 ``[in, units]``), so that the converter's state_dict loads with strict=True.
 
-Every GroupNorm runs through a hand-written kernel on the card
-(ops/cuda_kernels.py): the plain blocks' two GroupNorm -> SiLU -> conv3x3
-chains through ``groupnorm_silu_conv3x3`` (with the conditioning bias and the
-1/sqrt(2) residual in its epilogue), the resampling blocks' and the attention
-blocks' GroupNorms through ``groupnorm_silu``; both through their
-differentiable ops (``groupnorm_silu_conv3x3_op``, ``groupnorm_silu_op``), so
-that training runs the same kernels forward. The remaining convolutions
-(stem, 1x1 shortcuts, Combine, the resampling blocks' convs, output layer) and
-the attention einsums are plain PyTorch, as the JAX package leaves them to XLA.
+With the SiLU nonlinearity every GroupNorm runs through a hand-written
+kernel on the card (ops/cuda_kernels.py): the plain residual blocks' two
+GroupNorm -> SiLU -> conv3x3 chains (BigGAN-style and DDPM-style) through
+``groupnorm_silu_conv3x3`` (with the conditioning bias and the residual in
+its epilogue), the resampling blocks' and the attention blocks' GroupNorms
+through ``groupnorm_silu``; both through their differentiable ops
+(``groupnorm_silu_conv3x3_op``, ``groupnorm_silu_op``), so that training runs
+the same kernels forward. With dropout in training a block's second chain is
+``groupnorm_silu``, the dropout (flax's: ``h / keep`` where the caller's keep
+mask keeps), then its conv. Other nonlinearities run the blocks' chains in
+plain PyTorch, as the JAX package gates its kernels to SiLU. The remaining
+convolutions (stem, shortcuts, Combine, the up/down layers' convs, output
+layer) and the attention einsums are plain PyTorch, as the JAX package
+leaves them to XLA.
 
 The bf16 trunk (``NCSNpp(dtype="bf16")``) keeps the parameters in float32 and
 computes where the JAX package's bf16 path does (diffse_tpu/models/layers.py):
@@ -30,7 +35,7 @@ stay float32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,14 +43,49 @@ import torch.nn.functional as F
 
 from ..ops.cuda_kernels import (CONV_BK_BF16, groupnorm_silu_conv3x3_op, groupnorm_silu_op,
                                 needs_grad, pack_conv_weight_bf16, weight_casts)
-from ..ops.fir import downsample_2d, upsample_2d
+from ..ops.fir import (conv_downsample_2d, downsample_2d, naive_downsample_2d,
+                       naive_upsample_2d, upsample_2d, upsample_conv_2d)
 from ..utils import forbid_capture, round_once
+
+# keep_mask(shape, keep, device) -> bool tensor: where dropout keeps a value
+KeepMask = Callable[[Tuple[int, ...], float, torch.device], torch.Tensor]
 
 
 # The repo's NCSN++ configuration: FIR [1,3,3,1] resampling, residual sums
 # rescaled by 1/sqrt(2), last convs of each block initialised at scale 0.
 FIR_KERNEL = (1, 3, 3, 1)
 SKIP_COEF = 1.0 / math.sqrt(2.0)
+
+
+def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The NCSN++ nonlinearity by name: elu, relu, lrelu (slope 0.2) or
+    swish (SiLU)."""
+    if name == "elu":
+        return F.elu
+    if name == "relu":
+        return F.relu
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, negative_slope=0.2)
+    if name == "swish":
+        return F.silu
+    raise NotImplementedError("activation function does not exist!")
+
+
+def get_timestep_embedding(timesteps: torch.Tensor, embedding_dim: int,
+                           max_positions: int = 10000) -> torch.Tensor:
+    """Sinusoidal positional embedding ``[sin(t f), cos(t f)]`` of the
+    ``[B]`` timesteps over ``embedding_dim // 2`` geometric frequencies f
+    (zero-padded to an odd ``embedding_dim``), float32."""
+    if timesteps.ndim != 1:
+        raise ValueError("get_timestep_embedding takes [B] timesteps")
+    half_dim = embedding_dim // 2
+    emb = math.log(max_positions) / (half_dim - 1)
+    emb = torch.exp(torch.arange(half_dim, dtype=torch.float32, device=timesteps.device) * -emb)
+    emb = timesteps.float()[:, None] * emb[None, :]
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
+    if embedding_dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
 
 
 def num_groups_for(channels: int) -> int:
@@ -79,8 +119,11 @@ def default_init_(weight: torch.Tensor, scale: float = 1.0,
 
 
 def ddpm_conv(in_ch: int, out_ch: int, kernel: int, init_scale: float = 1.0,
-              generator: Optional[torch.Generator] = None) -> nn.Conv2d:
-    conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
+              generator: Optional[torch.Generator] = None, stride: int = 1,
+              padding: Optional[int] = None) -> nn.Conv2d:
+    """A conv with the DDPM initialisation; SAME padding unless given."""
+    conv = nn.Conv2d(in_ch, out_ch, kernel, stride=stride,
+                     padding=kernel // 2 if padding is None else padding)
     default_init_(conv.weight, init_scale, generator)
     nn.init.zeros_(conv.bias)
     return conv
@@ -156,10 +199,13 @@ def _sqrt2(dtype: torch.dtype) -> float:
     return _SQRT2[dtype]
 
 
-def residual(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """``(x + h) / sqrt(2)`` in x's dtype. The JAX package divides by the
-    Python float sqrt(2), a weakly typed scalar that takes the array's dtype:
-    in bfloat16 the divisor is bf16(sqrt(2)) = 1.4140625, and so it is here."""
+def residual(x: torch.Tensor, h: torch.Tensor, rescale: bool = True) -> torch.Tensor:
+    """``(x + h) / sqrt(2)`` in x's dtype (``x + h`` without ``rescale``). The
+    JAX package divides by the Python float sqrt(2), a weakly typed scalar that
+    takes the array's dtype: in bfloat16 the divisor is bf16(sqrt(2)) =
+    1.4140625, and so it is here."""
+    if not rescale:
+        return x + h
     return (x + h) / _sqrt2(x.dtype)
 
 
@@ -229,31 +275,42 @@ class GaussianFourierProjection(nn.Module):
 
 
 class Combine(nn.Module):
-    """Combine the input pyramid into the trunk: ``Conv_0(x) + y`` (sum), in
-    the trunk's dtype (y's)."""
+    """Combine the input pyramid into the trunk: ``Conv_0(x) + y`` (``sum``)
+    or ``[Conv_0(x), y]`` along the channels (``cat``), in the trunk's dtype
+    (y's)."""
 
-    def __init__(self, dim1: int, dim2: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, dim1: int, dim2: int, method: str = "sum",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        if method not in ("sum", "cat"):
+            raise ValueError(f"Method {method} not recognized.")
+        self.method = method
         self.Conv_0 = ddpm_conv(dim1, dim2, 1, generator=generator)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        return conv(self.Conv_0, x, y.dtype) + y
+        h = conv(self.Conv_0, x, y.dtype)
+        if self.method == "cat":
+            return torch.cat([h, y], dim=1)
+        return h + y
 
 
 class AttnBlockpp(nn.Module):
     """Dense spatial self-attention over HW tokens:
-    ``(x + NIN_3(softmax(q k^T / sqrt(C)) v)) / sqrt(2)``. For a bfloat16 x
-    the norm, q, k, v and softmax are float32; the attended map is rounded
-    to bf16 before ``NIN_3`` (float32 maths on it) and after, and the
-    residual sum is bf16, as in the JAX package."""
+    ``x + NIN_3(softmax(q k^T / sqrt(C)) v)``, divided by sqrt(2) with
+    ``skip_rescale``. For a bfloat16 x the norm, q, k, v and softmax are
+    float32; the attended map is rounded to bf16 before ``NIN_3`` (float32
+    maths on it) and after, and the residual sum is bf16, as in the JAX
+    package."""
 
-    def __init__(self, channels: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, channels: int, skip_rescale: bool = True, init_scale: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.skip_rescale = skip_rescale
         self.GroupNorm_0 = GroupNorm(channels)
         self.NIN_0 = NIN(channels, channels, generator=generator)
         self.NIN_1 = NIN(channels, channels, generator=generator)
         self.NIN_2 = NIN(channels, channels, generator=generator)
-        self.NIN_3 = NIN(channels, channels, init_scale=0.0, generator=generator)
+        self.NIN_3 = NIN(channels, channels, init_scale=init_scale, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
@@ -264,19 +321,259 @@ class AttnBlockpp(nn.Module):
         w = torch.softmax(w, dim=-1)
         h = torch.bmm(w, v).to(x.dtype).float()
         h = self.NIN_3.forward_nhwc(h).to(x.dtype).reshape(b, hh, ww, c)
-        return from_nhwc(residual(to_nhwc(x), h))
+        return from_nhwc(residual(to_nhwc(x), h, self.skip_rescale))
 
 
-class ResnetBlockBigGANpp(nn.Module):
-    """BigGAN-style residual block with in-block FIR up/down-sampling.
+class FirConv2d(nn.Module):
+    """Conv2d with fused FIR up/down-sampling (the StyleGAN2 layer): the
+    reference's ``up_or_down_sampling.Conv2d``, ``weight`` OIHW and ``bias``."""
 
-    Plain blocks run both GroupNorm -> SiLU -> conv3x3 chains as one kernel
-    each: the first with bias ``Conv_0.bias + Dense_0(SiLU(temb))`` (plus
-    ``Dense_1(SiLU(semb))`` in the SNR-conditioned variant), the second with
-    the residual ``(x' + h) / sqrt(2)`` in its epilogue. Up/down blocks run
-    GroupNorm+SiLU, FIR resampling, then the conv (the resampling sits between
-    norm and conv, so they cannot be fused), with the embeddings added after
-    ``Conv_0``.
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, up: bool = False,
+                 down: bool = False, resample_kernel=FIR_KERNEL, use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if up and down:
+            raise ValueError("FirConv2d: up or down, not both")
+        if kernel < 1 or kernel % 2 != 1:
+            raise ValueError(f"FirConv2d: odd kernel size needed, got {kernel}")
+        self.up, self.down = up, down
+        self.resample_kernel = tuple(resample_kernel)
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        default_init_(self.weight, 1.0, generator)
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.up:
+            x = upsample_conv_2d(x, self.weight, k=self.resample_kernel)
+        elif self.down:
+            x = conv_downsample_2d(x, self.weight, k=self.resample_kernel)
+        else:
+            x = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
+        if self.bias is not None:
+            x = x + self.bias[None, :, None, None]
+        return x
+
+
+class Upsample(nn.Module):
+    """2x upsample: nearest neighbour (then ``Conv_0``, a 3x3 conv, with
+    ``with_conv``), or FIR (fused with the conv ``Conv2d_0`` with
+    ``with_conv``)."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel=FIR_KERNEL,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv and not fir:
+            self.Conv_0 = ddpm_conv(in_ch, out_ch, 3, generator=generator)
+        elif with_conv:
+            self.Conv2d_0 = FirConv2d(in_ch, out_ch, 3, up=True, resample_kernel=fir_kernel,
+                                      generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            h = naive_upsample_2d(x, factor=2)
+            return self.Conv_0(h) if self.with_conv else h
+        if not self.with_conv:
+            return upsample_2d(x, self.fir_kernel, factor=2)
+        return self.Conv2d_0(x)
+
+
+class Downsample(nn.Module):
+    """2x downsample: a 3x3 stride-2 conv ``Conv_0`` on the map padded by one
+    row and column at the bottom and right (``with_conv``), or a 2x2 mean;
+    or FIR (fused with the conv ``Conv2d_0`` with ``with_conv``)."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
+                 fir: bool = False, fir_kernel=FIR_KERNEL,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv and not fir:
+            self.Conv_0 = ddpm_conv(in_ch, out_ch, 3, stride=2, padding=0, generator=generator)
+        elif with_conv:
+            self.Conv2d_0 = FirConv2d(in_ch, out_ch, 3, down=True, resample_kernel=fir_kernel,
+                                      generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fir:
+            if self.with_conv:
+                return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
+            return naive_downsample_2d(x, factor=2)
+        if not self.with_conv:
+            return downsample_2d(x, self.fir_kernel, factor=2)
+        return self.Conv2d_0(x)
+
+
+def dropout(h: torch.Tensor, rate: float, keep_mask: KeepMask) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in training: ``h / keep`` where the mask keeps,
+    0 elsewhere (keep = 1 - rate), the mask ``keep_mask(shape, keep,
+    device)``."""
+    if keep_mask is None:
+        raise ValueError(f"dropout={rate} in training needs keep masks (ScoreModel.loss_fn "
+                         "draws them from its generator; a direct call passes keep_mask=)")
+    keep = 1.0 - rate
+    mask = keep_mask(tuple(h.shape), keep, h.device)
+    return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
+
+
+def generator_keep_mask(generator: Optional[torch.Generator]) -> KeepMask:
+    """Keep masks drawn from ``generator``: Bernoulli(keep), as flax draws
+    them (a uniform draw below ``keep``)."""
+    def keep_mask(shape, keep, device):
+        return torch.rand(shape, generator=generator, device=device) < keep
+    return keep_mask
+
+
+class _ResnetBlock(nn.Module):
+    """What the two residual block types share: the nonlinearity, the dense
+    conditioning layers, dropout and the residual sum.
+
+    With the ``swish`` nonlinearity a block computes GroupNorm -> SiLU ->
+    conv3x3 through the fused ``groupnorm_silu_conv3x3`` kernel, the first
+    with the conditioning in its per-batch bias; with dropout active (in
+    training, rate > 0) the second chain runs ``groupnorm_silu``, the
+    dropout, then ``Conv_1``. Other nonlinearities run the plain chain
+    (``F.group_norm``, the activation, the convs), as the JAX package gates
+    its kernels to SiLU."""
+
+    def _init_common(self, in_ch: int, out_ch: int, temb_dim: Optional[int],
+                     semb_dim: Optional[int], act: str, dropout: float, skip_rescale: bool,
+                     init_scale: float, generator: Optional[torch.Generator]):
+        self.act = get_act(act)
+        self.fused = act == "swish"
+        self.dropout = dropout
+        self.skip_rescale = skip_rescale
+        self.skip_coef = SKIP_COEF if skip_rescale else 1.0
+        self.out_ch = out_ch
+        self.GroupNorm_0 = GroupNorm(in_ch)
+        self.Conv_0 = ddpm_conv(in_ch, out_ch, 3, generator=generator)
+        self.Dense_0 = ddpm_dense(temb_dim, out_ch, generator) if temb_dim else None
+        self.Dense_1 = ddpm_dense(semb_dim, out_ch, generator) if semb_dim else None
+        self.GroupNorm_1 = GroupNorm(out_ch)
+        self.Conv_1 = ddpm_conv(out_ch, out_ch, 3, init_scale=init_scale, generator=generator)
+
+    def _dense_biases(self, temb, semb, dtype):
+        """``Dense_0(act(temb))`` and ``Dense_1(act(semb))``, None where the
+        embedding or the layer is absent."""
+        temb_bias = (dense(self.Dense_0, self.act(temb), dtype)
+                     if self.Dense_0 is not None and temb is not None else None)
+        semb_bias = (dense(self.Dense_1, self.act(semb), dtype)
+                     if self.Dense_1 is not None and semb is not None else None)
+        return temb_bias, semb_bias
+
+    def _fused_bias0(self, batch, temb_bias, semb_bias):
+        """``Conv_0``'s bias plus the conditioning, float32 ``[B, out_ch]``."""
+        bias0 = self.Conv_0.bias[None, :]
+        for extra in (temb_bias, semb_bias):
+            if extra is not None:
+                bias0 = bias0 + extra.float()
+        if bias0.shape[0] != batch:
+            return bias0.expand(batch, self.out_ch)
+        return bias0.contiguous()
+
+    def _plain_gn_act(self, gn: "GroupNorm", x: torch.Tensor) -> torch.Tensor:
+        return self.act(F.group_norm(x, gn.num_groups, gn.weight, gn.bias, gn.eps))
+
+    def _dropping(self) -> bool:
+        return self.training and self.dropout > 0
+
+    def _second_chain(self, h, skip, keep_mask, dtype):
+        """``Conv_1(dropout(act(GroupNorm_1(h))))`` and the residual with
+        ``skip``, for maps h (NCHW) and skip (NCHW) in ``dtype``."""
+        if self.fused:
+            h = self.GroupNorm_1(h)
+        else:
+            h = self._plain_gn_act(self.GroupNorm_1, h)
+        if self._dropping():
+            h = dropout(h, self.dropout, keep_mask)
+        h = conv(self.Conv_1, h, dtype)
+        return residual(skip, h, self.skip_rescale)
+
+
+class ResnetBlockDDPMpp(_ResnetBlock):
+    """DDPM-style residual block: GroupNorm -> act -> ``Conv_0`` (+
+    ``Dense_0(act(temb))`` [+ ``Dense_1(act(semb))``]) -> GroupNorm -> act
+    -> dropout -> ``Conv_1``, plus the input (through ``NIN_0``, or the 3x3
+    ``Conv_2`` with ``conv_shortcut``, where the channels change), the sum
+    divided by sqrt(2) with ``skip_rescale``.
+
+    The JAX package's block has no compute dtype: its maps are float32
+    whatever the trunk's, and so they are here (the input is cast to
+    float32). With ``swish``, outside dropout, the two chains are one fused
+    kernel each, the second with the shortcut as its skip and ``skip_coef``
+    1/sqrt(2) or 1."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None,
+                 temb_dim: Optional[int] = None, semb_dim: Optional[int] = None,
+                 act: str = "swish", conv_shortcut: bool = False, dropout: float = 0.1,
+                 skip_rescale: bool = False, init_scale: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        out_ch = out_ch if out_ch else in_ch
+        self._init_common(in_ch, out_ch, temb_dim, semb_dim, act, dropout, skip_rescale,
+                          init_scale, generator)
+        self.Conv_2 = self.NIN_0 = None
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = ddpm_conv(in_ch, out_ch, 3, generator=generator)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch, generator=generator)
+        if self.fused:
+            hwio_memory_(self.Conv_0)
+            hwio_memory_(self.Conv_1)
+
+    def _shortcut(self, x: torch.Tensor) -> torch.Tensor:
+        if self.Conv_2 is not None:
+            return self.Conv_2(x)
+        if self.NIN_0 is not None:
+            return from_nhwc(self.NIN_0.forward_nhwc(to_nhwc(x)))
+        return x
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                semb: Optional[torch.Tensor] = None,
+                keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
+        x = x.float()
+        temb_bias, semb_bias = self._dense_biases(temb, semb, torch.float32)
+        skip = self._shortcut(x)
+        if self.fused:
+            bias0 = self._fused_bias0(x.shape[0], temb_bias, semb_bias)
+            h = groupnorm_silu_conv3x3_op(
+                to_nhwc(x), self.GroupNorm_0.weight, self.GroupNorm_0.bias,
+                conv_hwio(self.Conv_0), bias0, self.GroupNorm_0.num_groups,
+                self.GroupNorm_0.eps)
+            if not self._dropping():
+                bias1 = self.Conv_1.bias[None, :].expand(x.shape[0], self.out_ch)
+                out = groupnorm_silu_conv3x3_op(
+                    h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
+                    bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps,
+                    skip=to_nhwc(skip), skip_coef=self.skip_coef)
+                return from_nhwc(out)
+            h = from_nhwc(h)
+        else:
+            h = self.Conv_0(self._plain_gn_act(self.GroupNorm_0, x))
+            for extra in (temb_bias, semb_bias):
+                if extra is not None:
+                    h = h + extra[:, :, None, None]
+        return self._second_chain(h, skip, keep_mask, torch.float32)
+
+
+class ResnetBlockBigGANpp(_ResnetBlock):
+    """BigGAN-style residual block with in-block up/down-sampling (FIR, or
+    nearest neighbour / 2x2 mean with ``fir=False``).
+
+    Plain blocks with ``swish`` run both GroupNorm -> SiLU -> conv3x3 chains
+    as one kernel each: the first with bias ``Conv_0.bias +
+    Dense_0(SiLU(temb))`` (plus ``Dense_1(SiLU(semb))`` in the
+    SNR-conditioned variant), the second with the residual ``(x' + h) /
+    sqrt(2)`` (or ``x' + h`` without ``skip_rescale``) in its epilogue; with
+    dropout active the second chain is ``groupnorm_silu``, the dropout, then
+    ``Conv_1``. Up/down blocks run GroupNorm+act, the resampling, then the
+    conv (the resampling sits between norm and conv, so they cannot be
+    fused), with the embeddings added after ``Conv_0``. Other
+    nonlinearities run the plain chain.
 
     ``dtype`` is the block's compute dtype: its input is cast to it, and in
     bfloat16 the whole block runs in it (the dense layers too, whose output
@@ -284,26 +581,24 @@ class ResnetBlockBigGANpp(nn.Module):
     its two fused convs' weights packed in bf16 for the kernel
     (``packed_weight``), outside the state_dict."""
 
-    def __init__(self, in_ch: int, out_ch: Optional[int], temb_dim: int, up: bool = False,
-                 down: bool = False, semb_dim: Optional[int] = None,
+    def __init__(self, in_ch: int, out_ch: Optional[int], temb_dim: Optional[int],
+                 up: bool = False, down: bool = False, semb_dim: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, act: str = "swish", dropout: float = 0.0,
+                 fir: bool = True, fir_kernel=FIR_KERNEL, skip_rescale: bool = True,
+                 init_scale: float = 0.0):
         super().__init__()
         out_ch = out_ch if out_ch else in_ch
-        self.out_ch = out_ch
+        self._init_common(in_ch, out_ch, temb_dim, semb_dim, act, dropout, skip_rescale,
+                          init_scale, generator)
         self.compute_dtype = dtype
         self.up, self.down = up, down
-        self.GroupNorm_0 = GroupNorm(in_ch)
-        self.Conv_0 = ddpm_conv(in_ch, out_ch, 3, generator=generator)
-        self.Dense_0 = ddpm_dense(temb_dim, out_ch, generator)
-        self.Dense_1 = ddpm_dense(semb_dim, out_ch, generator) if semb_dim else None
-        self.GroupNorm_1 = GroupNorm(out_ch)
-        self.Conv_1 = ddpm_conv(out_ch, out_ch, 3, init_scale=0.0, generator=generator)
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
         if in_ch != out_ch or up or down:
             self.Conv_2 = ddpm_conv(in_ch, out_ch, 1, generator=generator)
         else:
             self.Conv_2 = None
-        if not (up or down):  # both convs run inside the fused kernel
+        if self.fused and not (up or down):  # both convs run inside the fused kernel
             hwio_memory_(self.Conv_0)
             hwio_memory_(self.Conv_1)
         # conv name -> ((device, data_ptr, _version), weight, packed): a plain
@@ -333,39 +628,45 @@ class ResnetBlockBigGANpp(nn.Module):
             self._packed[name] = cached
         return cached[2]
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor,
-                semb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _resample(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fir:
+            resample = upsample_2d if self.up else downsample_2d
+            return resample(x, self.fir_kernel, factor=2)
+        return (naive_upsample_2d if self.up else naive_downsample_2d)(x, factor=2)
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                semb: Optional[torch.Tensor] = None,
+                keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
         dtype = self.compute_dtype
         x = x.to(dtype)
         batch = x.shape[0]
-        temb_bias = dense(self.Dense_0, F.silu(temb), dtype)
-        semb_bias = dense(self.Dense_1, F.silu(semb), dtype) if self.Dense_1 is not None else None
-        if not (self.up or self.down):
+        temb_bias, semb_bias = self._dense_biases(temb, semb, dtype)
+        resampling = self.up or self.down
+        if self.fused and not resampling:
             x_nhwc = to_nhwc(x)
-            bias0 = self.Conv_0.bias[None, :] + temb_bias.float()
-            if semb_bias is not None:
-                bias0 = bias0 + semb_bias.float()
-            bias0 = bias0.contiguous()
             h = groupnorm_silu_conv3x3_op(
                 x_nhwc, self.GroupNorm_0.weight, self.GroupNorm_0.bias,
-                conv_hwio(self.Conv_0), bias0,
+                conv_hwio(self.Conv_0), self._fused_bias0(batch, temb_bias, semb_bias),
                 self.GroupNorm_0.num_groups, self.GroupNorm_0.eps,
                 w_packed=self.packed_weight("Conv_0"))
-            skip = (to_nhwc(conv(self.Conv_2, x, dtype)) if self.Conv_2 is not None
-                    else x_nhwc)
+            if self._dropping():
+                skip = conv(self.Conv_2, x, dtype) if self.Conv_2 is not None else x
+                return self._second_chain(from_nhwc(h), skip, keep_mask, dtype)
+            skip = to_nhwc(conv(self.Conv_2, x, dtype)) if self.Conv_2 is not None else x_nhwc
             bias1 = self.Conv_1.bias[None, :].expand(batch, self.out_ch)
             out = groupnorm_silu_conv3x3_op(
                 h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
-                bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps,
-                skip=skip, skip_coef=SKIP_COEF, w_packed=self.packed_weight("Conv_1"))
+                bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps, skip=skip,
+                skip_coef=self.skip_coef, w_packed=self.packed_weight("Conv_1"))
             return from_nhwc(out)
 
-        h = self.GroupNorm_0(x)
-        resample = upsample_2d if self.up else downsample_2d
-        h = resample(h, FIR_KERNEL, factor=2)
-        x = resample(x, FIR_KERNEL, factor=2)
-        h = conv(self.Conv_0, h, dtype) + temb_bias[:, :, None, None]
-        if semb_bias is not None:
-            h = h + semb_bias[:, :, None, None]
-        h = conv(self.Conv_1, self.GroupNorm_1(h), dtype)
-        return residual(conv(self.Conv_2, x, dtype), h)
+        h = self.GroupNorm_0(x) if self.fused else self._plain_gn_act(self.GroupNorm_0, x)
+        if resampling:
+            h = self._resample(h)
+            x = self._resample(x)
+        h = conv(self.Conv_0, h, dtype)
+        for extra in (temb_bias, semb_bias):
+            if extra is not None:
+                h = h + extra[:, :, None, None]
+        skip = conv(self.Conv_2, x, dtype) if self.Conv_2 is not None else x
+        return self._second_chain(h, skip, keep_mask, dtype)

@@ -6,12 +6,15 @@ Built as the reference torch NCSN++ builds it: one ``all_modules``
 ``convert.ncsnpp_correspondence`` emits, so that converted flax parameters
 and the reference's published checkpoints load with ``strict=True``.
 
-This is the repo's NCSN++ configuration: BigGAN residual blocks, FIR
-[1,3,3,1] resampling, Gaussian-Fourier time embedding, input_skip input
-pyramid with ``sum`` combine, output_skip output pyramid, SiLU. The trunk's
-GroupNorm chains run through the CUDA kernels (models/layers.py); the 7
-output-pyramid heads run GroupNorm -> SiLU -> conv3x3(->4 channels) as one
-``groupnorm_silu_conv3x3`` each. Maps are NCHW in channels_last memory.
+Every configuration of the JAX package's ``NCSNppBase`` builds (its fields,
+``NCSNppBase.__doc__``); the default is the repo's NCSN++: BigGAN residual
+blocks, FIR [1,3,3,1] resampling, Gaussian-Fourier time embedding,
+input_skip input pyramid with ``sum`` combine, output_skip output pyramid,
+SiLU. With SiLU the trunk's GroupNorm chains run through the CUDA kernels
+(models/layers.py), and every GroupNorm -> SiLU -> conv3x3 head (the output
+pyramid's, the residual pyramid's first, the output's) as one
+``groupnorm_silu_conv3x3``; other nonlinearities run plain PyTorch there,
+as the JAX package runs flax. Maps are NCHW in channels_last memory.
 
 ``dtype="bf16"`` is the JAX package's bf16 trunk (its ``use_pallas_groupnorm``
 and ``fuse_pyramid`` path): the parameters and the state_dict stay float32;
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.cuda_kernels import groupnorm_silu_conv3x3_op
-from ..ops.fir import downsample_2d, upsample_2d
+from ..ops.fir import downsample_2d, naive_downsample_2d, naive_upsample_2d, upsample_2d
 from ..utils import float32_precision, trunk_dtype
 from . import layers
 from .shared import BackboneRegistry
@@ -45,7 +48,24 @@ from .shared import BackboneRegistry
 
 class NCSNppBase(nn.Module):
     """NCSN++ with the time embedding alone, or with a second (noise)
-    embedding when ``snr_conditioning``."""
+    embedding when ``snr_conditioning``.
+
+    The configuration fields are the JAX package's ``NCSNppBase`` fields,
+    with its names and defaults (``diffse_tpu/models/ncsnpp.py``):
+    ``nonlinearity`` (swish, elu, relu, lrelu), ``resblock_type`` (biggan,
+    ddpm), ``fir``/``fir_kernel`` (FIR or naive resampling),
+    ``resamp_with_conv`` (the DDPM-style up/down layers' conv),
+    ``conditional`` (the time embedding's dense layers and every block's
+    ``Dense_0``), ``skip_rescale``, ``progressive`` (none, output_skip,
+    residual), ``progressive_input`` (none, input_skip, residual),
+    ``progressive_combine`` (sum, cat), ``init_scale``, ``fourier_scale``,
+    ``embedding_type`` (fourier, positional: the JAX package's repair of the
+    reference's dead positional path, dividing the output by the
+    conditioning value itself) and ``dropout`` (in training, with keep masks
+    from the caller: ``ScoreModel.loss_fn`` draws them from its generator).
+    ``scale_by_sigma`` is taken and, as in the JAX package, the output is
+    divided by the noise level whatever it says.
+    """
 
     snr_conditioning = False
 
@@ -53,53 +73,111 @@ class NCSNppBase(nn.Module):
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (16,),
                  image_size: int = 256, dtype: Optional[str] = None,
                  fuse_pyramid: bool = True, dropout: float = 0.0, remat: bool = False,
+                 scale_by_sigma: bool = True, nonlinearity: str = "swish",
+                 resamp_with_conv: bool = True, conditional: bool = True, fir: bool = True,
+                 fir_kernel: Sequence[int] = (1, 3, 3, 1), skip_rescale: bool = True,
+                 resblock_type: str = "biggan", progressive: str = "output_skip",
+                 progressive_input: str = "input_skip", progressive_combine: str = "sum",
+                 init_scale: float = 0.0, fourier_scale: float = 16.0,
+                 embedding_type: str = "fourier",
                  generator: Optional[torch.Generator] = None):
-        """``dtype``: the trunk's compute dtype, None (float32) or "bf16".
-        ``fuse_pyramid`` names the JAX package's flag; the port always runs
-        the pyramid heads fused (one kernel each) and takes no other value.
-        ``dropout``: the JAX package's default 0.0; the port's residual blocks
-        have no dropout, so a training forward (``train()`` mode) raises on
-        any other value. ``remat``: recompute each residual block's
-        activations in the backward pass (``torch.utils.checkpoint``, the
-        JAX package's ``nn.remat``) instead of keeping them."""
+        """``dtype``: the trunk's compute dtype, None (float32) or "bf16"
+        (the paper's configuration only: BigGAN blocks, swish, FIR,
+        skip_rescale, the output_skip / input_skip-sum pyramids, Fourier
+        embedding, conditional). ``fuse_pyramid`` names the JAX package's
+        flag; the port always runs the output pyramid's heads fused (one
+        kernel each, with swish) and takes no other value. ``remat``:
+        recompute each residual block's activations in the backward pass
+        (``torch.utils.checkpoint``, the JAX package's ``nn.remat``) instead
+        of keeping them."""
         super().__init__()
         if not fuse_pyramid:
             raise ValueError("the port runs the output pyramid's heads fused only "
                              "(fuse_pyramid=True)")
+        if progressive not in ("none", "output_skip", "residual"):
+            raise ValueError(f"progressive {progressive!r}: none, output_skip or residual")
+        if progressive_input not in ("none", "input_skip", "residual"):
+            raise ValueError(f"progressive_input {progressive_input!r}: none, input_skip or "
+                             "residual")
+        if resblock_type not in ("ddpm", "biggan"):
+            raise ValueError(f"resblock type {resblock_type} unrecognized.")
+        if embedding_type not in ("fourier", "positional"):
+            raise ValueError(f"embedding type {embedding_type} unknown.")
+        self.compute_dtype = trunk_dtype(dtype)
+        paper = dict(nonlinearity="swish", resblock_type="biggan", fir=True, skip_rescale=True,
+                     progressive="output_skip", progressive_input="input_skip",
+                     progressive_combine="sum", embedding_type="fourier", conditional=True)
+        given = dict(nonlinearity=nonlinearity, resblock_type=resblock_type, fir=fir,
+                     skip_rescale=skip_rescale, progressive=progressive,
+                     progressive_input=progressive_input,
+                     progressive_combine=progressive_combine.lower(),
+                     embedding_type=embedding_type, conditional=conditional)
+        if self.compute_dtype != torch.float32 and given != paper:
+            other = {k: v for k, v in given.items() if paper[k] != v}
+            raise NotImplementedError(f"the bf16 trunk is ported for the paper's NCSN++ "
+                                      f"configuration only, not with {other}")
         self.dropout = dropout
         self.remat = remat
-        self.compute_dtype = trunk_dtype(dtype)
+        self.nf = nf
+        self.act = layers.get_act(nonlinearity)
+        self.fused = nonlinearity == "swish"
+        self.conditional = conditional
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
+        self.skip_rescale = skip_rescale
+        self.resblock_type = resblock_type
+        self.progressive, self.progressive_input = progressive, progressive_input
+        self.combine_method = progressive_combine.lower()
+        self.embedding_type = embedding_type
         self.ch_mult = tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.attn_resolutions = tuple(attn_resolutions)
         num_resolutions = len(self.ch_mult)
         self.all_resolutions = [image_size // (2 ** i) for i in range(num_resolutions)]
-        num_channels = 4
-        temb_dim = nf * 4
+        channels = 4
+        temb_dim = nf * 4 if conditional else None
         semb_dim = temb_dim if self.snr_conditioning else None
         g = generator
 
         def resblock(in_ch, out_ch=None, up=False, down=False):
-            return layers.ResnetBlockBigGANpp(in_ch, out_ch, temb_dim, up=up, down=down,
-                                              semb_dim=semb_dim, generator=g,
-                                              dtype=self.compute_dtype)
+            if resblock_type == "ddpm":
+                return layers.ResnetBlockDDPMpp(
+                    in_ch, out_ch, temb_dim=temb_dim, semb_dim=semb_dim, act=nonlinearity,
+                    dropout=dropout, skip_rescale=skip_rescale, init_scale=init_scale,
+                    generator=g)
+            return layers.ResnetBlockBigGANpp(
+                in_ch, out_ch, temb_dim, up=up, down=down, semb_dim=semb_dim, generator=g,
+                dtype=self.compute_dtype, act=nonlinearity, dropout=dropout, fir=fir,
+                fir_kernel=fir_kernel, skip_rescale=skip_rescale, init_scale=init_scale)
 
         def attn(ch):
-            return layers.AttnBlockpp(ch, generator=g)
+            return layers.AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale,
+                                      generator=g)
+
+        def head(in_ch, out_ch, scale=init_scale):
+            """GroupNorm + conv3x3, the pyramid's and the output's heads."""
+            return [layers.GroupNorm(in_ch), layers.hwio_memory_(layers.ddpm_conv(
+                in_ch, out_ch, 3, init_scale=scale, generator=g))]
+
+        resample = dict(fir=fir, fir_kernel=fir_kernel, generator=g)
+        embed_dim = 2 * nf if embedding_type == "fourier" else nf
 
         def embedding():
-            return [layers.GaussianFourierProjection(nf, scale=16.0, generator=g)]
+            if embedding_type == "fourier":
+                return [layers.GaussianFourierProjection(nf, scale=fourier_scale, generator=g)]
+            return []
 
         def embedding_denses():
-            return [layers.ddpm_dense(2 * nf, temb_dim, g),
-                    layers.ddpm_dense(temb_dim, temb_dim, g)]
+            if not conditional:
+                return []
+            return [layers.ddpm_dense(embed_dim, nf * 4, g), layers.ddpm_dense(nf * 4, nf * 4, g)]
 
         # time_embed[, noise_embed], temb_dense_0/1[, semb_dense_0/1], stem conv
         snr = self.snr_conditioning
         modules = embedding() + (embedding() if snr else [])
         modules += embedding_denses() + (embedding_denses() if snr else [])
-        modules.append(layers.ddpm_conv(num_channels, nf, 3, generator=g))
+        modules.append(layers.ddpm_conv(channels, nf, 3, generator=g))
         in_ch = nf
+        input_pyramid_ch = channels
         hs_c = [nf]
         for i_level in range(num_resolutions):
             for _ in range(num_res_blocks):
@@ -110,12 +188,26 @@ class NCSNppBase(nn.Module):
                     modules.append(attn(in_ch))
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
-                modules.append(resblock(in_ch, down=True))
-                modules.append(layers.Combine(num_channels, in_ch, generator=g))
+                if resblock_type == "ddpm":
+                    modules.append(layers.Downsample(in_ch, with_conv=resamp_with_conv,
+                                                     **resample))
+                else:
+                    modules.append(resblock(in_ch, down=True))
+                if progressive_input == "input_skip":
+                    modules.append(layers.Combine(channels, in_ch, method=self.combine_method,
+                                                  generator=g))
+                    if self.combine_method == "cat":
+                        in_ch *= 2
+                elif progressive_input == "residual":
+                    modules.append(layers.Downsample(input_pyramid_ch, in_ch, with_conv=True,
+                                                     **resample))
+                    input_pyramid_ch = in_ch
                 hs_c.append(in_ch)
 
+        in_ch = hs_c[-1]
         modules += [resblock(in_ch), attn(in_ch), resblock(in_ch)]
 
+        pyramid_ch = 0
         for i_level in reversed(range(num_resolutions)):
             for _ in range(num_res_blocks + 1):
                 out_ch = nf * self.ch_mult[i_level]
@@ -123,14 +215,26 @@ class NCSNppBase(nn.Module):
                 in_ch = out_ch
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 modules.append(attn(in_ch))
-            modules.append(layers.GroupNorm(in_ch))
-            modules.append(layers.hwio_memory_(layers.ddpm_conv(
-                in_ch, num_channels, 3, init_scale=0.0, generator=g)))
+            if progressive == "output_skip":
+                modules += head(in_ch, channels)
+            elif progressive == "residual":
+                if i_level == num_resolutions - 1:
+                    modules += head(in_ch, in_ch, scale=1.0)
+                else:
+                    modules.append(layers.Upsample(pyramid_ch, in_ch, with_conv=True,
+                                                   **resample))
+                pyramid_ch = in_ch
             if i_level != 0:
-                modules.append(resblock(in_ch, up=True))
+                if resblock_type == "ddpm":
+                    modules.append(layers.Upsample(in_ch, with_conv=resamp_with_conv,
+                                                   **resample))
+                else:
+                    modules.append(resblock(in_ch, up=True))
+        if progressive != "output_skip":
+            modules += head(in_ch, channels)
 
         self.all_modules = nn.ModuleList(modules)
-        self.output_layer = layers.ddpm_conv(num_channels, 2, 1, generator=g)
+        self.output_layer = layers.ddpm_conv(channels, 2, 1, generator=g)
 
     # flags of the JAX package's command line that choose between its Pallas
     # kernels and XLA on the TPU: the port takes them and always runs its
@@ -159,100 +263,164 @@ class NCSNppBase(nn.Module):
                                  "backward pass (torch.utils.checkpoint)")
         return parser
 
-    @staticmethod
-    def _pyramid_head(h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
-        """GroupNorm -> SiLU -> conv3x3 to 4 channels, one fused kernel in h's
+    def _head(self, h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
+        """GroupNorm -> act -> conv3x3, with swish one fused kernel in h's
         dtype; the head's output as float32."""
+        if not self.fused:
+            h = self.act(F.group_norm(h, gn.num_groups, gn.weight, gn.bias, gn.eps))
+            return conv(h).float()
         bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
         out = groupnorm_silu_conv3x3_op(layers.to_nhwc(h), gn.weight, gn.bias,
                                         layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
         return layers.from_nhwc(out).float()
 
     def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,
-                 noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
-        """``noise_cond`` is read when ``snr_conditioning``. What the network
-        computes in float32 runs on the card without TF32 in its cuDNN
-        convolutions and matmuls, whatever the process-wide setting."""
-        if self.training and self.dropout:
-            raise NotImplementedError(f"dropout={self.dropout} in training: the port's "
-                                      "residual blocks have no dropout yet (0.0 only)")
+                 noise_cond: Optional[torch.Tensor],
+                 keep_mask: Optional[layers.KeepMask] = None) -> torch.Tensor:
+        """``noise_cond`` is read when ``snr_conditioning``; ``keep_mask``
+        gives dropout's masks in training (``layers.dropout``). What the
+        network computes in float32 runs on the card without TF32 in its
+        cuDNN convolutions and matmuls, whatever the process-wide setting."""
         with float32_precision(x.device):
-            return self._forward_trunk(x, time_cond, noise_cond)
+            return self._forward_trunk(x, time_cond, noise_cond, keep_mask)
 
-    def _block(self, module: nn.Module, *args) -> torch.Tensor:
+    def _block(self, module: nn.Module, keep_mask, *args) -> torch.Tensor:
         """A residual block's call; with ``remat`` where autograd records, one
-        that keeps only its inputs and recomputes the rest in the backward."""
+        that keeps only its inputs and recomputes the rest in the backward
+        (with the same dropout masks)."""
         if self.remat and torch.is_grad_enabled():
-            return torch.utils.checkpoint.checkpoint(module, *args, use_reentrant=False)
-        return module(*args)
+            replay = _ReplayMasks(keep_mask) if keep_mask is not None else None
+
+            def run(*inputs):
+                if replay is not None:
+                    replay.rewind()
+                return module(*inputs, keep_mask=replay)
+
+            return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+        return module(*args, keep_mask=keep_mask)
+
+    def _resample_pyramid(self, x: torch.Tensor, up: bool) -> torch.Tensor:
+        """The parameter-free pyramid resampling: FIR, or nearest neighbour
+        / 2x2 mean."""
+        if self.fir:
+            return (upsample_2d if up else downsample_2d)(x, self.fir_kernel, factor=2)
+        return (naive_upsample_2d if up else naive_downsample_2d)(x, factor=2)
 
     def _forward_trunk(self, x: torch.Tensor, time_cond: torch.Tensor,
-                       noise_cond: Optional[torch.Tensor]) -> torch.Tensor:
+                       noise_cond: Optional[torch.Tensor], keep_mask) -> torch.Tensor:
         modules = iter(self.all_modules)
         num_resolutions = len(self.ch_mult)
         snr = self.snr_conditioning
+        act = self.act
 
         h = torch.stack([x[:, 0].real, x[:, 0].imag, x[:, 1].real, x[:, 1].imag], dim=1)
         h = h.contiguous(memory_format=torch.channels_last)
 
-        temb = next(modules)(torch.log(time_cond))
-        semb = next(modules)(torch.log(noise_cond)) if snr else None
-        temb = next(modules)(temb)
-        temb = next(modules)(F.silu(temb))
-        if snr:
-            semb = next(modules)(semb)
-            semb = next(modules)(F.silu(semb))
+        if self.embedding_type == "fourier":
+            temb = next(modules)(torch.log(time_cond))
+            semb = next(modules)(torch.log(noise_cond)) if snr else None
+        else:
+            temb = layers.get_timestep_embedding(time_cond, self.nf)
+            semb = layers.get_timestep_embedding(noise_cond, self.nf) if snr else None
+        if self.conditional:
+            temb = next(modules)(temb)
+            temb = next(modules)(act(temb))
+            if snr:
+                semb = next(modules)(semb)
+                semb = next(modules)(act(semb))
+        else:
+            temb = semb = None
+
+        def block(h_in):
+            return self._block(next(modules), keep_mask, h_in, temb, semb)
 
         input_pyramid = h
         hs = [layers.conv(next(modules), h, self.compute_dtype)]
         for i_level in range(num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = self._block(next(modules), hs[-1], temb, semb)
+                h = block(hs[-1])
                 if self.all_resolutions[i_level] in self.attn_resolutions:
                     h = next(modules)(h)
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = self._block(next(modules), hs[-1], temb, semb)
-                input_pyramid = downsample_2d(input_pyramid, layers.FIR_KERNEL, factor=2)
-                h = next(modules)(input_pyramid, h)
+                h = next(modules)(hs[-1]) if self.resblock_type == "ddpm" else block(hs[-1])
+                if self.progressive_input == "input_skip":
+                    input_pyramid = self._resample_pyramid(input_pyramid, up=False)
+                    h = next(modules)(input_pyramid, h)
+                elif self.progressive_input == "residual":
+                    input_pyramid = layers.residual(next(modules)(input_pyramid), h,
+                                                    self.skip_rescale)
+                    h = input_pyramid
                 hs.append(h)
 
         h = hs[-1]
-        h = self._block(next(modules), h, temb, semb)
+        h = block(h)
         h = next(modules)(h)
-        h = self._block(next(modules), h, temb, semb)
+        h = block(h)
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = self._block(next(modules), torch.cat([h, hs.pop()], dim=1), temb, semb)
+                h = block(torch.cat([h, hs.pop()], dim=1))
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = next(modules)(h)
-            head = self._pyramid_head(h, next(modules), next(modules))
-            if pyramid is None:
-                pyramid = head
-            else:
-                pyramid = upsample_2d(pyramid, layers.FIR_KERNEL, factor=2) + head
+            if self.progressive == "output_skip":
+                head = self._head(h, next(modules), next(modules))
+                if pyramid is None:
+                    pyramid = head
+                else:
+                    pyramid = self._resample_pyramid(pyramid, up=True) + head
+            elif self.progressive == "residual":
+                if pyramid is None:
+                    pyramid = self._head(h, next(modules), next(modules))
+                else:
+                    pyramid = layers.residual(next(modules)(pyramid), h, self.skip_rescale)
+                    h = pyramid
             if i_level != 0:
-                h = self._block(next(modules), h, temb, semb)
+                h = next(modules)(h) if self.resblock_type == "ddpm" else block(h)
+
+        if self.progressive == "output_skip":
+            h = pyramid
+        else:
+            h = self._head(h, next(modules), next(modules))
 
         used_sigmas = noise_cond if snr else time_cond
-        h = pyramid / used_sigmas[:, None, None, None]
+        h = h / used_sigmas[:, None, None, None]
         h = self.output_layer(h)
         return torch.complex(h[:, 0], h[:, 1])[:, None]
+
+
+class _ReplayMasks:
+    """Keep masks drawn once and given again: a checkpointed block's
+    recompute in the backward replays the masks its forward drew."""
+
+    def __init__(self, keep_mask):
+        self.keep_mask, self.masks, self.i = keep_mask, [], 0
+
+    def rewind(self) -> None:
+        self.i = 0
+
+    def __call__(self, shape, keep, device):
+        if self.i == len(self.masks):
+            self.masks.append(self.keep_mask(shape, keep, device))
+        mask = self.masks[self.i]
+        self.i += 1
+        return mask
 
 
 @BackboneRegistry.register("ncsnpp")
 class NCSNpp(NCSNppBase):
     """NCSN++: ``(x complex [B, 2, F, T], t [B]) -> complex score [B, 1, F, T]``."""
 
-    def forward(self, x: torch.Tensor, time_cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
+                keep_mask: Optional[layers.KeepMask] = None) -> torch.Tensor:
         """Args:
             x: complex ``[B, 2, F, T]``: channel 0 the diffusion state, channel 1
                the conditioning spectrogram.
             time_cond: ``[B]`` diffusion time.
+            keep_mask: dropout's masks in training (``layers.dropout``).
         """
-        return self._forward(x, time_cond, None)
+        return self._forward(x, time_cond, None, keep_mask)
 
 
 @BackboneRegistry.register("ncsnpp_snr")
@@ -263,10 +431,12 @@ class NCSNppSNR(NCSNppBase):
     snr_conditioning = True
 
     def forward(self, x: torch.Tensor, time_cond: torch.Tensor,
-                noise_cond: torch.Tensor) -> torch.Tensor:
+                noise_cond: torch.Tensor,
+                keep_mask: Optional[layers.KeepMask] = None) -> torch.Tensor:
         """Args:
             x: complex ``[B, 2, F, T]``, as for ``NCSNpp``.
             time_cond: ``[B]`` diffusion time.
             noise_cond: ``[B]`` noise level (SNR conditioning).
+            keep_mask: dropout's masks in training (``layers.dropout``).
         """
-        return self._forward(x, time_cond, noise_cond)
+        return self._forward(x, time_cond, noise_cond, keep_mask)

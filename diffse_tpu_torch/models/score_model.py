@@ -69,7 +69,8 @@ from ..transforms import (
     width_bucket,
 )
 from ..utils import generator_noise, model_device, randn_like, to_device
-from . import ncsnpp  # noqa: F401  (registers the "ncsnpp" and "ncsnpp_snr" backbones)
+from . import dcunet, ncsnpp  # noqa: F401  (register the backbones)
+from .layers import KeepMask, generator_keep_mask
 from .shared import BackboneRegistry
 from .snr_model import snr_from_normalized_wav
 
@@ -246,15 +247,18 @@ class ScoreModel:
 
     # --------------------------------------------------------------- forward
     def _apply_backbone(self, dnn_input: torch.Tensor, t: torch.Tensor,
-                        s: Optional[torch.Tensor], variables: Optional[dict]) -> torch.Tensor:
+                        s: Optional[torch.Tensor], variables: Optional[dict],
+                        keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
         args = (dnn_input, t, s if s is not None else t) if self.backbone_takes_noise_cond \
             else (dnn_input, t)
+        kwargs = {} if keep_mask is None else {"keep_mask": keep_mask}
         if variables is None:
-            return self.backbone(*args)
-        return torch.func.functional_call(self.backbone, variables, args)
+            return self.backbone(*args, **kwargs)
+        return torch.func.functional_call(self.backbone, variables, args, kwargs)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, y: torch.Tensor,
-                s: Optional[torch.Tensor] = None, variables: Optional[dict] = None) -> torch.Tensor:
+                s: Optional[torch.Tensor] = None, variables: Optional[dict] = None,
+                keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
         """Score (bbed) or consistency output (the sebridge family).
 
         Args:
@@ -265,13 +269,15 @@ class ScoreModel:
             variables: the backbone's parameters and buffers by name (e.g. the
                 EMA weights, ``train.state.eval_variables``) in place of its
                 own, through ``torch.func.functional_call``.
+            keep_mask: dropout's keep masks for a backbone in training mode
+                (``models.layers.dropout``).
         """
         cfg = self.cfg
         kind = PARAMETERISATION.get((cfg.snr_conditioned, cfg.model_type))
         if kind is None:
             raise ValueError(f"Unsupported (snr_conditioned={cfg.snr_conditioned}, "
                              f"model_type={cfg.model_type})")
-        raw = self._apply_backbone(torch.cat([x, y], dim=1), t, s, variables)
+        raw = self._apply_backbone(torch.cat([x, y], dim=1), t, s, variables, keep_mask)
         if kind == "score":
             return -raw
         eps, sigma_data = 0.001, 0.5
@@ -331,16 +337,38 @@ class ScoreModel:
                 variables: Optional[dict] = None) -> torch.Tensor:
         """The training (or validation) loss of ``batch`` (``prepare_batch``'s
         output; entries after X and Y are ignored) with draws from
-        ``generator``: ``loss_from_draws`` of ``draw_loss_noise``."""
-        return self.loss_from_draws(batch, self.draw_loss_noise(batch[0], generator),
-                                    train=train, variables=variables)
+        ``generator``: ``loss_from_draws`` of ``draw_loss_noise``, and in
+        training dropout's keep masks drawn from ``generator`` too, after
+        those, as the network reaches each dropout."""
+        draws = self.draw_loss_noise(batch[0], generator)
+        keep_mask = (generator_keep_mask(generator)
+                     if train and getattr(self.backbone, "dropout", 0) else None)
+        return self.loss_from_draws(batch, draws, train=train, variables=variables,
+                                    keep_mask=keep_mask)
+
+    def _running_stats(self) -> list:
+        """The backbone's buffers (DCUNet's BatchNorm statistics) with a copy
+        of each, to put back (``_restore_stats``)."""
+        return [(b, b.detach().clone()) for b in self.backbone.buffers()]
+
+    @staticmethod
+    def _restore_stats(saved: list) -> None:
+        with torch.no_grad():
+            for b, value in saved:
+                b.copy_(value)
 
     def loss_from_draws(self, batch, draws: dict, train: bool = True,
-                        variables: Optional[dict] = None) -> torch.Tensor:
+                        variables: Optional[dict] = None,
+                        keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
         """The loss of ``batch = (X, Y, ...)`` given the draws (see
         ``draw_loss_noise``), per (snr_conditioned x model_type) as the JAX
-        package's ``loss_fn``. ``train`` sets the backbone's mode (its only
-        effect is on dropout); ``variables`` as for ``forward``."""
+        package's ``loss_fn``. ``train`` sets the backbone's mode (dropout,
+        with ``keep_mask``'s masks, and DCUNet's BatchNorm, whose running
+        statistics then update); ``variables`` as for ``forward``.
+
+        The consistency losses run the network twice; the statistics that
+        stay are those of the second run, each updated from where the step
+        began, as the JAX package keeps the second run's updates."""
         cfg = self.cfg
         x, y = batch[0], batch[1]
         self.backbone.train(train)
@@ -350,7 +378,7 @@ class ScoreModel:
                              f"model_type={cfg.model_type})")
 
         def forward(x_, t_, y_):
-            return self.forward(x_, t_, y_, variables=variables)
+            return self.forward(x_, t_, y_, variables=variables, keep_mask=keep_mask)
 
         if key == ("false", "bbed"):
             t = draws["t"]
@@ -404,7 +432,9 @@ class ScoreModel:
                 mu_tn1 = spec_fwd(x_b * (1 - tn1) + y_b * tn1, self.spec_cfg)
             x_tn, x_tn1 = mu_tn + tn * z, mu_tn1 + tn1 * z
             cond, cond1 = mu_tn, mu_tn1
+        stats = self._running_stats() if train else []
         f = forward(x_tn1, tn1[:, 0, 0, 0], cond1)
+        self._restore_stats(stats)
         f_m = forward(x_tn, tn[:, 0, 0, 0], cond)
         return self._consistency_loss(f, f_m)
 

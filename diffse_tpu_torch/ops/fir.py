@@ -1,8 +1,9 @@
 """StyleGAN2-style FIR up/down-sampling built on upfirdn2d (NCHW).
 
-Port of diffse_tpu/ops/fir.py (upsample_2d, downsample_2d and the naive
-variants); the conv-fused variants are not on the NCSN++ path and are left
-out.
+Port of diffse_tpu/ops/fir.py: ``upsample_2d``, ``downsample_2d``, the naive
+variants, and the conv-fused ``upsample_conv_2d`` / ``conv_downsample_2d``
+that ``FirConv2d`` runs (the transposed or strided conv through cuDNN, the
+FIR through ``upfirdn2d``'s plain path).
 
 ``upsample_2d`` and ``downsample_2d`` build their depthwise filter once per
 (kernel, gain, factor, direction, channels, dtype, device) and keep it on the
@@ -74,3 +75,42 @@ def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -
     weight = _fir_weight(k, gain, factor, False, x)
     p = weight.shape[-1] - factor
     return upfirdn2d_depthwise(x, weight, down=factor, pad=((p + 1) // 2, p // 2))
+
+
+def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k=None, factor: int = 2,
+                     gain: float = 1.0) -> torch.Tensor:
+    """Fused ``factor``x upsample + conv (the StyleGAN2 layer): the conv on
+    the zero-stuffed input, with a full (kh - 1) padding, then the FIR.
+
+    Args:
+        x: ``[N, Cin, H, W]``.
+        w: ``[Cout, Cin, kh, kw]`` (OIHW), square.
+
+    The JAX package correlates ``w`` with the input dilated by ``factor``
+    (``lhs_dilation``); a transposed conv of stride ``factor`` with the
+    kernel flipped and its in/out axes swapped is that correlation.
+    """
+    kh, kw = w.shape[2], w.shape[3]
+    if kh != kw:
+        raise ValueError(f"upsample_conv_2d: square kernels only, got {kh}x{kw}")
+    h = F.conv_transpose2d(x, torch.flip(w, (2, 3)).transpose(0, 1).to(x.dtype), stride=factor)
+    weight = _fir_weight(k, gain, factor, True, h)
+    p = (weight.shape[-1] - factor) - (kh - 1)
+    return upfirdn2d_depthwise(h, weight, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k=None, factor: int = 2,
+                       gain: float = 1.0) -> torch.Tensor:
+    """Fused FIR filter + stride-``factor`` conv (VALID).
+
+    Args:
+        x: ``[N, Cin, H, W]``.
+        w: ``[Cout, Cin, kh, kw]`` (OIHW), square.
+    """
+    kh, kw = w.shape[2], w.shape[3]
+    if kh != kw:
+        raise ValueError(f"conv_downsample_2d: square kernels only, got {kh}x{kw}")
+    weight = _fir_weight(k, gain, factor, False, x)
+    p = (weight.shape[-1] - factor) + (kh - 1)
+    x = upfirdn2d_depthwise(x, weight, pad=((p + 1) // 2, p // 2))
+    return F.conv2d(x, w.to(x.dtype), stride=factor)

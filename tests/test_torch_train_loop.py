@@ -215,12 +215,22 @@ def test_loop_refuses_enhancement_metrics_and_unported_options():
 
 
 def test_dropout_in_training_raises():
+    """Dropout in training needs keep masks: a training forward of the
+    backbone without them raises; ``loss_fn`` draws them from its generator
+    and trains (a finite loss, other than the validation loss)."""
     model = ScoreModel(ScoreModelConfig(model_type="sebridge_v2", sde="bbed", **STFT),
                        backbone_kwargs={**TINY, "dropout": 0.1}, sde_kwargs=SDE_KWARGS,
-                       device="cpu")
+                       device="cpu", generator=torch.Generator().manual_seed(0))
     x = torch.zeros((1, 1, 16, 16), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model.loss_fn((x, x), torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="dropout"):
+        model.backbone.train()(torch.cat([x, x], dim=1), torch.full((1,), 0.5))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((1, 1, 16, 16))
+                          + 1j * rng.standard_normal((1, 1, 16, 16))).astype(np.complex64))
+    with torch.no_grad():
+        train = model.loss_fn((x, x), torch.Generator().manual_seed(0))
+        valid = model.loss_fn((x, x), torch.Generator().manual_seed(0), train=False)
+    assert torch.isfinite(train) and not torch.equal(train, valid)
 
 
 def test_remat_gives_the_same_gradients():
