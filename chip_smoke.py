@@ -231,6 +231,25 @@ Phases, each of which must pass:
    shapes timed beside their bounds). Walls, capture times and peak
    memory are printed beside the card's name and power limit.
 
+15. Parallelism ("parallel"), the paper's 65.6M model (weights redrawn from
+   ``TRAIN_WEIGHT_SEED``, float32 pinned) at the CLI's 4 x 256 frames, every
+   step from the same weights, batch and generator seed: (1) in this
+   process, one train step without a mesh and one on a world-size-1 NCCL
+   mesh (``make_train_step(mesh=make_mesh())``): loss, reduced gradients
+   and weights bitwise equal, 162 / 56 launches, and the step walls of
+   both; (3) ``chain_steps`` 2 against two single steps on two batches:
+   bitwise equal weights and EMA, the last loss, 324 / 112 launches; (2)
+   ``PARALLEL_RANKS`` ranks spawned on the one card under gloo
+   (``parallel.dryrun.launch``; NCCL refuses two ranks on one device), each
+   a data-parallel step on its 2 rows of the batch of 4 and then a
+   ``(1, 2)`` tensor-parallel step, held to the one-process step: the loss
+   within ``PARALLEL_LOSS_RTOL``, the reduced gradients within
+   ``PARALLEL_GRAD_TOL`` of their largest magnitude, the weights after
+   Adam within ``PARALLEL_PARAM_ATOL`` (2 lr where the reference gradient
+   is within the gradient tolerance of zero, whose sign Adam's first step
+   follows); each rank's walls, peak memory, launches and the bytes it
+   keeps of weights, EMA and moments against one device's.
+
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
 
@@ -3650,6 +3669,369 @@ def run_backbones(torch, ck, dev, card):
     return paths
 
 
+# ---------------------------------------------------------------- parallel
+# phase 15 ("parallel"): the paper's 65.6M model (weights redrawn from
+# TRAIN_WEIGHT_SEED, float32 pinned) on the CLI's 4 x 256 frames; the
+# one-process step is the reference of every multi-rank step
+PARALLEL_SEED = 19            # the loss's generator
+PARALLEL_RANKS = 2            # on the one card, gloo (NCCL refuses two ranks on one device)
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_GRAD_TOL = 1e-4      # of each gradient's largest magnitude, as phase 9
+# Adam's first step moves each weight by lr * g / (|g| + eps), ~lr * sign(g):
+# a weight whose reference gradient is within PARALLEL_GRAD_TOL of zero may
+# take the other sign through another summation order, so it is held to
+# 2 lr (+ PARALLEL_PARAM_ATOL for the rounding of p +- lr); every other
+# weight to PARALLEL_PARAM_ATOL
+PARALLEL_PARAM_ATOL = 2e-6
+PARALLEL_STEPS = 2            # a rank's checked step, then a timed one
+PARALLEL_TIMED = 3            # world size 1: timed steps of each, in turns
+PARALLEL_LAUNCHES = {"gn_silu_conv3x3": 2 * 81, "groupnorm_silu": 2 * 28,
+                     "fused_bias_leaky_relu": 0}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms inside the block (its default
+    backward algorithms sum by atomics): what bitwise checks run under."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def parallel_model(torch, dev, backbone_kwargs, weights):
+    """The paper's model on ``dev`` with the given weights (a state_dict)."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    model = ScoreModel(ScoreModelConfig(**PAPER_CONFIG), backbone_kwargs=backbone_kwargs,
+                       sde_kwargs=PAPER_SDE_KWARGS, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    model.backbone.load_state_dict(weights)
+    return model
+
+
+def compare_step(state, ref, local=None):
+    """A step's reduced gradients and updated weights against the
+    one-process step's (``ref``: "grads", "params" by name, whole, on the
+    CPU): the worst gradient gap of its largest magnitude, the worst weight
+    gap where the reference gradient is clear of zero and where it is not,
+    and how many weights moved by more than ``PARALLEL_PARAM_ATOL``.
+    ``local(i, t)`` maps a whole tensor to this rank's part."""
+    local = local or (lambda i, t: t)
+    grad_gap, clear_gap, band_gap, moved = 0.0, 0.0, 0.0, 0
+    worst = ""
+    for i, (name, g) in enumerate(zip(state.names, state.last_grads)):
+        ref_g = local(i, ref["grads"][name]).to(g.device)
+        scale = gradient_scale(ref["grads"], name)
+        gap = ((g - ref_g).abs().max().item() / scale) if scale > 0 else 0.0
+        if gap > grad_gap:
+            grad_gap, worst = gap, name
+        diff = (state.params[i].detach() - ref["params"][name].to(g.device)).abs()
+        band = ref["grads"][name].abs().to(g.device) <= PARALLEL_GRAD_TOL * scale
+        clear_gap = max(clear_gap, diff[~band].max().item() if (~band).any() else 0.0)
+        band_gap = max(band_gap, diff[band].max().item() if band.any() else 0.0)
+        moved += int((diff > PARALLEL_PARAM_ATOL).sum())
+    return {"grad_gap": grad_gap, "worst_grad": worst, "param_gap": clear_gap,
+            "band_param_gap": band_gap, "params_over_atol": moved}
+
+
+def state_bytes(state):
+    """Bytes this rank keeps of the trained parameters (whole, the compute's)
+    and of their training state: its part of the weights (what Adam
+    updates), the EMA and Adam's two moments."""
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    moments = [v for st in state.optimizer.state.values() for k, v in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    return {"params_whole": nbytes(state.params), "params_local": nbytes(state.local),
+            "ema": nbytes(state.ema), "moments": nbytes(moments)}
+
+
+def _parallel_rank(rank, workdir, backbone_kwargs, device):
+    """One rank of phase 15's two: a data-parallel step on a 1-D mesh, then a
+    (1, 2) tensor-parallel step, each from the reference's weights on its
+    rows of the reference's batch, with the reference's draws; returns the
+    checks, walls, peak memory, launches and state bytes."""
+    import os
+
+    import torch
+
+    from diffse_tpu_torch.ops import cuda_kernels as ck
+    from diffse_tpu_torch.parallel import make_2d_mesh, make_mesh, shard_batch
+    from diffse_tpu_torch.train import TrainState, make_train_step
+
+    dev = torch.device(device)
+    ref = torch.load(os.path.join(workdir, "reference.pt"), weights_only=False)
+    wavs = ref["wavs"]
+    out = {}
+    for label, make in (("dp", lambda: make_mesh(dev.type)),
+                        ("tp", lambda: make_2d_mesh(1, PARALLEL_RANKS, dev.type))):
+        model = parallel_model(torch, dev, backbone_kwargs, ref["weights"])
+        mesh = make()
+        state = TrainState(model.backbone, lr=model.cfg.lr, ema_decay=model.cfg.ema_decay,
+                           mesh=mesh)
+        state.keep_gradients = True
+        step = make_train_step(model, preprocess=model.prepare_batch, mesh=mesh)
+        rows = shard_batch(mesh, wavs)
+        walls, losses, counts = [], [], None
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for i in range(PARALLEL_STEPS):
+            gen = torch.Generator(dev).manual_seed(PARALLEL_SEED)
+            ck.reset_launch_counts()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, rows, gen)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            losses.append(metrics["train_loss"].item())
+            if i == 0:
+                counts = dict(ck.launch_counts)
+                checks = compare_step(state, ref, state.layout.local if state.layout else None)
+                state.keep_gradients, state.last_grads = False, None
+        out[label] = {"loss": losses[0], "losses": losses, "walls": walls,
+                      "peak": _peak(torch, dev), "launches": counts,
+                      "bytes": state_bytes(state), **checks,
+                      "sharded": sum(state.layout.sharded) if state.layout else 0,
+                      "rows": int(rows[0].shape[0]), "lr": model.cfg.lr}
+        del model, state, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_parallel(torch, ck, dev, card, backbone_kwargs=None, backend="gloo"):
+    """Phase 15 ("parallel"). Returns the launch counts by path."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from diffse_tpu_torch.parallel import dryrun, make_mesh
+    from diffse_tpu_torch.parallel.mesh import init_single_process
+    from diffse_tpu_torch.train import TrainState, make_train_step
+
+    backbone_kwargs = dict(backbone_kwargs or {})
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+    failures, paths = [], {}
+    wavs = train_wavs(18)
+    # the weights every run starts from: the paper model's, redrawn
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    model = ScoreModel(ScoreModelConfig(**PAPER_CONFIG), backbone_kwargs=backbone_kwargs,
+                       sde_kwargs=PAPER_SDE_KWARGS, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+    redraw_weights(torch, model.backbone, seed=TRAIN_WEIGHT_SEED)
+    weights = {k: v.detach().cpu().clone() for k, v in model.backbone.state_dict().items()}
+    n_params = sum(p.numel() for p in model.backbone.parameters())
+    del model
+
+    def run(mesh, chain=1):
+        m = parallel_model(torch, dev, backbone_kwargs, weights)
+        state = TrainState(m.backbone, lr=m.cfg.lr, ema_decay=m.cfg.ema_decay, mesh=mesh)
+        return m, state, make_train_step(m, preprocess=m.prepare_batch, mesh=mesh,
+                                         chain_steps=chain)
+
+    def timed(state, step, batch):
+        gen = torch.Generator(dev).manual_seed(PARALLEL_SEED)
+        ck.reset_launch_counts()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        _sync(torch, dev)
+        return metrics, time.perf_counter() - t0, dict(ck.launch_counts)
+
+    def checked(state, step, label):
+        """One step from ``weights`` with cuDNN's deterministic algorithms:
+        its loss, reduced gradients, weights after and launches."""
+        state.keep_gradients = True
+        with deterministic_cudnn(torch):
+            metrics, wall, counts = timed(state, step, wavs)
+        first = {"loss": metrics["train_loss"].detach().cpu(),
+                 "grads": {n: g.detach().cpu().clone()
+                           for n, g in zip(state.names, state.last_grads)},
+                 "params": {n: p.detach().cpu().clone()
+                            for n, p in zip(state.names, state.params)},
+                 "launches": counts, "wall": wall}
+        state.keep_gradients, state.last_grads = False, None
+        if counts != PARALLEL_LAUNCHES:
+            failures.append(f"{label}: launches {counts}, expected {PARALLEL_LAUNCHES}")
+        return first
+
+    def same(a, b):
+        return (torch.equal(a["loss"], b["loss"])
+                and all(torch.equal(a["grads"][n], b["grads"][n]) for n in a["grads"])
+                and all(torch.equal(a["params"][n], b["params"][n]) for n in a["params"]))
+
+    def gap(a, b):
+        return max((a["params"][n] - b["params"][n]).abs().max().item() for n in a["params"])
+
+    def free():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # 1. world size 1, in this process, NCCL on the card: bitwise the plain
+    # step (both with cuDNN's deterministic algorithms: its default backward
+    # algorithms sum by atomics, so two plain steps differ), then the two
+    # timed in turns with torch's defaults
+    t0 = time.time()
+    init_single_process(dev.type)
+    try:
+        m, state, step = run(None)
+        plain_again = checked(state, step, "one process, no mesh")
+        del m, state, step
+        free()
+        m, state, step = run(None)
+        plain = checked(state, step, "one process, no mesh")
+        mesh = make_mesh(dev.type)
+        m1, state1, step1 = run(mesh)
+        meshed = checked(state1, step1, "world size 1 mesh")
+        backend1 = dist.get_backend()
+        plain_walls, mesh_walls = [], []
+        for _ in range(PARALLEL_TIMED):
+            plain_walls.append(timed(state, step, wavs)[1])
+            mesh_walls.append(timed(state1, step1, wavs)[1])
+        del m, state, step, m1, state1, step1
+        free()
+    finally:
+        dist.destroy_process_group()
+    floor_equal, equal = same(plain, plain_again), same(plain, meshed)
+    plain_wall, mesh_wall = float(np.median(plain_walls)), float(np.median(mesh_walls))
+    print(f"parallel 1 ({card}): the paper model ({n_params} params, sebridge_v3, "
+          f"{TRAIN_BATCH} x {TRAIN_FRAMES} frames, weights redrawn from seed "
+          f"{TRAIN_WEIGHT_SEED}), one train step without a mesh and on a world-size-1 "
+          f"{backend1} mesh, in this process, cuDNN deterministic: loss "
+          f"{float(plain['loss']):.9g} / {float(meshed['loss']):.9g}; two plain steps bitwise "
+          f"equal: {floor_equal} (weights {gap(plain, plain_again):.3e} apart); the mesh step "
+          f"and the plain one bitwise equal (loss, gradients, weights): {equal} (weights "
+          f"{gap(plain, meshed):.3e} apart); launches {plain['launches']} / "
+          f"{meshed['launches']}; checked step walls {plain['wall']:.4f} / "
+          f"{meshed['wall']:.4f} s; then {PARALLEL_TIMED} steps of each in turns (torch's "
+          f"defaults): without a mesh {[f'{w:.4f}' for w in plain_walls]} s, on the mesh "
+          f"{[f'{w:.4f}' for w in mesh_walls]} s, medians {plain_wall:.4f} / {mesh_wall:.4f} "
+          f"s, the mesh's cost {100 * (mesh_wall / plain_wall - 1):+.2f}%; "
+          f"{time.time() - t0:.1f} s")
+    if not floor_equal:
+        failures.append("two plain steps with deterministic cuDNN differ")
+    if not equal:
+        failures.append("the world-size-1 mesh step is not bitwise the plain step")
+    paths["parallel: world size 1 mesh step (eager)"] = card_runs(meshed["launches"], [])
+
+    # 3. chain_steps 2 against two single steps, in this process
+    t0 = time.time()
+    second = train_wavs(21)
+    runs = {}
+    for label, chain in (("two steps", 1), ("chain_steps 2", 2)):
+        m, state, step = run(None, chain)
+        gen = torch.Generator(dev).manual_seed(PARALLEL_SEED)
+        ck.reset_launch_counts()
+        _sync(torch, dev)
+        start = time.perf_counter()
+        with deterministic_cudnn(torch):
+            if chain == 1:
+                losses = [step(state, b, gen)[1]["train_loss"].item() for b in (wavs, second)]
+            else:
+                stacked = tuple(np.stack([a, b]) for a, b in zip(wavs, second))
+                metrics = step(state, stacked, gen)[1]
+                losses = [metrics["train_loss"].item(), metrics["train_loss_mean"].item()]
+        _sync(torch, dev)
+        runs[label] = {"losses": losses, "wall": time.perf_counter() - start,
+                       "launches": dict(ck.launch_counts), "step": state.step,
+                       "params": [p.detach().cpu().clone() for p in state.params],
+                       "ema": [e.cpu().clone() for e in state.ema]}
+        del m, state, step
+        free()
+    a, b = runs["two steps"], runs["chain_steps 2"]
+    chain_equal = (all(torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+                   and all(torch.equal(x, y) for x, y in zip(a["ema"], b["ema"])))
+    print(f"parallel 3 ({card}): chain_steps 2 against two single steps on two batches, the "
+          f"same generator, cuDNN deterministic: losses {a['losses']} / last "
+          f"{b['losses'][0]!r}, mean {b['losses'][1]!r}; weights and EMA bitwise equal: "
+          f"{chain_equal}; steps {a['step']} / {b['step']}; walls {a['wall']:.3f} / "
+          f"{b['wall']:.3f} s; launches {a['launches']} / {b['launches']}; "
+          f"{time.time() - t0:.1f} s")
+    expected2 = {k: 2 * v for k, v in PARALLEL_LAUNCHES.items()}
+    if not chain_equal or b["step"] != 2 or b["losses"][0] != a["losses"][1]:
+        failures.append("chain_steps 2 is not two single steps")
+    if b["launches"] != expected2:
+        failures.append(f"chain_steps 2: launches {b['launches']}, expected {expected2}")
+    paths["parallel: chain_steps 2 (eager)"] = card_runs(b["launches"], [])
+
+    # 2. two ranks on the one card, gloo, against the one-process step
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="diffse_parallel_")
+    try:
+        torch.save({"weights": weights, "wavs": wavs, "grads": plain["grads"],
+                    "params": plain["params"], "loss": plain["loss"]},
+                   os.path.join(workdir, "reference.pt"))
+        ref_grads = plain["grads"]
+        one_device = 4 * sum(g.numel() * 4 for g in ref_grads.values())
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks = dryrun.launch(_parallel_rank, PARALLEL_RANKS,
+                              (workdir, backbone_kwargs, str(dev)), device=str(dev),
+                              backend=backend, timeout=600)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    ref_loss = float(plain["loss"])
+    for label, what in (("dp", f"data-parallel, a 1-D mesh of {PARALLEL_RANKS}"),
+                        ("tp", f"tensor-parallel, a (1, {PARALLEL_RANKS}) mesh")):
+        for r, res in enumerate(ranks):
+            x = res[label]
+            rel = abs(x["loss"] - ref_loss) / abs(ref_loss)
+            by = x["bytes"]
+            print(f"parallel 2 ({card}): {what}, {backend} rank {r} ({x['rows']} rows of "
+                  f"{TRAIN_BATCH}): loss {x['loss']:.9g} vs one process {ref_loss:.9g} "
+                  f"({rel:.3e} relative, tol {PARALLEL_LOSS_RTOL}); gradients worst "
+                  f"{x['worst_grad']} {x['grad_gap']:.3e} of its largest magnitude (tol "
+                  f"{PARALLEL_GRAD_TOL}); weights after the update: worst "
+                  f"{x['param_gap']:.3e} where the reference gradient is clear of zero (tol "
+                  f"{PARALLEL_PARAM_ATOL}), {x['band_param_gap']:.3e} within its band (tol "
+                  f"2 lr), {x['params_over_atol']} weights over {PARALLEL_PARAM_ATOL}; step "
+                  f"walls {[f'{w:.4f}' for w in x['walls']]} s (the first checked); peak "
+                  f"memory {x['peak'] / 2**30:.2f} GiB; launches {x['launches']}; sharded "
+                  f"parameters {x['sharded']}; bytes kept: weights whole "
+                  f"{by['params_whole'] / 1e6:.1f} MB, its part {by['params_local'] / 1e6:.1f} "
+                  f"MB, EMA {by['ema'] / 1e6:.1f} MB, moments {by['moments'] / 1e6:.1f} MB "
+                  f"(one device: weights, EMA and moments {one_device / 1e6:.1f} MB)")
+            if rel > PARALLEL_LOSS_RTOL or not np.isfinite(x["loss"]):
+                failures.append(f"{label} rank {r}: loss {x['loss']} vs {ref_loss}")
+            if x["grad_gap"] > PARALLEL_GRAD_TOL:
+                failures.append(f"{label} rank {r}: gradient of {x['worst_grad']} "
+                                f"{x['grad_gap']:.3e}")
+            if (x["param_gap"] > PARALLEL_PARAM_ATOL
+                    or x["band_param_gap"] > 2 * x["lr"] + PARALLEL_PARAM_ATOL):
+                failures.append(f"{label} rank {r}: weights {x['param_gap']:.3e} / "
+                                f"{x['band_param_gap']:.3e}")
+            if x["launches"] != PARALLEL_LAUNCHES:
+                failures.append(f"{label} rank {r}: launches {x['launches']}")
+        if label == "tp" and not all(res["tp"]["sharded"] for res in ranks):
+            failures.append("tp: no parameter sharded")
+        total = {k: sum(res[label]["launches"][k] for res in ranks) for k in PARALLEL_LAUNCHES}
+        paths[f"parallel: {label} step, {PARALLEL_RANKS} {backend} ranks (eager)"] = \
+            card_runs(total, [])
+    print(f"parallel 2: {PARALLEL_RANKS} ranks spawned and done in {time.time() - t0:.1f} s")
+    print(f"phase parallel: {time.time() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -3705,7 +4087,8 @@ def main(argv=None) -> int:
                         ("eval", lambda: run_eval(torch, ck, dev, card)),
                         ("snr_train", lambda: run_snr_train(torch, ck, dev, card)),
                         ("export", lambda: run_export(torch, ck, dev, card)),
-                        ("backbones", lambda: run_backbones(torch, ck, dev, card))):
+                        ("backbones", lambda: run_backbones(torch, ck, dev, card)),
+                        ("parallel", lambda: run_parallel(torch, ck, dev, card))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -3729,7 +4112,8 @@ def main(argv=None) -> int:
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
              **results["train"][0], **results["serve"], **results["eval"],
-             **results["snr_train"], **results["export"], **results["backbones"]}
+             **results["snr_train"], **results["export"], **results["backbones"],
+             **results["parallel"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1]}

@@ -9,14 +9,22 @@ adds ``--device`` (the card unless "cpu" is given).
 Each validation scores ``--num_eval_files`` validation files (PESQ,
 SI-SDR, ESTOI on the EMA weights; 0 turns it off) in batches of
 ``--eval_batch_size``; ``--snr_ckpt`` gives an SNR-conditioned model the
-SNR estimator they need. Not ported, so accepted only at their defaults:
---no_mesh and --tp_size (the port trains on one device) and --chain_steps
-(one update a step).
+SNR estimator they need.
+
+Several ranks: under ``torchrun`` (or any launcher that sets ``MASTER_ADDR``,
+``RANK`` and ``WORLD_SIZE``) every rank joins the process group (NCCL on the
+cards, gloo with ``--device cpu``) and takes a card of its own (``LOCAL_RANK``
+modulo the cards present), and training is data-parallel over the ranks;
+``--tp_size K`` makes it a ``(ranks / K, K)`` data x model mesh with the
+state sharded over the model axis; ``--no_mesh`` trains on one rank and is a
+parser error under several. ``--chain_steps`` runs that many updates per
+call of the step.
 
 Usage (the paper's configuration):
     python -m diffse_tpu_torch.cli.train --modeltype sebridge_v3 \
         --snr_conditioned true --fixed_snr 0.17783 --transform_type exponent \
         --sigma-max 1.0 --base_dir /data/VBD_SNR-5 --snr_ckpt runs/snr_est
+    torchrun --nproc_per_node 4 -m diffse_tpu_torch.cli.train ... --tp_size 2
 """
 
 from __future__ import annotations
@@ -98,8 +106,10 @@ def add_trainer_args(group):
     group.add_argument("--device", type=str, default="cuda",
                        help="Where to train: the card (default) or cpu")
     group.add_argument("--no_mesh", action="store_true",
-                       help="not ported: the port trains on one device")
-    group.add_argument("--tp_size", type=int, default=1, help="not ported: 1 only")
+                       help="Disable the data-parallel mesh (one rank only)")
+    group.add_argument("--tp_size", type=int, default=1,
+                       help="Tensor-parallel degree: >1 trains over a 2-D (data, model) mesh "
+                            "with the state sharded on out-features (parallel/model_sharding.py)")
     group.add_argument("--wandb", action="store_true")
     group.add_argument("--snr_ckpt", type=str, default=None,
                        help="SNR-estimator checkpoint dir (for snr_conditioned=true validation)")
@@ -109,19 +119,26 @@ def add_trainer_args(group):
     group.add_argument("--accum_steps", type=int, default=1,
                        help="Gradient accumulation: average grads over this many consecutive "
                             "loader batches per optimizer step")
-    group.add_argument("--chain_steps", type=int, default=1, help="not ported: 1 only")
+    group.add_argument("--chain_steps", type=int, default=1,
+                       help="Run this many consecutive optimizer updates per call of the "
+                            "train step (training semantics unchanged)")
     group.add_argument("--eval_every_n_epochs", type=int, default=1,
                        help="Validate/checkpoint every k-th epoch (always the last)")
     return group
 
 
-def _refuse_unported(args) -> None:
-    unported = {"--no_mesh": args.no_mesh, "--tp_size": args.tp_size != 1,
-                "--chain_steps": args.chain_steps != 1}
-    given = [flag for flag, set_ in unported.items() if set_]
-    if given:
-        raise SystemExit(f"{', '.join(given)}: not ported to diffse_tpu_torch (one device, one "
-                         "update a step); leave at the default")
+def join_ranks(parser, args):
+    """Join the launcher's process group (none configured: one process) and
+    return this rank's device; ``--no_mesh`` under several ranks is a parser
+    error."""
+    from ..parallel.mesh import initialize_distributed, rank_device, world_size
+
+    device = rank_device(args.device)  # before NCCL joins: its rank's card
+    initialize_distributed(device=device)
+    if args.no_mesh and world_size() > 1:
+        parser.error(f"--no_mesh under a world size of {world_size()}: every rank would train "
+                     "the whole batch alone; launch one process, or drop --no_mesh")
+    return device
 
 
 def main(argv=None):
@@ -144,7 +161,7 @@ def main(argv=None):
     add_trainer_args(parser.add_argument_group("Trainer"))
 
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    device = join_ranks(parser, args)
     groups = get_argparse_groups(parser, args)
 
     sigma_max = getattr(args, "sigma_max", 0.5)
@@ -170,11 +187,11 @@ def main(argv=None):
         from ..train.restore import load_snr_model
         from ..train.state import load_ema
 
-        snr_model, snr_state = load_snr_model(args.snr_ckpt, device=args.device)
+        snr_model, snr_state = load_snr_model(args.snr_ckpt, device=device)
         load_ema(snr_state)
         snr_net = snr_model.dnn
     model = ScoreModel(cfg, backbone_kwargs=backbone_kwargs, sde_kwargs=sde_kwargs,
-                       device=args.device, generator=torch.Generator().manual_seed(args.seed),
+                       device=device, generator=torch.Generator().manual_seed(args.seed),
                        snr_model=snr_net)
     dm = SpecsDataModule(DataModuleConfig(
         base_dir=args.base_dir, format=args.format, batch_size=args.batch_size,
@@ -198,6 +215,7 @@ def main(argv=None):
         logger=logger, seed=args.seed, resume=args.resume,
         max_steps_per_epoch=args.max_steps_per_epoch, accum_steps=args.accum_steps,
         eval_every_n_epochs=args.eval_every_n_epochs, eval_batch_size=args.eval_batch_size,
+        use_mesh=not args.no_mesh, tp_size=args.tp_size, chain_steps=args.chain_steps,
     )
 
 

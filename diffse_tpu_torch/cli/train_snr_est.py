@@ -3,9 +3,12 @@ reference: train_snr_est.py).
 
 The JAX CLI's flags (the data module's and the trainer's, as
 ``cli/train.py`` takes them), plus ``--device`` (the card unless "cpu" is
-given). SNRNet's initial weights are drawn from ``--seed``. ``--no_mesh``
-and ``--tp_size`` are not ported (the port trains on one device) and are
-refused when set; ``--chain_steps`` too. Checkpoints go to ``--ckpt_dir``
+given). SNRNet's initial weights are drawn from ``--seed``. Under a
+launcher of several ranks training is data-parallel (``cli.train``'s
+``join_ranks``); ``--no_mesh`` trains on one rank. The SNR estimator's
+training, as the JAX package's, takes no tensor parallelism and one update
+a step: ``--tp_size`` and ``--chain_steps`` other than 1 are parser errors.
+Checkpoints go to ``--ckpt_dir``
 (default ``savedir/snr_estimator``), ranked by ``snr_error``, where
 ``load_snr_model``, ``cli.eval_snr_est`` and ``--snr_ckpt`` read them.
 ``main`` returns the final ``TrainState``.
@@ -20,7 +23,7 @@ from __future__ import annotations
 import os
 from argparse import ArgumentParser
 
-from .train import _refuse_unported, add_data_module_args, add_trainer_args
+from .train import add_data_module_args, add_trainer_args, join_ranks
 
 
 def main(argv=None):
@@ -35,7 +38,11 @@ def main(argv=None):
     add_data_module_args(parser.add_argument_group("DataModule"))
     add_trainer_args(parser.add_argument_group("Trainer"))
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+    for flag, value in (("--tp_size", args.tp_size), ("--chain_steps", args.chain_steps)):
+        if value != 1:
+            parser.error(f"{flag} {value}: the SNR estimator trains data-parallel only, one "
+                         "update a step (as the JAX package's train_snr_model)")
+    device = join_ranks(parser, args)
 
     import torch
 
@@ -54,7 +61,7 @@ def main(argv=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
         dnn = SNRNet()
-    model = SNRModel(cfg, device=args.device, dnn=dnn)
+    model = SNRModel(cfg, device=device, dnn=dnn)
     dm = SpecsDataModule(DataModuleConfig(
         base_dir=args.base_dir, format=args.format, batch_size=args.batch_size,
         n_fft=args.n_fft, hop_length=args.hop_length, num_frames=args.num_frames,
@@ -63,17 +70,14 @@ def main(argv=None):
     ))
 
     ckpt_dir = args.ckpt_dir or os.path.join("savedir", "snr_estimator")
-    logger = MetricsLogger(
-        log_dir=None if args.nolog else ckpt_dir,
-        use_wandb=args.wandb and not args.nolog,
-        run_name="snr_estimator",
-        config=model.hparams,
-    )
+    logger = MetricsLogger(log_dir=None if args.nolog else ckpt_dir,
+                           use_wandb=args.wandb and not args.nolog, run_name="snr_estimator",
+                           config=model.hparams)
     return train_snr_model(
         model, dm, max_epochs=args.max_epochs,
         ckpt_dir=None if args.nolog else ckpt_dir, logger=logger,
         seed=args.seed, resume=args.resume,
-        max_steps_per_epoch=args.max_steps_per_epoch,
+        max_steps_per_epoch=args.max_steps_per_epoch, use_mesh=not args.no_mesh,
     )
 
 

@@ -22,6 +22,14 @@ generator on the model's device seeded with
 gives ``noise`` (a function of the dispatch index returning a noise source;
 run eagerly). That is the JAX package's ``fold_in(key, b)``, so the CPU
 tests replay its draws.
+
+With ``mesh`` (a ``parallel`` mesh over several ranks) each bucket batch
+whose rows divide over the mesh's ``"data"`` axis is split over it: each
+rank enhances its rows eagerly, drawing at the whole batch's shape and
+keeping its rows (``parallel.mesh.BatchShard``), so that every row sees the
+draws it sees without the mesh; the outputs are all-gathered and every rank
+returns the whole list, in the input's order. A batch that does not divide
+runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ import numpy as np
 import torch
 
 from ..models.score_model import ScoreModel
+from ..parallel.mesh import axis_size, batch_shard, shard_batch
+from ..utils import generator_noise
 from .inference import NoiseFor, _eval_fn, dispatch_generator
 
 
@@ -87,14 +97,15 @@ def batch_enhance(model: ScoreModel, x_wavs: Sequence[np.ndarray], y_wavs: Seque
                   model_type: str, seed: int = 0, batch_size: int = 8,
                   est_snrs: Optional[Sequence[float]] = None, fixed_snr: Optional[float] = None,
                   sampler_kwargs: Optional[dict] = None,
-                  noise: Optional[NoiseFor] = None) -> List[np.ndarray]:
+                  noise: Optional[NoiseFor] = None, mesh=None) -> List[np.ndarray]:
     """Enhance a list of utterances in bucketed batches; returns one numpy
     waveform per utterance, of its input's length.
 
     ``model_type``: an eval branch (``inference.BRANCHES``); ``est_snrs``:
     one estimate per utterance for the ``_snr`` branches (1.0 when None);
     ``fixed_snr``: the model's when None; ``sampler_kwargs`` (``bbed``):
-    ``spec_sample``'s sampler overrides. Draws: module docstring.
+    ``spec_sample``'s sampler overrides. Draws and ``mesh``: module
+    docstring.
 
     Semantics are per utterance (``_eval_fn`` normalises each row by its
     own max-abs and takes its own estimate); shorter utterances of a bucket
@@ -117,10 +128,23 @@ def batch_enhance(model: ScoreModel, x_wavs: Sequence[np.ndarray], y_wavs: Seque
                if est_snrs is not None else np.ones((len(idxs),), dtype=np.float32))
         return xb, yb, est
 
+    n_data = axis_size(mesh, "data")
+
+    def dispatch_rows(bi, fn, prepped) -> torch.Tensor:
+        """This rank's rows of one batch, enhanced; every rank's gathered."""
+        with batch_shard(mesh) as shard:
+            source = noise(bi) if noise is not None else generator_noise(
+                dispatch_generator(model.device, seed, bi))
+            x_hat = fn(*shard_batch(mesh, prepped),
+                       noise=lambda like: shard.rows(source(shard.global_like(like))))
+            return shard.coll.all_gather(x_hat)
+
     def dispatch(bi, t_pad, idxs, prepped) -> _HostCopy:
         """Enqueue one batch on the device (nothing waits) and its copy out."""
         fn = _eval_fn(model, model_type, t_pad, fixed_snr=fixed_snr,
                       sampler_kwargs=sampler_kwargs)
+        if n_data > 1 and len(idxs) % n_data == 0:
+            return _HostCopy(dispatch_rows(bi, fn, prepped))
         if noise is not None:
             x_hat = fn(*prepped, noise=noise(bi))
         else:

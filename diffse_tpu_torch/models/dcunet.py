@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import batch_mean
 from ..utils import float32_precision
 from .shared import (BackboneRegistry, ComplexConv2d, ComplexConvTranspose2d, ComplexLinear,
                      DiffusionStepEmbedding, GaussianFourierProjection)
@@ -123,7 +124,10 @@ class BatchNorm(nn.Module):
     0.1 * batch`` (torch's ``BatchNorm2d`` would fold in the unbiased
     variance); in evaluation, normalised by the running statistics.
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, as flax computes it.
-    The statistics are buffers with no update count."""
+    The statistics are buffers with no update count. In a data-parallel step
+    the batch's statistics are the global batch's (``parallel.mesh.batch_mean``),
+    as GSPMD computes them for flax, so every rank keeps the same running
+    statistics."""
 
     def __init__(self, channels: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -135,8 +139,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean = batch_mean(x, (0, 2, 3))
+            var = torch.clamp(batch_mean(x * x, (0, 2, 3)) - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(self.momentum * self.running_mean
                                         + (1 - self.momentum) * mean)
@@ -164,7 +168,8 @@ class OnReImBatchNorm(nn.Module):
 
 class ComplexBatchNorm(nn.Module):
     """"CbN": complex batch norm with 2x2 covariance whitening, always by the
-    batch's statistics (the reference's ``track_running_stats=False``).
+    batch's statistics (the reference's ``track_running_stats=False``), the
+    global batch's in a data-parallel step.
     ``Wri`` is kept as flax keeps it, drawn on [0, 1.8) and shifted by -0.9
     where it is used."""
 
@@ -185,11 +190,11 @@ class ComplexBatchNorm(nn.Module):
         wri = self.Wri - 0.9
         axes = (0, 2, 3)
         xr, xi = x.real, x.imag
-        xr = xr - xr.mean(axes, keepdim=True)
-        xi = xi - xi.mean(axes, keepdim=True)
-        vrr = (xr * xr).mean(axes, keepdim=True) + self.eps
-        vri = (xr * xi).mean(axes, keepdim=True)
-        vii = (xi * xi).mean(axes, keepdim=True) + self.eps
+        xr = xr - batch_mean(xr, axes, keepdim=True)
+        xi = xi - batch_mean(xi, axes, keepdim=True)
+        vrr = batch_mean(xr * xr, axes, keepdim=True) + self.eps
+        vri = batch_mean(xr * xi, axes, keepdim=True)
+        vii = batch_mean(xi * xi, axes, keepdim=True) + self.eps
         # the inverse matrix square root of [[vrr, vri], [vri, vii]]
         tau = vrr + vii
         delta = vrr * vii - vri * vri

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..capture import LoopProgram, Program
+from ..parallel.mesh import current_shard
 from ..karras import (T_30_F32, calculate_normfac_direct, calculate_snr_direct,  # noqa: F401
                       karras_t, snap_to_karras_grid, t_30)
 from ..sampling import get_ode_sampler, get_pc_sampler
@@ -339,10 +340,21 @@ class ScoreModel:
         output; entries after X and Y are ignored) with draws from
         ``generator``: ``loss_from_draws`` of ``draw_loss_noise``, and in
         training dropout's keep masks drawn from ``generator`` too, after
-        those, as the network reaches each dropout."""
-        draws = self.draw_loss_noise(batch[0], generator)
+        those, as the network reaches each dropout.
+
+        Inside ``parallel.mesh.batch_shard`` (a data-parallel step) ``batch``
+        is this rank's rows of the global batch: every draw is taken at the
+        global batch's shape, as the one-device step takes it, and this
+        rank's rows kept."""
+        shard = current_shard()
+        x = batch[0]
+        draws = self.draw_loss_noise(x if shard is None else shard.global_like(x), generator)
         keep_mask = (generator_keep_mask(generator)
                      if train and getattr(self.backbone, "dropout", 0) else None)
+        if shard is not None:
+            draws = {k: shard.rows(v) for k, v in draws.items()}
+            if keep_mask is not None:
+                keep_mask = shard.keep_mask(keep_mask)
         return self.loss_from_draws(batch, draws, train=train, variables=variables,
                                     keep_mask=keep_mask)
 

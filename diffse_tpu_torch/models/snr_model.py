@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..karras import calculate_normfac_direct
+from ..parallel.mesh import current_shard
 from ..transforms import StftConfig, get_window, pad_spec_16, stft
 from ..utils import model_device, to_device
 from .snrnet import SNRNet
@@ -136,9 +137,15 @@ class SNRModel:
         """The training loss of ``batch`` (``prepare_batch``'s output; entries
         after X and Y are ignored) with its draw from ``generator``:
         ``loss_from_draws`` of ``draw_loss_noise``. The contract of
-        ``ScoreModel.loss_fn``, so that ``train.steps`` applies unchanged."""
-        return self.loss_from_draws(batch, self.draw_loss_noise(batch[0], generator),
-                                    train=train, variables=variables)
+        ``ScoreModel.loss_fn``, so that ``train.steps`` applies unchanged;
+        inside ``parallel.mesh.batch_shard`` the draw is taken at the global
+        batch's shape and this rank's rows kept, as there."""
+        shard = current_shard()
+        x = batch[0]
+        draws = self.draw_loss_noise(x if shard is None else shard.global_like(x), generator)
+        if shard is not None:
+            draws = {k: shard.rows(v) for k, v in draws.items()}
+        return self.loss_from_draws(batch, draws, train=train, variables=variables)
 
     def loss_from_draws(self, batch, draws: dict, train: bool = True,
                         variables: Optional[dict] = None) -> torch.Tensor:

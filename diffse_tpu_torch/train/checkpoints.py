@@ -11,6 +11,12 @@ rewritten; a manager that finds an entry whose directory is missing (a
 process that died mid-save) drops it and falls back to the newest complete
 step. ``hparams.json`` keeps the model's hyperparameters. These are the
 port's own files: no checkpoint crosses frameworks.
+
+In a group of several ranks every rank calls ``save`` (the state is
+gathered whole, a collective under tensor parallelism) and rank 0 alone
+writes, whole tensors, so a checkpoint does not depend on the layout that
+saved it; every rank keeps the same metadata, and every rank restores and
+keeps its own part.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ import shutil
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import is_main_rank, world_size
 
 STATE_FILE = "state.pt"
 
@@ -45,7 +54,8 @@ class CheckpointManager:
             # during the save) names no checkpoint: drop it
             for k in [k for k in self._meta if not os.path.isdir(self._step_dir(int(k)))]:
                 del self._meta[k]
-        if hparams is not None:
+        self.writes = is_main_rank()
+        if hparams is not None and self.writes:
             with open(os.path.join(self.directory, "hparams.json"), "w") as f:
                 json.dump(hparams, f, indent=2, default=str)
 
@@ -59,17 +69,22 @@ class CheckpointManager:
         """Save ``state`` (a ``TrainState``) as ``step`` with its
         ``metrics``, then prune what no monitor keeps."""
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
-        path = self._step_dir(step)
-        tmp = path + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state.state_dict(), os.path.join(tmp, STATE_FILE))
-        shutil.rmtree(path, ignore_errors=True)
-        os.replace(tmp, path)
+        whole = state.state_dict()
+        if self.writes:
+            path = self._step_dir(step)
+            tmp = path + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(whole, os.path.join(tmp, STATE_FILE))
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(tmp, path)
         self._meta[str(step)] = metrics
         self._prune()
-        with open(self._meta_path, "w") as f:
-            json.dump(self._meta, f, indent=2)
+        if self.writes:
+            with open(self._meta_path, "w") as f:
+                json.dump(self._meta, f, indent=2)
+        if world_size() > 1:
+            dist.barrier()  # the files are there before any rank goes on
 
     def _retained_steps(self) -> set:
         steps = self.all_steps()
@@ -85,7 +100,8 @@ class CheckpointManager:
         keep = self._retained_steps()
         for s in self.all_steps():
             if s not in keep:
-                shutil.rmtree(self._step_dir(s), ignore_errors=True)
+                if self.writes:
+                    shutil.rmtree(self._step_dir(s), ignore_errors=True)
                 del self._meta[str(s)]
 
     def latest_step(self) -> Optional[int]:
@@ -113,7 +129,8 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """Load ``step`` (the latest when None) into ``state`` (a
-        ``TrainState`` of the same model), in place; returns it."""
+        ``TrainState`` of the same model, of any layout), in place; returns
+        it."""
         device = next(state.module.parameters()).device
         state.load_state_dict(self.load(step, map_location=device))
         return state

@@ -5,7 +5,9 @@ One JSON object per ``log`` call, with the JAX package's metric names
 (train_loss, valid_loss, pesq, si_sdr, estoi, ...), appended to
 ``<log_dir>/metrics.jsonl``. With ``use_wandb`` the metrics go to wandb too,
 and ``log_artifact`` uploads the checkpoint directory at the end of training;
-without the ``wandb`` package ``use_wandb`` raises.
+without the ``wandb`` package ``use_wandb`` raises. In a process group of
+several ranks (joined before the logger is built) rank 0 alone logs: on the
+others the logger opens nothing and logs nothing.
 """
 
 from __future__ import annotations
@@ -16,17 +18,20 @@ import sys
 import time
 from typing import Optional
 
+from ..parallel.mesh import is_main_rank
+
 
 class MetricsLogger:
     def __init__(self, log_dir: Optional[str] = None, use_wandb: bool = False,
                  project: str = "diffse_tpu", run_name: Optional[str] = None,
                  config: Optional[dict] = None):
         self._file = None
-        if log_dir:
+        self._main = is_main_rank()
+        if log_dir and self._main:
             os.makedirs(log_dir, exist_ok=True)
             self._file = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         self._wandb = None
-        if use_wandb:
+        if use_wandb and self._main:
             try:
                 import wandb
             except ImportError as e:
@@ -37,6 +42,8 @@ class MetricsLogger:
     def log(self, metrics: dict, step: Optional[int] = None) -> None:
         """Print and append one record: the time, ``step`` and ``metrics``
         (each a number or a 0-d tensor, read as a float)."""
+        if not self._main:
+            return
         record = {"ts": time.time()}
         if step is not None:
             record["step"] = int(step)

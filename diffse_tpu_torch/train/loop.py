@@ -16,8 +16,21 @@ and ``train_snr_model``). The score model's:
 The enhancement metrics run with the EMA copied into the backbone's own
 parameters (``state.ema_weights``), which get the trained weights back bit
 for bit after; the programs they captured are dropped with their card
-memory (``ScoreModel.drop_programs``). Not ported: ``chain_steps`` and the
-device mesh (``tp_size``).
+memory (``ScoreModel.drop_programs``).
+
+Several ranks (a process group, ``parallel.initialize_distributed``): every
+rank loads the same global batches; with ``use_mesh`` each takes its rows
+over a data mesh (``_maybe_mesh``; ``tp_size`` > 1 a ``(data, model)`` mesh,
+the state sharded over ``"model"``), else every rank runs the whole batch,
+the same maths. ``chain_steps`` stacks that many consecutive batches into
+one call of the step. Rank 0 alone logs and writes checkpoints (whole
+tensors); every rank takes part in the collectives of a save. The
+validation loss runs on every rank over the whole validation batches; the
+enhancement metrics run on rank 0 alone (the others wait at the broadcast
+of its numbers). The SIGTERM flag is all-reduced at each check, so one
+signalled rank stops every rank at the same step. The loss's generator is
+kept in the checkpoints: a resumed run draws on where the interrupted one
+stopped.
 
 ``train_snr_model`` trains the SNR estimator the same way: one step per
 batch, then each epoch the validation loss and ``snr_error`` on the EMA
@@ -35,6 +48,8 @@ import torch
 
 from ..evaluation.deep_inference import SNR_GRID, deep_evaluate_model
 from ..evaluation.inference import dispatch_seed, evaluate_model
+from ..parallel.mesh import (is_main_rank, make_mesh, replicate, shard_batch, world_collectives,
+                             world_size)
 from ..utils import float32_precision
 from .checkpoints import CheckpointManager
 from .logging import MetricsLogger
@@ -50,16 +65,68 @@ SCORE_MONITORS = ({"monitor": "pesq", "mode": "max", "top_k": 10},
 SNR_MONITORS = ({"monitor": "snr_error", "mode": "min", "top_k": 3},)
 
 
+def _maybe_mesh(use_mesh: bool, batch_size: int, tp_size: int = 1,
+                device_type: Optional[str] = None):
+    """A data-parallel mesh over the process group's ranks if asked for,
+    there are several and the batch divides over them; ``tp_size`` > 1 a
+    ``(data, model)`` mesh with ``tp_size`` ranks on ``"model"``. Otherwise
+    None, with the JAX package's warning: every rank then runs the whole
+    batch."""
+    if not use_mesh:
+        return None
+    n = world_size()
+    if n <= 1:
+        return None
+    if tp_size > 1:
+        from ..parallel.model_sharding import make_2d_mesh
+
+        if n % tp_size != 0:
+            print(f"warning: {n} devices not divisible by tp_size {tp_size}; "
+                  "running without sharding")
+            return None
+        n_data = n // tp_size
+        if batch_size % n_data != 0:
+            print(f"warning: batch_size {batch_size} not divisible by the "
+                  f"{n_data}-way data axis; running without sharding")
+            return None
+        return make_2d_mesh(n_data, tp_size, device_type)
+    if batch_size % n != 0:
+        print(f"warning: batch_size {batch_size} not divisible by {n} devices; "
+              "running without data-parallel sharding")
+        return None
+    return make_mesh(device_type)
+
+
+def _train_state(model, module, mesh) -> TrainState:
+    """The state of ``module`` laid out over ``mesh``: rank 0's weights on
+    every rank first."""
+    replicate(mesh, module)
+    return TrainState(module, lr=model.cfg.lr, ema_decay=model.cfg.ema_decay, mesh=mesh)
+
+
 class _PreemptionGuard:
     """While installed, SIGTERM sets a flag instead of killing the process;
     the loop checks it after each step, saves a checkpoint and returns, so
     that ``resume`` continues from it. Outside the main thread (where no
-    handler can be installed) the loop runs unguarded."""
+    handler can be installed) the loop runs unguarded. In a group of
+    several ranks ``stop()`` all-reduces the flag: every rank calls it at the
+    same points, and all stop when any was signalled, so that no rank waits
+    in a collective for one that left."""
 
     def __init__(self):
         self.triggered = False
         self._prev = None
         self._installed = False
+        self._coll = world_collectives()
+
+    def stop(self) -> bool:
+        """Whether to stop: this rank's flag, or any rank's."""
+        if self._coll is None:
+            return self.triggered
+        stop = self._coll.any(self.triggered)
+        if stop and not self.triggered:
+            print("SIGTERM on another rank: coordinated stop")
+        return stop
 
     def __enter__(self):
         try:
@@ -90,6 +157,15 @@ def _preempt_exit(ckpt_mgr: Optional[CheckpointManager], state: TrainState,
     else:
         print(f"SIGTERM: exiting at step {state.step} (no --ckpt_dir, nothing checkpointed)")
     return state
+
+
+def _log_record(epoch: int, metrics: dict) -> dict:
+    """A step's log line: the loss and, for chained updates, their mean
+    ("train_loss" is the last of them)."""
+    rec = {"epoch": epoch, "train_loss": metrics["train_loss"]}
+    if "train_loss_mean" in metrics:
+        rec["train_loss_mean"] = metrics["train_loss_mean"]
+    return rec
 
 
 def _stack_groups(loader, k: int):
@@ -135,7 +211,10 @@ def _enhancement_metrics(model, state: TrainState, data_module, mt: str, epoch: 
               "skipping speech-enhancement validation metrics")
         return {}
     metrics = {}
+    coll = world_collectives()
     with ema_weights(state):
+        if not is_main_rank():
+            return coll.broadcast_object(None)
         try:
             pesq_v, si_sdr_v, estoi_v = evaluate_model(
                 model, data_module, cfg.num_eval_files, model_type=mt, fixed_snr=cfg.fixed_snr,
@@ -153,7 +232,7 @@ def _enhancement_metrics(model, state: TrainState, data_module, mt: str, epoch: 
                     metrics[f"estoi_{label}"] = vals[2 * n + j]
         finally:
             model.drop_programs()
-    return metrics
+    return metrics if coll is None else coll.broadcast_object(metrics)
 
 
 def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[str] = None,
@@ -161,7 +240,8 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
                       log_every_n_steps: int = 10, resume: bool = False,
                       max_steps_per_epoch: Optional[int] = None, variables: Optional[dict] = None,
                       accum_steps: int = 1, eval_every_n_epochs: int = 1, chain_steps: int = 1,
-                      tp_size: int = 1, eval_batch_size: int = 1) -> TrainState:
+                      tp_size: int = 1, eval_batch_size: int = 1,
+                      use_mesh: bool = True) -> TrainState:
     """Train ``model`` (a ScoreModel) on ``data_module``'s batches; returns
     the final ``TrainState``.
 
@@ -170,25 +250,28 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
     the model's device) and the enhancement metrics' (epoch ``e``'s
     ``evaluate_model`` under ``dispatch_seed(seed, 2 e)``, its deep sweep
     under ``dispatch_seed(seed, 2 e + 1)``). ``accum_steps`` > 1 averages
-    the gradients of that many consecutive batches into each update.
-    ``eval_every_n_epochs`` runs validation and the checkpoint only every
-    k-th epoch, and always on the last; ``eval_batch_size`` > 1 enhances the
-    validation files in bucketed batches. The checkpoint keys are epochs,
-    and a resumed run goes on from the latest one's next epoch, so that keys
-    keep increasing.
+    the gradients of that many consecutive batches into each update;
+    ``chain_steps`` > 1 runs that many consecutive updates per call of the
+    step (``max_steps_per_epoch`` and ``log_every_n_steps`` then count
+    calls). ``eval_every_n_epochs`` runs validation and the checkpoint only
+    every k-th epoch, and always on the last; ``eval_batch_size`` > 1
+    enhances the validation files in bucketed batches. The checkpoint keys
+    are epochs, and a resumed run goes on from the latest one's next epoch,
+    so that keys keep increasing. ``use_mesh`` and ``tp_size``: the data
+    (and model) mesh over the process group's ranks (``_maybe_mesh``).
     """
     cfg = model.cfg
-    if chain_steps != 1 or tp_size != 1:
-        raise NotImplementedError("chain_steps and tp_size are not ported: one device, one "
-                                  "update per step")
     logger = logger or MetricsLogger()
     data_module.setup("fit")
     if variables is not None:
         model.backbone.load_state_dict(variables)
-    state = TrainState(model.backbone, lr=cfg.lr, ema_decay=cfg.ema_decay)
-    train_step = make_train_step(model, preprocess=model.prepare_batch, accum_steps=accum_steps)
+    mesh = _maybe_mesh(use_mesh, data_module.cfg.batch_size, tp_size, model.device.type)
+    state = _train_state(model, model.backbone, mesh)
+    train_step = make_train_step(model, preprocess=model.prepare_batch, accum_steps=accum_steps,
+                                 chain_steps=chain_steps, mesh=mesh)
     valid_step = make_eval_step(model, preprocess=model.prepare_batch)
     generator = torch.Generator(model.device).manual_seed(seed)
+    state.generator = generator
     mt = eval_model_type(cfg.snr_conditioned, cfg.model_type)
 
     ckpt_mgr, start_epoch = None, 0
@@ -198,28 +281,31 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
             ckpt_mgr.restore(state)
             start_epoch = ckpt_mgr.latest_step() + 1
 
+    lead_axes = int(chain_steps > 1) + int(accum_steps > 1)
     warned_empty_epoch = False
     with _PreemptionGuard() as guard:
         for epoch in range(start_epoch, max_epochs):
             loader = data_module.train_dataloader()
             if accum_steps > 1:
                 loader = _stack_groups(loader, accum_steps)
+            if chain_steps > 1:
+                loader = _stack_groups(loader, chain_steps)
             stepped = False
             for i, batch in enumerate(loader):
                 if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                     break
                 stepped = True
-                state, metrics = train_step(state, batch, generator)
-                if guard.triggered:
+                state, metrics = train_step(state, shard_batch(mesh, batch, lead_axes), generator)
+                if guard.stop():
                     return _preempt_exit(ckpt_mgr, state, epoch)
                 if i % log_every_n_steps == 0:
-                    logger.log({"epoch": epoch, "train_loss": metrics["train_loss"]},
-                               step=state.step)
+                    logger.log(_log_record(epoch, metrics), step=state.step)
             if not stepped and not warned_empty_epoch:
                 warned_empty_epoch = True
                 print(f"warning: epoch {epoch} produced no training steps: the dataset yields "
-                      f"fewer than accum_steps (= {accum_steps}) batches per epoch")
-            if guard.triggered:  # SIGTERM while the batches were fetched
+                      f"fewer than accum_steps*chain_steps (= {accum_steps * chain_steps}) "
+                      "batches per epoch")
+            if guard.stop():  # SIGTERM while the batches were fetched
                 return _preempt_exit(ckpt_mgr, state, epoch)
 
             if (epoch + 1) % eval_every_n_epochs != 0 and epoch != max_epochs - 1:
@@ -235,7 +321,7 @@ def train_score_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optiona
             logger.log({"epoch": epoch, **sanitized}, step=state.step)
             if ckpt_mgr is not None:
                 ckpt_mgr.save(epoch, state, sanitized)
-            if guard.triggered:
+            if guard.stop():
                 print(f"SIGTERM during validation: exiting after the epoch-{epoch} checkpoint "
                       "(resume with --resume)")
                 return state
@@ -249,7 +335,7 @@ def train_snr_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[
                     logger: Optional[MetricsLogger] = None, seed: int = 0,
                     log_every_n_steps: int = 10, resume: bool = False,
                     max_steps_per_epoch: Optional[int] = None,
-                    variables: Optional[dict] = None) -> TrainState:
+                    variables: Optional[dict] = None, use_mesh: bool = True) -> TrainState:
     """Train ``model`` (an SNRModel) on ``data_module``'s batches; returns the
     final ``TrainState`` of its SNRNet.
 
@@ -259,15 +345,18 @@ def train_snr_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[
     ``snr_error`` averaged over ``val_dataloader()``'s ``(x, y, s, n)``
     batches, computed with the EMA in SNRNet's own parameters (the trained
     weights copied back after), and a checkpoint keyed by the epoch; a
-    resumed run goes on from the latest one's next epoch."""
-    cfg = model.cfg
+    resumed run goes on from the latest one's next epoch. ``use_mesh``: a
+    data mesh over the process group's ranks (``_maybe_mesh``), as
+    ``train_score_model``."""
     logger = logger or MetricsLogger()
     data_module.setup("fit")
     if variables is not None:
         model.dnn.load_state_dict(variables)
-    state = TrainState(model.dnn, lr=cfg.lr, ema_decay=cfg.ema_decay)
-    train_step = make_train_step(model, preprocess=model.prepare_batch)
+    mesh = _maybe_mesh(use_mesh, data_module.cfg.batch_size, device_type=model.device.type)
+    state = _train_state(model, model.dnn, mesh)
+    train_step = make_train_step(model, preprocess=model.prepare_batch, mesh=mesh)
     generator = torch.Generator(model.device).manual_seed(seed)
+    state.generator = generator
 
     ckpt_mgr, start_epoch = None, 0
     if ckpt_dir:
@@ -281,13 +370,13 @@ def train_snr_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[
             for i, batch in enumerate(data_module.train_dataloader()):
                 if max_steps_per_epoch is not None and i >= max_steps_per_epoch:
                     break
-                state, metrics = train_step(state, batch, generator)
-                if guard.triggered:
+                state, metrics = train_step(state, shard_batch(mesh, batch), generator)
+                if guard.stop():
                     return _preempt_exit(ckpt_mgr, state, epoch)
                 if i % log_every_n_steps == 0:
                     logger.log({"epoch": epoch, "train_loss": metrics["train_loss"]},
                                step=state.step)
-            if guard.triggered:
+            if guard.stop():
                 return _preempt_exit(ckpt_mgr, state, epoch)
 
             accum = {"valid_loss": [], "snr_error": []}
@@ -300,7 +389,7 @@ def train_snr_model(model, data_module, max_epochs: int = 1, ckpt_dir: Optional[
             logger.log({"epoch": epoch, **epoch_metrics}, step=state.step)
             if ckpt_mgr is not None:
                 ckpt_mgr.save(epoch, state, epoch_metrics)
-            if guard.triggered:
+            if guard.stop():
                 print(f"SIGTERM during validation: exiting after the epoch-{epoch} checkpoint "
                       "(resume with --resume)")
                 return state

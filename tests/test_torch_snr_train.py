@@ -294,12 +294,27 @@ def test_cli_trains_resumes_and_feeds_eval_and_snr_ckpt(dataset, tmp_path, capsy
                                snr_model.estimate_from_wav(wav).numpy(), rtol=1e-6)
 
 
-@pytest.mark.parametrize("flag", [["--no_mesh"], ["--tp_size", "2"]])
+@pytest.mark.parametrize("flag", [["--no_mesh"], ["--tp_size", "1"]])
 def test_cli_refuses_unported_flags(dataset, tmp_path, flag):
+    """The flags are ported; on one process each trains an epoch (the
+    data-parallel CLI on 2 ranks: tests/test_torch_parallel.py)."""
     from diffse_tpu_torch.cli import train_snr_est
 
-    with pytest.raises(SystemExit, match="not ported"):
+    state = train_snr_est.main([*CLI_ARGS, "--base_dir", dataset, "--ckpt_dir", str(tmp_path),
+                                "--max_epochs", "1", *flag])
+    assert state.step == 2 and state.mesh is None
+
+
+@pytest.mark.parametrize("flag", [["--tp_size", "2"], ["--chain_steps", "2"]])
+def test_cli_refuses_tensor_parallelism_and_chaining(dataset, tmp_path, flag, capsys):
+    """The SNR estimator trains data-parallel only, one update a step, as
+    the JAX package's ``train_snr_model``: a parser error, not a silent
+    fallback."""
+    from diffse_tpu_torch.cli import train_snr_est
+
+    with pytest.raises(SystemExit):
         train_snr_est.main([*CLI_ARGS, "--base_dir", dataset, "--ckpt_dir", str(tmp_path), *flag])
+    assert "data-parallel only" in capsys.readouterr().err
 
 
 def test_cli_runs_on_the_card_by_default(dataset, monkeypatch):

@@ -206,12 +206,18 @@ def test_eval_every_n_epochs_gates_validation_and_saves(tmp_path):
 
 
 def test_loop_refuses_enhancement_metrics_and_unported_options():
-    """``chain_steps`` and ``tp_size`` are not ported; the enhancement
-    metrics are (tests/test_torch_eval.py holds the loop's validation)."""
-    with pytest.raises(NotImplementedError, match="chain_steps"):
-        train_score_model(_model(), _DataModule(), chain_steps=2)
-    with pytest.raises(NotImplementedError, match="tp_size"):
-        train_score_model(_model(), _DataModule(), tp_size=2)
+    """``chain_steps`` and ``tp_size`` are ported (the enhancement metrics
+    too: tests/test_torch_eval.py holds the loop's validation). In one
+    process: ``chain_steps=2`` stacks the epoch's two batches into one call
+    of two updates; ``tp_size=2`` finds one rank and trains without a mesh,
+    as the JAX package does on one device (tests/test_torch_parallel*.py
+    hold the meshes)."""
+    chained = train_score_model(_model(), _DataModule(), chain_steps=2)
+    assert chained.step == 2 and chained.mesh is None
+    single = train_score_model(_model(), _DataModule(), tp_size=2)
+    assert single.step == 2 and single.mesh is None
+    for a, b in zip(chained.params, single.params):
+        assert torch.equal(a, b)  # two updates either way, the same draws
 
 
 def test_dropout_in_training_raises():
@@ -288,12 +294,18 @@ def test_train_cli_smoke_and_resume(dataset, tmp_path):
     assert torch.equal(_first_param(state), _first_param(resumed))
 
 
-@pytest.mark.parametrize("flag", [["--no_mesh"], ["--tp_size", "2"], ["--chain_steps", "2"]])
+@pytest.mark.parametrize("flag", [["--no_mesh"], ["--tp_size", "1"], ["--chain_steps", "2"]])
 def test_train_cli_refuses_unported_flags(dataset, tmp_path, flag):
+    """The flags are ported; on one process each trains: ``--no_mesh`` and
+    ``--tp_size 1`` one update an epoch, ``--chain_steps 2`` the epoch's two
+    batches as one call of two updates (the refusal of ``--no_mesh`` under
+    several ranks: tests/test_torch_parallel.py)."""
     from diffse_tpu_torch.cli.train import main
 
-    with pytest.raises(SystemExit, match="not ported"):
-        main([*CLI_ARGS, "--base_dir", dataset, "--ckpt_dir", str(tmp_path), *flag])
+    state = main([*CLI_ARGS, "--base_dir", dataset, "--ckpt_dir", str(tmp_path), "--max_epochs",
+                  "1", *flag])
+    assert state.step == (2 if flag[0] == "--chain_steps" else 1) and state.mesh is None
+    assert CheckpointManager(str(tmp_path)).latest_step() == 0
 
 
 def test_train_cli_runs_on_the_card_by_default(dataset, monkeypatch):

@@ -174,8 +174,50 @@ def test_eval_variables_and_eval_step_take_the_ema():
 
 
 def test_step_refuses_what_is_not_ported():
-    _, _, port = make_models("false", "sebridge_v2")
-    with pytest.raises(NotImplementedError, match="chain_steps"):
-        make_train_step(port, chain_steps=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(port, mesh=object())
+    """``chain_steps`` and the mesh are ported: ``chain_steps=2`` is two
+    single steps (the same updates, bitwise, and the losses), and a step
+    over a one-rank mesh (a gloo group of this process) is the plain step,
+    bitwise. What the step still refuses: a ``state_sharding`` without its
+    mesh, and a state laid out over another mesh than the step's."""
+    import torch.distributed as dist
+
+    from diffse_tpu_torch.parallel import make_mesh, state_shardings
+    from diffse_tpu_torch.parallel.mesh import init_single_process
+
+    batches = [tuple(torch.from_numpy(a) for a in spec_pair(70 + i)) for i in range(2)]
+    runs = []
+    for chain in (1, 2):
+        _, _, port = make_models("false", "sebridge_v2")
+        state = TrainState(port.backbone, lr=LR)
+        step = make_train_step(port, chain_steps=chain)
+        gen = torch.Generator().manual_seed(71)
+        if chain == 1:
+            losses = [float(step(state, b, gen)[1]["train_loss"]) for b in batches]
+        else:
+            metrics = step(state, tuple(torch.stack(t) for t in zip(*batches)), gen)[1]
+            assert float(metrics["train_loss_mean"]) == pytest.approx(np.mean(runs[0][1]))
+            losses = [float(metrics["train_loss"])]
+        runs.append((state, losses))
+    assert runs[1][0].step == 2 and runs[1][1][0] == runs[0][1][1]
+    for a, b in zip(runs[0][0].params + runs[0][0].ema, runs[1][0].params + runs[1][0].ema):
+        assert torch.equal(a, b)
+
+    init_single_process("cpu")
+    try:
+        mesh = make_mesh("cpu")
+        updates = []
+        for m in (None, mesh):
+            _, _, port = make_models("false", "sebridge_v2")
+            state = TrainState(port.backbone, lr=LR, mesh=m)
+            loss = make_train_step(port, mesh=m)(state, batches[0],
+                                                 torch.Generator().manual_seed(72))[1]
+            updates.append((loss["train_loss"], [p.detach().clone() for p in state.params]))
+        assert torch.equal(updates[0][0], updates[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(updates[0][1], updates[1][1]))
+        with pytest.raises(ValueError, match="needs its mesh"):
+            make_train_step(port, state_sharding=state_shardings(mesh, port.backbone))
+        with pytest.raises(ValueError, match="another mesh"):
+            make_train_step(port, mesh=mesh)(TrainState(port.backbone, lr=LR), batches[0],
+                                             torch.Generator().manual_seed(72))
+    finally:
+        dist.destroy_process_group()
