@@ -62,8 +62,8 @@ Phases, each of which must pass:
    Each model's kernel runs on the card over the phase.
 5c. The samplers beside the main path's ("samplers"), on the 65M NCSN++
    with redrawn weights: the certified serving sampler ``rd_ald_logit_N20``
-   (reverse_diffusion + ald, logit grid, N = 20, 40 forwards) at 128 and
-   192 frames with the float32 and the bf16 trunk, each replay against the
+   (reverse_diffusion + ald, logit grid, N = 20, 40 forwards) at 128
+   frames with the float32 and the bf16 trunk, each replay against the
    eager path on the same generator state (``GRAPH_TOL``, bitwise printed),
    its first call's time and the card memory it keeps; each predictor, the
    langevin corrector, each grid and the OUVE and PROPOSED_1 SDEs
@@ -250,6 +250,21 @@ Phases, each of which must pass:
    follows); each rank's walls, peak memory, launches and the bytes it
    keeps of weights, EMA and moments against one device's.
 
+16. Frames-parallel enhancement ("sequence", ``parallel/sequence.py``): the
+   split statistics (``gn_group_sums`` + ``gn_fold_ab``) bitwise against the
+   one-pass ``gn_stats_ab`` and each against its plain version, K1/K2 and
+   K3 with a given affine (``ab=``) against their plain versions, at the
+   sharded path's shapes (a rank's columns plus its neighbours'); then the
+   paper's 65.6M NCSN++ (weights redrawn) on one 4.0 s utterance (512
+   frames) over ``SEQUENCE_RANKS`` gloo ranks on the one card
+   (``parallel.dryrun.launch``): ``sebridge_v2`` in float32 and in the bf16
+   trunk and ``bbed_pc`` at N = ``SEQUENCE_PC_N``, each rank's whole
+   waveform against the one-device ``enhance`` on the same generator seed
+   (``SEQUENCE_ONE_NFE_TOL``, ``SEQUENCE_PC_TOL``; bf16 within the
+   one-device bf16-vs-float32 gap), each rank's launches per forward
+   (``SEQUENCE_LAUNCHES``), its walls beside the one device's (graphed,
+   replayed, eager) and its peak memory.
+
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
 
@@ -379,10 +394,12 @@ EAGER_BF16_EARLIER = (3.839, 1.750, 0.544, 93314)
 EAGER_1NFE_WALLS = (0.036, 0.044)
 # Phase 5c ("samplers"). The certified serving sampler rd_ald_logit_N20
 # (SAMPLER_QUALITY.json): reverse_diffusion + ald on the logit grid, N = 20,
-# 40 forwards, on phase 4's 1.0 and 1.5 s utterances (128 and 192 frames).
+# 40 forwards, on phase 4's 1.0 s utterance (128 frames; phase 4 holds the
+# 192-frame bucket's bbed_pc program, and phase 16's time came out of this
+# phase's 192-frame runs and phase 13's bbed_pc artifact steps).
 SERVING_SAMPLER = dict(predictor="reverse_diffusion", corrector="ald", N=20,
                        timestep_type="logit")
-SERVING_SECONDS = (1.0, 1.5)
+SERVING_SECONDS = (1.0,)
 # Each predictor, the langevin corrector, each grid and each SDE, the card
 # against the CPU at N = 2 on the 1.0 s utterance: (sde, predictor,
 # corrector, grid, N). These hold the samplers' arithmetic on the card to
@@ -522,11 +539,12 @@ SNR_STEP_WARMUP = 2
 SNR_STEP_REPS = 10
 # phase 13 ("export"): the sebridge_v3_snr artifact's two buckets (128 and
 # 192 frames), the est_snr its clients pass, the bbed_pc artifact's steps
-# (its times at N = 30: tools/artifact_times.py), the artifact against
-# enhance on the card, and the POSTs through cli.serve --artifact
+# (one: its prior, corrector and predictor draws, 2 forwards; its times at
+# N = 30: tools/artifact_times.py), the artifact against enhance on the
+# card, and the POSTs through cli.serve --artifact
 EXPORT_SECONDS = (1.0, 1.5)
 EXPORT_EST_SNRS = (0.35, 0.6, 1.2, 2.5)
-EXPORT_BBED_N = 4
+EXPORT_BBED_N = 1
 EXPORT_TOL = 1e-5
 EXPORT_POST_SECONDS = (0.6, 1.0, 1.2, 1.5)
 
@@ -4032,6 +4050,316 @@ def run_parallel(torch, ck, dev, card, backbone_kwargs=None, backend="gloo"):
     return paths
 
 
+# phase 16 ("sequence"): frames-parallel enhancement (parallel/sequence.py) of
+# one 4.0 s utterance (512 frames, 256 a rank at the top level) by the
+# paper's 65.6M NCSN++ (weights redrawn from SEQUENCE_WEIGHT_SEED) over
+# SEQUENCE_RANKS gloo ranks on the one card (NCCL refuses two ranks on one
+# device), against the one-device enhance on the card on the same draws.
+SEQUENCE_RANKS = 2
+SEQUENCE_BACKBONE = {}        # the paper's NCSN++: its defaults
+SEQUENCE_SECONDS = 4.0
+SEQUENCE_WEIGHT_SEED = 31
+SEQUENCE_PC_N = 3
+SEQUENCE_ONE_NFE_TOL = 1e-4   # of max|ref|: float32 sums in other orders
+SEQUENCE_PC_TOL = 5e-3        # of max|ref|: as tests/test_sequence_parallel.py's PC bound
+# (label, model_type, sigma_max, backbone keywords, generator seed, enhance keywords)
+SEQUENCE_CASES = [("sebridge_v2", "sebridge_v2", 1.0, {}, 61, {}),
+                  ("sebridge_v2 bf16", "sebridge_v2", 1.0, {"dtype": "bf16"}, 61, {}),
+                  ("bbed_pc", "bbed", 0.5, {}, 62, {"N": SEQUENCE_PC_N})]
+# a rank's launches per forward: every K1/K2 and K3 call (81 / 28) with the
+# shards' statistics, each from one group-sums pass and one fold
+SEQUENCE_LAUNCHES = {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0,
+                     "gn_group_sums": 109, "gn_fold_ab": 109}
+# the sharded path's kernel shapes on a rank at 512 frames over 2 ranks: the
+# statistics of its own columns; K1/K2 on its columns and one of its
+# neighbour's ([.., 257, ..]; 258 for a rank between two others); K3 with
+# the shards' affine
+SEQUENCE_STATS_SHAPES = [(1, 256, 256, 128), (1, 256, 256, 256), (1, 64, 64, 256),
+                         (1, 4, 4, 256)]
+SEQUENCE_K1_SHAPES = [(1, 256, 257, 128, 128, True), (1, 256, 257, 256, 128, True),
+                      (1, 256, 258, 128, 128, True), (1, 256, 257, 128, 4, False),
+                      (1, 16, 17, 256, 256, True), (1, 4, 5, 512, 256, True)]
+SEQUENCE_K3_SHAPES = [(1, 256, 256, 128, True), (1, 16, 16, 256, False)]
+
+
+def check_sequence_kernels(torch, ck, dev):
+    """Phase 16's kernels: ``gn_fold_ab(gn_group_sums(x))`` bitwise against
+    the one-pass ``gn_stats_ab`` and each against its plain version; K1/K2
+    and K3 with a given affine (``ab=``) against their plain versions
+    (``KERNEL_TOL`` in float32, ``bf16_agreement`` in bf16), at the sharded
+    path's shapes. Returns the JSON record's rows of the two new kernels."""
+    rng = np.random.default_rng(16)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev, dtype)
+
+    failures = []
+    rows = {"gn_group_sums": {"max_abs_err": 0.0}, "gn_fold_ab": {"max_abs_err": 0.0}}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SEQUENCE_STATS_SHAPES:
+            b, h, w, c = shape
+            x = t(2 * rng.standard_normal(shape) + 1, dtype)
+            sc, bi = t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c))
+            groups = min(c // 4, 32)
+            one_pass = ck.gn_stats_ab(x, sc, bi, groups)
+            sums = ck.gn_group_sums(x, groups)
+            folded = ck.gn_fold_ab(sums, h * w, sc, bi, 1e-6, dtype)
+            plain_sums = ck.gn_group_sums_reference(x, groups)
+            plain_fold = ck.gn_fold_ab_reference(plain_sums, h * w, sc, bi, 1e-6)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(p, q) for p, q in zip(one_pass, folded))
+            # the sums against float64 on the host, relative to each sum's scale
+            sums_err = ((sums - plain_sums).abs() / plain_sums.abs().clamp_min(1.0)).max().item()
+            fold_err = max((p - q).abs().max().item() for p, q in zip(folded, plain_fold))
+            name = f"gn_group_sums + gn_fold_ab {list(shape)} {str(dtype)[6:]}"
+            print(f"{name}: bitwise equal to gn_stats_ab {bitwise}; sums vs plain "
+                  f"{sums_err:.3e} relative; fold vs plain (the plain version's sums) "
+                  f"{fold_err:.3e}")
+            rows["gn_group_sums"]["max_abs_err"] = max(rows["gn_group_sums"]["max_abs_err"],
+                                                       sums_err)
+            rows["gn_fold_ab"]["max_abs_err"] = max(rows["gn_fold_ab"]["max_abs_err"], fold_err)
+            if not bitwise or sums_err > 1e-12 or fold_err > KERNEL_TOL["atol"]:
+                failures.append(name)
+            if shape == SEQUENCE_STATS_SHAPES[0] and dtype == torch.float32:
+                xg = x.view(b, h * w, groups, c // groups)
+                times = timing(torch, lambda: ck.gn_group_sums(x, groups),
+                               lambda: ck.gn_group_sums_reference(x, groups),
+                               lambda: torch.var_mean(xg, dim=(1, 3)))
+                # x in, the sums out; a square and two sums per element
+                bound_ms, bound_by = bound(3 * x.numel(), 4 * x.numel() + 16 * b * groups)
+                print(f"gn_group_sums {list(shape)}: {describe(times, bound_ms, bound_by)}")
+                rows["gn_group_sums"].update(times, bound_ms=bound_ms, bound_by=bound_by)
+                times = timing(torch, lambda: ck.gn_fold_ab(sums, h * w, sc, bi),
+                               lambda: ck.gn_fold_ab_reference(sums, h * w, sc, bi, 1e-6))
+                # the sums, scale and bias in, a and b out; ~10 operations a
+                # group and 3 a channel
+                bound_ms, bound_by = bound(10 * b * groups + 3 * b * c,
+                                           16 * b * groups + 8 * c + 8 * b * c)
+                print(f"gn_fold_ab [{b}, {groups}, 2] -> [{b}, {c}]: "
+                      f"{describe(times, bound_ms, bound_by)}")
+                rows["gn_fold_ab"].update(times, bound_ms=bound_ms, bound_by=bound_by)
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, cin, cout, with_skip in SEQUENCE_K1_SHAPES:
+            x = t(rng.standard_normal((b, h, w, cin)), dtype)
+            gs, gb = t(1 + 0.1 * rng.standard_normal(cin)), t(0.1 * rng.standard_normal(cin))
+            wk = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
+            bt = t(0.1 * rng.standard_normal((b, cout)))
+            skip = t(rng.standard_normal((b, h, w, cout)), dtype) if with_skip else None
+            groups = min(cin // 4, 32)
+            # the affine of the columns but the first: a shard's, not x's own
+            ab = ck.gn_stats_ab(x[:, :, 1:].contiguous(), gs, gb, groups)
+            packed = ck.pack_conv_weight_bf16(wk) if dtype == torch.bfloat16 else None
+            args = (x, gs, gb, wk, bt, groups)
+            kw = dict(skip=skip, skip_coef=1 / np.sqrt(2.0), ab=ab)
+            out = ck.groupnorm_silu_conv3x3(*args, w_packed=packed, **kw)
+            ref = ck.groupnorm_silu_conv3x3_reference(*args, **kw)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                ok = torch.allclose(out, ref, **KERNEL_TOL)
+                err = (out - ref).abs().max().item()
+                how = f"max_abs_err {err:.3e}"
+            else:
+                ok, share, err = bf16_agreement(torch, out, ref)
+                how = f"max_abs_err {err:.3e}, share over one ulp {share:.2e}"
+            plan = ck.conv_plan(b, h, w, cin, cout, dtype)
+            name = (f"gn_silu_conv3x3 ab= {[b, h, w, cin]}->{cout}{' +skip' if with_skip else ''}"
+                    f" {str(dtype)[6:]}")
+            line = f"{name}: {how} ok {ok} | plan {ck.CONV_CONFIGS[plan.config][3]}"
+            if (b, h, w) == (1, 256, 257) and cin == cout == 128:
+                times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, w_packed=packed,
+                                                                       **kw),
+                               lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
+                bounds = conv_bounds(b, h, w, cin, cout, with_skip,
+                                     2 if dtype == torch.bfloat16 else 4)
+                line += " | " + describe(times, *bounds["bf16" if dtype == torch.bfloat16
+                                                         else "tf32x3"])
+            print(line)
+            if not ok:
+                failures.append(name)
+        for b, h, w, c, silu in SEQUENCE_K3_SHAPES:
+            x = t(2 * rng.standard_normal((b, h, w, c)) + 1, dtype)
+            sc, bi = t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c))
+            groups = min(c // 4, 32)
+            ab = ck.gn_stats_ab(x[:, :, 1:].contiguous(), sc, bi, groups)
+            out_dtype = None if silu else torch.float32  # the attention's norm: float32 out
+            out = ck.groupnorm_silu(x, sc, bi, groups, apply_silu=silu, out_dtype=out_dtype,
+                                    ab=ab)
+            ref = ck.groupnorm_silu_reference(x, sc, bi, groups, apply_silu=silu,
+                                              out_dtype=out_dtype, ab=ab)
+            torch.cuda.synchronize()
+            if out.dtype == torch.float32:
+                ok, err = torch.allclose(out, ref, **KERNEL_TOL), (out - ref).abs().max().item()
+            else:
+                ok, _, err = bf16_agreement(torch, out, ref)
+            name = f"groupnorm_silu ab= {[b, h, w, c]} silu={silu} {str(dtype)[6:]}"
+            print(f"{name}: max_abs_err {err:.3e} ok {ok}")
+            if not ok:
+                failures.append(name)
+    if failures:
+        raise AssertionError(f"phase 16's kernels disagree: {failures}")
+    return rows
+
+
+def sequence_model(torch, dev, model_type, sigma_max, backbone, weights):
+    """The NCSN++ of ``backbone`` keywords in a ScoreModel of ``model_type``
+    under BBED, with ``weights``."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type=model_type,
+                           snr_conditioned="false", sigma_max=sigma_max)
+    model = ScoreModel(cfg, backbone_kwargs=backbone, sde_kwargs=dict(
+        T_sampling=0.999, k=2.6, theta=0.52, N=30), device=dev,
+        generator=torch.Generator().manual_seed(0))
+    model.backbone.load_state_dict(weights)
+    return model
+
+
+def _sequence_rank(rank, workdir, device):
+    """One rank of phase 16: each case's enhance over the frames mesh of
+    every rank, each 1-NFE case twice (the second timed warm), with its
+    waveform, walls, launches and the programs it kept."""
+    import os
+
+    import torch
+
+    from diffse_tpu_torch.ops import cuda_kernels as ck
+    from diffse_tpu_torch.parallel import make_seq_mesh
+
+    dev = torch.device(device)
+    ref = torch.load(os.path.join(workdir, "reference.pt"), weights_only=False)
+    y = ref["wave"][None]
+    mesh = make_seq_mesh(device_type=dev.type)
+    out = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for label, model_type, sigma_max, backbone, seed, kw in SEQUENCE_CASES:
+        model = sequence_model(torch, dev, model_type, sigma_max,
+                               {**ref["backbone"], **backbone}, ref["weights"])
+        walls = []
+        for _ in range(1 if kw else 2):
+            ck.reset_launch_counts()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            wave = model.enhance(y, y, generator=torch.Generator(dev).manual_seed(seed),
+                                 seq_mesh=mesh, **kw)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+        out[label] = {"wave": wave, "walls": walls, "graphs": len(model._graphs),
+                      "launches": {**ck.launch_counts, **ck.stats_launch_counts},
+                      "by_config": list(ck.conv_config_launches)}
+        del model
+    out["peak"] = _peak(torch, dev)
+    return out
+
+
+def run_sequence(torch, ck, dev, card):
+    """Phase 16 ("sequence"). Returns the float32 and the bf16 paths' kernel
+    runs and the two new kernels' records."""
+    import os
+    import shutil
+    import tempfile
+
+    from diffse_tpu_torch.parallel import dryrun
+    from diffse_tpu_torch.utils import generator_noise
+
+    t_phase = time.time()
+    rows = check_sequence_kernels(torch, ck, dev)
+    print(f"sequence kernels: {time.time() - t_phase:.1f} s")
+    failures, paths, bf16_paths = [], {}, {}
+    _, wave = synthetic_pair(np.random.default_rng(16), int(SEQUENCE_SECONDS * SR))
+    from diffse_tpu_torch.models.ncsnpp import NCSNpp
+
+    backbone = NCSNpp(**SEQUENCE_BACKBONE, generator=torch.Generator().manual_seed(0))
+    redraw_weights(torch, backbone, seed=SEQUENCE_WEIGHT_SEED)
+    weights = {k: v.detach().clone() for k, v in backbone.state_dict().items()}
+    n_params = sum(p.numel() for p in backbone.parameters())
+    del backbone
+
+    # one device: each case graphed (its capture, then a timed replay) and,
+    # for the 1-NFE cases, eagerly (timed warm)
+    t0 = time.time()
+    one = {}
+    for label, model_type, sigma_max, backbone_kw, seed, kw in SEQUENCE_CASES:
+        model = sequence_model(torch, dev, model_type, sigma_max,
+                               {**SEQUENCE_BACKBONE, **backbone_kw}, weights)
+        walls = {}
+        for how in ("graphed", "replay") + (() if kw else ("eager",)):
+            gen = torch.Generator(dev).manual_seed(seed)
+            source = {"noise": generator_noise(gen)} if how == "eager" else {"generator": gen}
+            _sync(torch, dev)
+            start = time.perf_counter()
+            outs = model.enhance(wave[None], wave[None], **source, **kw)
+            _sync(torch, dev)
+            walls[how] = time.perf_counter() - start
+            one.setdefault(label, outs)
+        one[label + " walls"] = walls
+        del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    print(f"sequence one device: {time.time() - t0:.1f} s")
+
+    t0 = time.time()
+    workdir = tempfile.mkdtemp(prefix="diffse_sequence_")
+    try:
+        torch.save({"weights": weights, "wave": wave, "backbone": SEQUENCE_BACKBONE},
+                   os.path.join(workdir, "reference.pt"))
+        ranks = dryrun.launch(_sequence_rank, SEQUENCE_RANKS, (workdir, str(dev)),
+                              device=str(dev), backend="gloo", timeout=300)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    spawn = time.time() - t0
+
+    def wave_gap(out, ref):
+        return float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+
+    f32_gap = wave_gap(one["sebridge_v2 bf16"], one["sebridge_v2"])
+    for label, model_type, sigma_max, backbone_kw, seed, kw in SEQUENCE_CASES:
+        ref = one[label]
+        forwards = 2 * SEQUENCE_PC_N if kw else 1
+        expected = {k: v * forwards for k, v in SEQUENCE_LAUNCHES.items()}
+        for r, res in enumerate(ranks):
+            x = res[label]
+            gap = wave_gap(x["wave"], ref)
+            if label == "bbed_pc":
+                tol, what = SEQUENCE_PC_TOL, f"tol {SEQUENCE_PC_TOL}"
+            elif "bf16" in label:
+                tol = BF16_GAP_RATIO * f32_gap
+                what = (f"tol {BF16_GAP_RATIO} x the one-device bf16-vs-float32 gap "
+                        f"{f32_gap:.3e}")
+            else:
+                tol, what = SEQUENCE_ONE_NFE_TOL, f"tol {SEQUENCE_ONE_NFE_TOL}"
+            launches = x["launches"]
+            walls = one[label + " walls"]
+            print(f"sequence ({card}): {label} on a {SEQUENCE_SECONDS} s utterance (512 frames, "
+                  f"the {n_params}-parameter NCSN++, weights redrawn from seed "
+                  f"{SEQUENCE_WEIGHT_SEED}), gloo rank {r} of {SEQUENCE_RANKS} against one "
+                  f"device: max|diff|/max|ref| {gap:.3e} ({what}); launches on the rank "
+                  f"{launches} over {forwards} forward(s), by conv instantiation "
+                  f"{x['by_config']}; programs kept {x['graphs']}; walls sharded (eager) "
+                  f"{[f'{w:.4f}' for w in x['walls']]} s, one device "
+                  + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items()))
+            if not np.isfinite(x["wave"]).all() or x["wave"].shape != ref.shape or gap > tol:
+                failures.append(f"{label} rank {r}: {gap:.3e}")
+            if launches != expected:
+                failures.append(f"{label} rank {r}: launches {launches}, expected {expected}")
+            if x["graphs"]:
+                failures.append(f"{label} rank {r}: a sharded call kept a program")
+        total = {k: sum(res[label]["launches"][k] for res in ranks) for k in SEQUENCE_LAUNCHES}
+        name = f"sequence: {label}, {SEQUENCE_RANKS} gloo ranks (eager)"
+        if "bf16" in label:
+            by_config = [sum(v) for v in zip(*(res[label]["by_config"] for res in ranks))]
+            bf16_paths[name] = card_runs({**total, **conv_launches(ck, by_config)}, [])
+        else:
+            paths[name] = card_runs(total, [])
+    peaks = [f"{res['peak'] / 2**30:.2f}" for res in ranks]
+    print(f"sequence: {SEQUENCE_RANKS} ranks spawned and done in {spawn:.1f} s; peak memory a "
+          f"rank {peaks} GiB")
+    print(f"phase sequence: {time.time() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths, bf16_paths, rows
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -4088,7 +4416,8 @@ def main(argv=None) -> int:
                         ("snr_train", lambda: run_snr_train(torch, ck, dev, card)),
                         ("export", lambda: run_export(torch, ck, dev, card)),
                         ("backbones", lambda: run_backbones(torch, ck, dev, card)),
-                        ("parallel", lambda: run_parallel(torch, ck, dev, card))):
+                        ("parallel", lambda: run_parallel(torch, ck, dev, card)),
+                        ("sequence", lambda: run_sequence(torch, ck, dev, card))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -4113,14 +4442,15 @@ def main(argv=None) -> int:
              **results["snr"], **results["graphs"], **results["samplers"][0],
              **results["train"][0], **results["serve"], **results["eval"],
              **results["snr_train"], **results["export"], **results["backbones"],
-             **results["parallel"]}
+             **results["parallel"], **results["sequence"][0]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
-                  **results["samplers"][1], **results["train"][1]}
+                  **results["samplers"][1], **results["train"][1], **results["sequence"][1]}
 
     def launches(kernel, by=paths):
-        runs = {path: counts["runs"][kernel] for path, counts in by.items()}
-        recorded = {path: counts["recorded"][kernel] for path, counts in by.items()}
+        # the split statistics' kernels run on the frames-parallel paths only
+        runs = {path: counts["runs"].get(kernel, 0) for path, counts in by.items()}
+        recorded = {path: counts["recorded"].get(kernel, 0) for path, counts in by.items()}
         return {"launches": sum(runs.values()), "launches_by_path": runs,
                 "recorded_at_capture_by_path": recorded, "launches_counted": LAUNCHES_COUNTED}
 
@@ -4145,6 +4475,17 @@ def main(argv=None) -> int:
         {"name": "groupnorm_silu_bf16", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
          **launches("groupnorm_silu", bf16_paths), **results["bf16_kernels"]["groupnorm_silu"]},
+        # the split statistics: one kernel each for float32 and bf16
+        {"name": "gn_group_sums", **gn_source,
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
+         "also_replaces": "diffse_tpu/ops/pallas_kernels.py:269",
+         **launches("gn_group_sums", {**paths, **bf16_paths}),
+         **results["sequence"][2]["gn_group_sums"]},
+        {"name": "gn_fold_ab", **gn_source,
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:46",
+         "also_replaces": "diffse_tpu/ops/pallas_kernels.py:269",
+         **launches("gn_fold_ab", {**paths, **bf16_paths}),
+         **results["sequence"][2]["gn_fold_ab"]},
         {"name": "fused_bias_leaky_relu", "route": "cuda",
          "source": "diffse_tpu_torch/csrc/fused_act.cu",
          "replaces": "diffse_tpu/ops/pallas_kernels.py:208",

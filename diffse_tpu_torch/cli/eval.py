@@ -17,9 +17,13 @@ with the eval harness's branch semantics; with ``--streaming_chunk_frames``
 as well, the packed fleet engine; ``--streaming_chunk_frames`` alone, spec
 (or ``--streaming_mode wav``) streaming per utterance. File ``i`` (sorted
 order) draws from a generator seeded with ``dispatch_seed(0, i)``; the
-batched paths from seed 0 by their own rules. The port adds ``--device``
-(the card unless "cpu" is given); ``--seq_shards`` (sequence-parallel
-enhancement) is not ported. Unlike the JAX package, whose
+batched paths from seed 0 by their own rules. ``--seq_shards N`` enhances
+each file frames-parallel over N ranks (``ScoreModel.enhance(seq_mesh=)``),
+the single-utterance path only: under a launcher of N ranks (``torchrun
+--nproc_per_node N``, gloo where the ranks share a card) or, for N = 1, in
+one process; every rank reads the same files and rank 0 writes the wavs and
+the results. The port adds ``--device`` (the card unless "cpu" is given).
+Unlike the JAX package, whose
 ``--reverse_starting_point`` defaults to 1.0, the port keeps the SDE's own
 T and ``--N`` unless the flag is given: BBED's marginal std at T = 1.0 is
 NaN (0 x Ei(0)), so that default turns every ``bbed`` output into NaN, and
@@ -96,7 +100,11 @@ def build_parser() -> ArgumentParser:
                         help="'spec' (default): one STFT per utterance, overlapped frame "
                              "chunks, crossfade OLA + one iSTFT. 'wav': per-chunk waveforms")
     parser.add_argument("--seq_shards", type=int, default=0,
-                        help="not ported (sequence-parallel enhancement): 0 only")
+                        help="If > 0, shard each utterance's spectrogram frames over a 1-D "
+                             "'seq' mesh of that many ranks (frames-parallel enhancement; "
+                             "parallel/sequence.py). Single-utterance path only "
+                             "(incompatible with --eval_batch_size > 1 and "
+                             "--streaming_chunk_frames)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="where to enhance: the card (default) or cpu")
     return parser
@@ -128,15 +136,37 @@ def reverse_start(model, reverse_starting_point: float) -> None:
         model.sde = model.sde.replace(T_sampling=reverse_starting_point)
 
 
+def seq_mesh_for(args):
+    """The frames mesh of ``--seq_shards`` ranks: the process group joined
+    first where a launcher configured one (gloo where the ranks outnumber
+    the cards), each rank on its card; ``args.device`` set to this rank's."""
+    import torch
+
+    from ..parallel.dryrun import launch_backend
+    from ..parallel.mesh import initialize_distributed, rank_device
+    from ..parallel.sequence import make_seq_mesh
+
+    device = rank_device(args.device)
+    initialize_distributed(device=device, backend=launch_backend(
+        str(device), int(os.environ.get("WORLD_SIZE", 1))))
+    args.device = str(device)
+    return make_seq_mesh(args.seq_shards, torch.device(device).type)
+
+
 def main(argv=None) -> dict:
     parser = build_parser()
     args = parser.parse_args(argv)
+    seq_mesh = None
     if args.seq_shards:
-        parser.error("--seq_shards is not ported to diffse_tpu_torch (one device)")
+        if args.eval_batch_size > 1 or args.streaming_chunk_frames:
+            parser.error("--seq_shards requires the single-utterance path "
+                         "(no --eval_batch_size > 1 / --streaming_chunk_frames)")
+        seq_mesh = seq_mesh_for(args)
 
     from ..data.wavio import read_wav, write_wav
     from ..evaluation.inference import dispatch_generator, estimate_snrs
     from ..evaluation.metrics import estoi, pesq_wb, si_sdr
+    from ..parallel.mesh import is_main_rank
     from ..train.loop import eval_model_type
 
     clean_dir = join(args.test_dir, "clean")
@@ -165,7 +195,9 @@ def main(argv=None) -> dict:
 
     noisy_files = sorted(glob.glob(f"{noisy_dir}/*.wav"))
     target_dir = args.destination_folder
-    os.makedirs(join(target_dir, "all"), exist_ok=True)
+    writes = is_main_rank()  # with --seq_shards, rank 0 writes and scores
+    if writes:
+        os.makedirs(join(target_dir, "all"), exist_ok=True)
 
     data = {"filename": [], "pesq": [], "si_sdr": [], "estoi": []}
     timing = {"files": 0, "audio_seconds": 0.0, "enhance_seconds": 0.0,
@@ -264,15 +296,20 @@ def main(argv=None) -> dict:
                       snr=args.snr, timestep_type=args.timestep_type, oracle=args.oracle)
         if args.oracle:
             kwargs.update(clean_rms=clean_rms[cnt], noise_rms=noise_rms[cnt])
+        if seq_mesh is not None:
+            kwargs.update(seq_mesh=seq_mesh)
         start = time.perf_counter()
         x_hat = model.enhance(x, y, generator=dispatch_generator(model.device, 0, cnt), **kwargs)
         timing["enhance_seconds"] += time.perf_counter() - start
+        if not writes:
+            continue
         p = score(filename, x[0], x_hat)
         pesq_sum += 0.0 if np.isnan(p) else p
         print(f" avg PESQ: {pesq_sum / (cnt + 1):.3f}  "
               f"(si_sdr {data['si_sdr'][-1]:.2f}, estoi {data['estoi'][-1]:.3f})")
 
-    _write_results(target_dir, data)
+    if writes:
+        _write_results(target_dir, data)
     return timing
 
 

@@ -26,6 +26,17 @@
 // last, and the chain keeps two launches. The ticket counter is zero between
 // calls: the folding block resets it.
 //
+// Frames-parallel enhancement (parallel/sequence.py) splits that pass in two,
+// so that the sums of the shards can meet in between: the same kernel
+// instantiated to stop after folding the partials, writing each group's
+// float64 sum and sum of squares (gn_group_sums: the TPU program's
+// statistics before GSPMD's all-reduce over the frames shards), and
+// gn_fold_ab_kernel, which turns the all-reduced sums into a, b. The fold of
+// both is one inline function (group_affine), and the sums are summed in the
+// same order as the one-pass kernel's, so fold(gn_group_sums(x)) gives the
+// one-pass a, b bit for bit. Both read or write a few bytes a group: bound by
+// launch latency.
+//
 // The conv. An implicit GEMM, M = output positions, N = Cout, K = 9 * Cin,
 // on the tensor cores in 3xTF32: each operand v is split into hi = tf32(v)
 // and lo = tf32(v - hi), and acc += lo_a*hi_w + hi_a*lo_w + hi_a*hi_w in
@@ -226,16 +237,50 @@ __device__ __forceinline__ float silu_fast(float v) { return v * __frcp_rn(1.0f 
 
 // ----------------------------------------------------------------- statistics
 
+// One group's affine from its sums over n elements: a = rstd * scale and
+// b = bias - mean * a for its channels, lanes over the channels. The float32
+// and the bf16 arithmetic are the plain version's (gn_stats_ab_reference).
+template <typename T>
+__device__ __forceinline__ void group_affine(double gs, double gq, double n, int g, int cg,
+                                             int row, int lane, const float* __restrict__ scale,
+                                             const float* __restrict__ bias,
+                                             float* __restrict__ a, float* __restrict__ b,
+                                             float eps) {
+  const double mean = gs / n;
+  const double var = gq / n - mean * mean;
+  if constexpr (std::is_same<T, float>::value) {
+    const float rstd = rsqrtf(static_cast<float>(var) + eps);
+    for (int j = lane; j < cg; j += 32) {
+      const int ch = g * cg + j;
+      const float av = rstd * scale[ch];
+      a[row + ch] = av;
+      b[row + ch] = bias[ch] - static_cast<float>(mean) * av;
+    }
+  } else {
+    // bf16: 1/sqrt in double and no contraction, as the plain version
+    // computes a and b, so that the activations round alike
+    const float rstd = static_cast<float>(1.0 / sqrt(var + static_cast<double>(eps)));
+    for (int j = lane; j < cg; j += 32) {
+      const int ch = g * cg + j;
+      const float av = __fmul_rn(rstd, scale[ch]);
+      a[row + ch] = av;
+      b[row + ch] = __fsub_rn(bias[ch], __fmul_rn(static_cast<float>(mean), av));
+    }
+  }
+}
+
 // grid (parts, batch). x: [B, HW, C] of T, C a multiple of the 16-byte vector
 // (4 float32, 8 bfloat16), C <= 2048. partial: [B, groups,
-// parts] (sum, sum of squares); counter: [B], zero.
-template <typename T>
+// parts] (sum, sum of squares); counter: [B], zero. kSums: the last block
+// writes each group's (sum, sum of squares) to sums [B, groups] instead of
+// a, b (scale, bias, a, b, eps unused).
+template <typename T, bool kSums>
 __global__ void __launch_bounds__(stats_threads<T>())
 gn_stats_ab_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ bias, double2* __restrict__ partial,
                    int* __restrict__ counter, float* __restrict__ a,
-                   float* __restrict__ b, int hw, int c, int groups, int chunk,
-                   float eps) {
+                   float* __restrict__ b, double2* __restrict__ sums, int hw, int c,
+                   int groups, int chunk, float eps) {
   constexpr int kThreads = stats_threads<T>();
   constexpr int V = Vec16<T>::N;
   __shared__ double sh_s[V * kThreads];
@@ -334,29 +379,33 @@ gn_stats_ab_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     }
     gs = __shfl_sync(0xffffffffu, gs, 0);
     gq = __shfl_sync(0xffffffffu, gq, 0);
-    const double mean = gs / n;
-    const double var = gq / n - mean * mean;
-    if constexpr (std::is_same<T, float>::value) {
-      const float rstd = rsqrtf(static_cast<float>(var) + eps);
-      for (int j = lane; j < cg; j += 32) {
-        const int ch = g * cg + j;
-        const float av = rstd * scale[ch];
-        a[bi * c + ch] = av;
-        b[bi * c + ch] = bias[ch] - static_cast<float>(mean) * av;
-      }
+    if constexpr (kSums) {
+      if (lane == 0) sums[static_cast<long long>(bi) * groups + g] = make_double2(gs, gq);
     } else {
-      // bf16: 1/sqrt in double and no contraction, as the plain version
-      // computes a and b, so that the activations round alike
-      const float rstd = static_cast<float>(1.0 / sqrt(var + static_cast<double>(eps)));
-      for (int j = lane; j < cg; j += 32) {
-        const int ch = g * cg + j;
-        const float av = __fmul_rn(rstd, scale[ch]);
-        a[bi * c + ch] = av;
-        b[bi * c + ch] = __fsub_rn(bias[ch], __fmul_rn(static_cast<float>(mean), av));
-      }
+      group_affine<T>(gs, gq, n, g, cg, bi * c, lane, scale, bias, a, b, eps);
     }
   }
   if (tid == 0) counter[bi] = 0;
+}
+
+constexpr int kFoldThreads = 256;
+
+// grid (batch), kFoldThreads threads, one warp per group: a, b [B, C] from
+// the groups' sums [B, groups] (sum, sum of squares) over hw positions.
+template <typename T>
+__global__ void __launch_bounds__(kFoldThreads)
+gn_fold_ab_kernel(const double2* __restrict__ sums, const float* __restrict__ scale,
+                  const float* __restrict__ bias, float* __restrict__ a,
+                  float* __restrict__ b, int hw, int c, int groups, float eps) {
+  const int bi = blockIdx.x;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int cg = c / groups;
+  const double n = static_cast<double>(hw) * cg;
+  for (int g = warp; g < groups; g += kFoldThreads / 32) {
+    const double2 v = sums[static_cast<long long>(bi) * groups + g];
+    group_affine<T>(v.x, v.y, n, g, cg, bi * c, lane, scale, bias, a, b, eps);
+  }
 }
 
 // x: [B, HW, C] of Tin, out: of Tout, C a multiple of the 16-byte vector of
@@ -1690,9 +1739,35 @@ int stats_ab(const T* x, const float* scale, const float* bias, double* partial,
       static_cast<long long>(parts) * chunk < hw || (parts - 1) * chunk >= hw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gn_stats_ab_kernel<T><<<dim3(parts, batch), kThreads, 0, stream>>>(
-      x, scale, bias, reinterpret_cast<double2*>(partial), counter, a, b, hw, c, groups,
-      chunk, eps);
+  gn_stats_ab_kernel<T, false><<<dim3(parts, batch), kThreads, 0, stream>>>(
+      x, scale, bias, reinterpret_cast<double2*>(partial), counter, a, b, nullptr, hw, c,
+      groups, chunk, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int group_sums(const T* x, double* partial, int* counter, double* sums, int batch, int hw,
+               int c, int groups, int parts, int chunk, cudaStream_t stream) {
+  constexpr int kThreads = stats_threads<T>();
+  constexpr int V = Vec16<T>::N;
+  if (c % V || c / V > kThreads || c % groups || parts < 1 ||
+      static_cast<long long>(parts) * chunk < hw || (parts - 1) * chunk >= hw) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  gn_stats_ab_kernel<T, true><<<dim3(parts, batch), kThreads, 0, stream>>>(
+      x, nullptr, nullptr, reinterpret_cast<double2*>(partial), counter, nullptr, nullptr,
+      reinterpret_cast<double2*>(sums), hw, c, groups, chunk, 0.0f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fold_ab(const double* sums, const float* scale, const float* bias, float* a, float* b,
+            int batch, int hw, int c, int groups, float eps, cudaStream_t stream) {
+  if (batch < 1 || hw < 1 || groups < 1 || c % groups) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  gn_fold_ab_kernel<T><<<batch, kFoldThreads, 0, stream>>>(
+      reinterpret_cast<const double2*>(sums), scale, bias, a, b, hw, c, groups, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1769,6 +1844,34 @@ int diffse_gn_stats_ab(const void* x, int dtype, const float* scale, const float
                             b, batch, hw, c, groups, parts, chunk, eps, st);
     case 1: return stats_ab(static_cast<const bf16*>(x), scale, bias, partial, counter, a, b,
                             batch, hw, c, groups, parts, chunk, eps, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// gn_stats_ab's first pass alone: each group's (sum, sum of squares) over
+// x's positions, sums [B, groups] of double2.
+int diffse_gn_group_sums(const void* x, int dtype, double* partial, int* counter, double* sums,
+                         int batch, int hw, int c, int groups, int parts, int chunk,
+                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return group_sums(static_cast<const float*>(x), partial, counter, sums, batch, hw,
+                              c, groups, parts, chunk, st);
+    case 1: return group_sums(static_cast<const bf16*>(x), partial, counter, sums, batch, hw, c,
+                              groups, parts, chunk, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// gn_stats_ab's fold alone: a, b from the sums over hw positions (all the
+// shards' positions), with the arithmetic of the activations' dtype.
+int diffse_gn_fold_ab(const double* sums, int dtype, const float* scale, const float* bias,
+                      float* a, float* b, int batch, int hw, int c, int groups, float eps,
+                      void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return fold_ab<float>(sums, scale, bias, a, b, batch, hw, c, groups, eps, st);
+    case 1: return fold_ab<bf16>(sums, scale, bias, a, b, batch, hw, c, groups, eps, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

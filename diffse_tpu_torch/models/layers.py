@@ -30,6 +30,15 @@ the bf16 copies of their parameters are cast once, ``cast_params``, and in
 training on every call, so that the gradient reaches the float32
 parameters); GroupNorm statistics, the attention's norm, q/k/v and softmax
 stay float32.
+
+Inside a frames shard (``parallel.sequence.constrain_frames``: one
+utterance's frames split over ranks) the layers of the paper's configuration
+compute this rank's columns of the whole map's result: each GroupNorm's
+statistics are the shards' group sums, summed over the ranks
+(``gn_group_sums``, then ``gn_fold_ab``) and handed to the kernels as their
+affine (``ab=``); each 3x3 conv and FIR resample reads its neighbours' edge
+columns (``FramesShard.halo``); the attention attends over every rank's
+frames.
 """
 
 from __future__ import annotations
@@ -41,10 +50,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.cuda_kernels import (CONV_BK_BF16, groupnorm_silu_conv3x3_op, groupnorm_silu_op,
-                                needs_grad, pack_conv_weight_bf16, weight_casts)
+from ..ops.cuda_kernels import (CONV_BK_BF16, gn_fold_ab, gn_group_sums,
+                                groupnorm_silu_conv3x3_op, groupnorm_silu_op, needs_grad,
+                                pack_conv_weight_bf16, weight_casts)
 from ..ops.fir import (conv_downsample_2d, downsample_2d, naive_downsample_2d,
                        naive_upsample_2d, upsample_2d, upsample_conv_2d)
+from ..parallel.sequence import current_frames
 from ..utils import forbid_capture, round_once
 
 # keep_mask(shape, keep, device) -> bool tensor: where dropout keeps a value
@@ -168,11 +179,23 @@ def conv(module: nn.Conv2d, x: torch.Tensor,
     """``module(x)`` computed in ``dtype``, as flax's ``nn.Conv(dtype=...)``
     does: x and the weight cast to ``dtype``, the conv rounded to it once,
     then the bias (cast to ``dtype``) added in ``dtype``. Float32 is the
-    module's own call; the cast weight and bias are kept (``cast_params``)."""
-    if dtype == torch.float32:
+    module's own call; the cast weight and bias are kept (``cast_params``).
+    On a frames shard a conv wider than one column reads its neighbours'
+    columns (zeros past the global edges, its SAME padding there) and pads
+    none along the frames."""
+    padding = module.padding
+    seq = current_frames()
+    if seq is not None and module.kernel_size[1] > 1:
+        if module.stride != (1, 1) or module.padding[1] != module.kernel_size[1] // 2:
+            raise NotImplementedError("a frames shard takes stride-1 SAME convs only")
+        x = seq.halo(x, 3, padding[1], padding[1])
+        padding = (padding[0], 0)
+        if dtype == torch.float32:
+            return F.conv2d(x, module.weight, module.bias, padding=padding)
+    elif dtype == torch.float32:
         return module(x)
     weight, bias = cast_params(module, dtype)
-    y = round_once(lambda a, w: F.conv2d(a, w, stride=module.stride, padding=module.padding),
+    y = round_once(lambda a, w: F.conv2d(a, w, stride=module.stride, padding=padding),
                    x.to(dtype), weight)
     return y + bias[None, :, None, None]
 
@@ -224,6 +247,40 @@ def conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).contiguous()
 
 
+def frames_affine(seq, x: torch.Tensor, gn: "GroupNorm"):
+    """The GroupNorm affine ``(a, b)`` of the whole map of which NHWC ``x``
+    holds a frames shard's columns (``seq``): the shard's group sums
+    (``gn_group_sums``) summed over the ranks in float64, folded over every
+    rank's positions (``gn_fold_ab``)."""
+    sums = seq.sum(gn_group_sums(x, gn.num_groups))
+    b, h, w, c = x.shape
+    return gn_fold_ab(sums, h * w * seq.count, gn.weight, gn.bias, gn.eps, x.dtype)
+
+
+def gn_silu_conv(x: torch.Tensor, gn: "GroupNorm", conv: nn.Conv2d, bias: torch.Tensor,
+                 skip: Optional[torch.Tensor] = None, skip_coef: float = 1.0,
+                 w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``groupnorm_silu_conv3x3_op`` of NHWC ``x`` with ``gn``'s parameters
+    and ``conv``'s weight. On a frames shard: with the whole map's affine
+    (``frames_affine``), on x extended by one column of each neighbour (none
+    past the global edges, where the kernel's own padding zero-pads the
+    activated map, as on one device) and ``skip`` by as many zeros, the
+    extension's output columns dropped."""
+    seq = current_frames()
+    if seq is None:
+        return groupnorm_silu_conv3x3_op(x, gn.weight, gn.bias, conv_hwio(conv), bias,
+                                         gn.num_groups, gn.eps, skip=skip,
+                                         skip_coef=skip_coef, w_packed=w_packed)
+    ab = frames_affine(seq, x, gn)
+    x, left, right = seq.halo(x, 2, 1, 1, zero_edges=False)
+    if skip is not None:
+        skip = F.pad(skip, (0, 0, left, right))
+    out = groupnorm_silu_conv3x3_op(x.contiguous(), gn.weight, gn.bias, conv_hwio(conv), bias,
+                                    gn.num_groups, gn.eps, skip=skip, skip_coef=skip_coef,
+                                    w_packed=w_packed, ab=ab)
+    return out[:, :, left: out.shape[2] - right].contiguous()
+
+
 class GroupNorm(nn.Module):
     """GroupNorm's parameters (``weight``, ``bias``) with the NCSN++ group
     count and eps 1e-6; calling it runs GroupNorm (+SiLU) through
@@ -239,8 +296,11 @@ class GroupNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, apply_silu: bool = True,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        out = groupnorm_silu_op(to_nhwc(x), self.weight, self.bias, self.num_groups,
-                                self.eps, apply_silu, out_dtype)
+        x = to_nhwc(x)
+        seq = current_frames()
+        ab = None if seq is None else frames_affine(seq, x, self)
+        out = groupnorm_silu_op(x, self.weight, self.bias, self.num_groups, self.eps,
+                                apply_silu, out_dtype, ab=ab)
         return from_nhwc(out)
 
 
@@ -300,7 +360,8 @@ class AttnBlockpp(nn.Module):
     ``skip_rescale``. For a bfloat16 x the norm, q, k, v and softmax are
     float32; the attended map is rounded to bf16 before ``NIN_3`` (float32
     maths on it) and after, and the residual sum is bf16, as in the JAX
-    package."""
+    package. On a frames shard the keys and values are those of every
+    rank's frames (the normalised map gathered), the queries this rank's."""
 
     def __init__(self, channels: int, skip_rescale: bool = True, init_scale: float = 0.0,
                  generator: Optional[torch.Generator] = None):
@@ -315,8 +376,11 @@ class AttnBlockpp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
         h = to_nhwc(self.GroupNorm_0(x, apply_silu=False, out_dtype=torch.float32))
-        h = h.reshape(b, hh * ww, c)
-        q, k, v = self.NIN_0.forward_nhwc(h), self.NIN_1.forward_nhwc(h), self.NIN_2.forward_nhwc(h)
+        seq = current_frames()
+        whole = h if seq is None else seq.gather(h, dim=2)
+        h, whole = h.reshape(b, hh * ww, c), whole.reshape(b, -1, c)
+        q, k, v = (self.NIN_0.forward_nhwc(h), self.NIN_1.forward_nhwc(whole),
+                   self.NIN_2.forward_nhwc(whole))
         w = torch.bmm(q, k.transpose(1, 2)) * (int(c) ** (-0.5))
         w = torch.softmax(w, dim=-1)
         h = torch.bmm(w, v).to(x.dtype).float()
@@ -631,7 +695,7 @@ class ResnetBlockBigGANpp(_ResnetBlock):
     def _resample(self, x: torch.Tensor) -> torch.Tensor:
         if self.fir:
             resample = upsample_2d if self.up else downsample_2d
-            return resample(x, self.fir_kernel, factor=2)
+            return resample(x, self.fir_kernel, factor=2, frames=current_frames())
         return (naive_upsample_2d if self.up else naive_downsample_2d)(x, factor=2)
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
@@ -644,20 +708,16 @@ class ResnetBlockBigGANpp(_ResnetBlock):
         resampling = self.up or self.down
         if self.fused and not resampling:
             x_nhwc = to_nhwc(x)
-            h = groupnorm_silu_conv3x3_op(
-                x_nhwc, self.GroupNorm_0.weight, self.GroupNorm_0.bias,
-                conv_hwio(self.Conv_0), self._fused_bias0(batch, temb_bias, semb_bias),
-                self.GroupNorm_0.num_groups, self.GroupNorm_0.eps,
-                w_packed=self.packed_weight("Conv_0"))
+            h = gn_silu_conv(x_nhwc, self.GroupNorm_0, self.Conv_0,
+                             self._fused_bias0(batch, temb_bias, semb_bias),
+                             w_packed=self.packed_weight("Conv_0"))
             if self._dropping():
                 skip = conv(self.Conv_2, x, dtype) if self.Conv_2 is not None else x
                 return self._second_chain(from_nhwc(h), skip, keep_mask, dtype)
             skip = to_nhwc(conv(self.Conv_2, x, dtype)) if self.Conv_2 is not None else x_nhwc
             bias1 = self.Conv_1.bias[None, :].expand(batch, self.out_ch)
-            out = groupnorm_silu_conv3x3_op(
-                h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
-                bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps, skip=skip,
-                skip_coef=self.skip_coef, w_packed=self.packed_weight("Conv_1"))
+            out = gn_silu_conv(h, self.GroupNorm_1, self.Conv_1, bias1, skip=skip,
+                               skip_coef=self.skip_coef, w_packed=self.packed_weight("Conv_1"))
             return from_nhwc(out)
 
         h = self.GroupNorm_0(x) if self.fused else self._plain_gn_act(self.GroupNorm_0, x)

@@ -28,6 +28,13 @@ The SNR-conditioned variant (``NCSNppSNR``) is the same network with a second
 Gaussian-Fourier embedding, of the noise level, fed through its own two dense
 layers into every residual block (``Dense_1``), and the output divided by the
 noise level instead of the time.
+
+Inside a frames shard (``parallel.sequence.constrain_frames``) the network
+of the paper's family (BigGAN blocks, FIR, output_skip / input_skip
+pyramids, swish; ``check_frames_parallel``) computes this rank's frames of
+the whole map's output: the layers exchange and reduce over the shard
+(models/layers.py), and a level whose frames do not divide over the ranks
+runs whole on every rank, with the levels below it (``FrameLevels``).
 """
 
 from __future__ import annotations
@@ -39,8 +46,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ..ops.cuda_kernels import groupnorm_silu_conv3x3_op
 from ..ops.fir import downsample_2d, naive_downsample_2d, naive_upsample_2d, upsample_2d
+from ..parallel.sequence import FrameLevels, current_frames
 from ..utils import float32_precision, trunk_dtype
 from . import layers
 from .shared import BackboneRegistry
@@ -263,6 +270,23 @@ class NCSNppBase(nn.Module):
                                  "backward pass (torch.utils.checkpoint)")
         return parser
 
+    # the configuration fields frames-parallel enhancement takes (the paper's
+    # family), and the ROADMAP item that holds the others
+    FRAMES_FAMILY = dict(resblock_type="biggan", fir=True, progressive="output_skip",
+                         progressive_input="input_skip", swish=True)
+    FRAMES_TODO = "ROADMAP.md queue 1, frames-parallel enhancement of the other backbones"
+
+    def check_frames_parallel(self) -> None:
+        """Raise ``NotImplementedError`` unless frames-parallel enhancement
+        takes this configuration (``FRAMES_FAMILY``)."""
+        given = dict(resblock_type=self.resblock_type, fir=self.fir,
+                     progressive=self.progressive, progressive_input=self.progressive_input,
+                     swish=self.fused)
+        other = {k: v for k, v in given.items() if v != self.FRAMES_FAMILY[k]}
+        if other:
+            raise NotImplementedError(f"frames-parallel enhancement takes NCSN++ with "
+                                      f"{self.FRAMES_FAMILY}, not {other} ({self.FRAMES_TODO})")
+
     def _head(self, h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
         """GroupNorm -> act -> conv3x3, with swish one fused kernel in h's
         dtype; the head's output as float32."""
@@ -270,8 +294,7 @@ class NCSNppBase(nn.Module):
             h = self.act(F.group_norm(h, gn.num_groups, gn.weight, gn.bias, gn.eps))
             return conv(h).float()
         bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
-        out = groupnorm_silu_conv3x3_op(layers.to_nhwc(h), gn.weight, gn.bias,
-                                        layers.conv_hwio(conv), bias, gn.num_groups, gn.eps)
+        out = layers.gn_silu_conv(layers.to_nhwc(h), gn, conv, bias)
         return layers.from_nhwc(out).float()
 
     def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,
@@ -303,7 +326,8 @@ class NCSNppBase(nn.Module):
         """The parameter-free pyramid resampling: FIR, or nearest neighbour
         / 2x2 mean."""
         if self.fir:
-            return (upsample_2d if up else downsample_2d)(x, self.fir_kernel, factor=2)
+            return (upsample_2d if up else downsample_2d)(x, self.fir_kernel, factor=2,
+                                                          frames=current_frames())
         return (naive_upsample_2d if up else naive_downsample_2d)(x, factor=2)
 
     def _forward_trunk(self, x: torch.Tensor, time_cond: torch.Tensor,
@@ -334,50 +358,63 @@ class NCSNppBase(nn.Module):
         def block(h_in):
             return self._block(next(modules), keep_mask, h_in, temb, semb)
 
+        # on a frames shard, which levels run split (without one, no change)
+        if current_frames() is not None:
+            self.check_frames_parallel()
+        frames = FrameLevels(h.shape[-1], num_resolutions)
         input_pyramid = h
-        hs = [layers.conv(next(modules), h, self.compute_dtype)]
+        with frames.level(0):
+            hs = [layers.conv(next(modules), h, self.compute_dtype)]
         for i_level in range(num_resolutions):
-            for _ in range(self.num_res_blocks):
-                h = block(hs[-1])
-                if self.all_resolutions[i_level] in self.attn_resolutions:
-                    h = next(modules)(h)
-                hs.append(h)
+            with frames.level(i_level):
+                for _ in range(self.num_res_blocks):
+                    h = block(hs[-1])
+                    if self.all_resolutions[i_level] in self.attn_resolutions:
+                        h = next(modules)(h)
+                    hs.append(h)
             if i_level != num_resolutions - 1:
-                h = next(modules)(hs[-1]) if self.resblock_type == "ddpm" else block(hs[-1])
-                if self.progressive_input == "input_skip":
-                    input_pyramid = self._resample_pyramid(input_pyramid, up=False)
-                    h = next(modules)(input_pyramid, h)
-                elif self.progressive_input == "residual":
-                    input_pyramid = layers.residual(next(modules)(input_pyramid), h,
-                                                    self.skip_rescale)
-                    h = input_pyramid
+                with frames.level(i_level + 1):
+                    h = frames.down(hs[-1], i_level)
+                    h = next(modules)(h) if self.resblock_type == "ddpm" else block(h)
+                    if self.progressive_input == "input_skip":
+                        input_pyramid = self._resample_pyramid(
+                            frames.down(input_pyramid, i_level), up=False)
+                        h = next(modules)(input_pyramid, h)
+                    elif self.progressive_input == "residual":
+                        input_pyramid = layers.residual(next(modules)(input_pyramid), h,
+                                                        self.skip_rescale)
+                        h = input_pyramid
                 hs.append(h)
 
-        h = hs[-1]
-        h = block(h)
-        h = next(modules)(h)
-        h = block(h)
+        with frames.level(num_resolutions - 1):
+            h = hs[-1]
+            h = block(h)
+            h = next(modules)(h)
+            h = block(h)
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
-            for _ in range(self.num_res_blocks + 1):
-                h = block(torch.cat([h, hs.pop()], dim=1))
-            if self.all_resolutions[i_level] in self.attn_resolutions:
-                h = next(modules)(h)
-            if self.progressive == "output_skip":
-                head = self._head(h, next(modules), next(modules))
-                if pyramid is None:
-                    pyramid = head
-                else:
-                    pyramid = self._resample_pyramid(pyramid, up=True) + head
-            elif self.progressive == "residual":
-                if pyramid is None:
-                    pyramid = self._head(h, next(modules), next(modules))
-                else:
-                    pyramid = layers.residual(next(modules)(pyramid), h, self.skip_rescale)
-                    h = pyramid
+            with frames.level(i_level):
+                for _ in range(self.num_res_blocks + 1):
+                    h = block(torch.cat([h, hs.pop()], dim=1))
+                if self.all_resolutions[i_level] in self.attn_resolutions:
+                    h = next(modules)(h)
+                if self.progressive == "output_skip":
+                    head = self._head(h, next(modules), next(modules))
+                    if pyramid is None:
+                        pyramid = head
+                    else:
+                        pyramid = frames.up(lambda p: self._resample_pyramid(p, up=True),
+                                            pyramid, i_level + 1) + head
+                elif self.progressive == "residual":
+                    if pyramid is None:
+                        pyramid = self._head(h, next(modules), next(modules))
+                    else:
+                        pyramid = layers.residual(next(modules)(pyramid), h, self.skip_rescale)
+                        h = pyramid
             if i_level != 0:
-                h = next(modules)(h) if self.resblock_type == "ddpm" else block(h)
+                h = frames.up(next(modules) if self.resblock_type == "ddpm" else block, h,
+                              i_level)
 
         if self.progressive == "output_skip":
             h = pyramid

@@ -19,6 +19,14 @@ Ported branches of ``enhance``:
   - ``sebridge_v2_snr``: one forward of the SNR-conditioned NCSN++ with the
     noise level taken from the clean reference.
 
+With ``seq_mesh`` (``parallel.sequence.make_seq_mesh``) ``enhance`` runs one
+utterance frames-parallel over the mesh's ranks, eagerly (a gloo collective
+cannot be captured): every rank takes the STFT of the whole waveform and
+keeps its frames, draws at the whole shape and keeps its frames, reduces
+the samplers' norms over the ranks, and gathers the frames before the
+iSTFT, so that every rank returns the whole waveform of the one-device
+program.
+
 On the card each branch runs as one captured program per shape bucket
 (``_enhance_graph``, the counterpart of the JAX package's ``_enhance_jit``):
 normalise -> STFT -> sampler or forward -> iSTFT, captured once as a CUDA
@@ -53,6 +61,7 @@ import torch.nn.functional as F
 
 from ..capture import LoopProgram, Program
 from ..parallel.mesh import current_shard
+from ..parallel.sequence import constrain_frames, current_frames
 from ..karras import (T_30_F32, calculate_normfac_direct, calculate_snr_direct,  # noqa: F401
                       karras_t, snap_to_karras_grid, t_30)
 from ..sampling import get_ode_sampler, get_pc_sampler
@@ -86,20 +95,26 @@ def _as_wave(a) -> torch.Tensor:
 
 
 def noise_mag(s, s_hat, mode: str = "mean"):
-    """Noise magnitude between two specs."""
+    """Noise magnitude between two specs (over every rank's frames on a
+    frames shard)."""
+    seq = current_frames()
     if mode == "mean":
-        return torch.abs(torch.mean(torch.sqrt(torch.square(torch.abs(s - s_hat)))))
+        r = torch.sqrt(torch.square(torch.abs(s - s_hat)))
+        if seq is None:
+            return torch.abs(torch.mean(r))
+        return torch.abs(seq.sum(r.sum(dtype=torch.float64)) / (r.numel() * seq.count)).float()
     if mode == "max":
-        return torch.max(torch.abs(s - s_hat))
+        m = torch.max(torch.abs(s - s_hat))
+        return m if seq is None else seq.max(m)
     return torch.zeros((), device=s.device)
 
 
 class EnhanceKey(NamedTuple):
     """What one captured enhance program is for: the fields of the JAX
-    package's ``_enhance_jit`` cache key (the port has no sequence mesh,
-    ``mesh_key`` None), then what a capture also fixes: the batch, the
-    trunk's dtype, the device, and the model's settings (its config and
-    SDE)."""
+    package's ``_enhance_jit`` cache key (``mesh_key``: None on one device,
+    else ``parallel.sequence.mesh_key`` of the frames mesh: its axis name,
+    size and ranks), then what a capture also fixes: the batch, the trunk's
+    dtype, the device, and the model's settings (its config and SDE)."""
 
     branch: str
     t_pad: int
@@ -108,7 +123,7 @@ class EnhanceKey(NamedTuple):
     corrector: str
     corrector_steps: int
     oracle: bool
-    mesh_key: None
+    mesh_key: Optional[tuple]
     timestep_type: str
     batch: int
     dtype: torch.dtype
@@ -522,8 +537,18 @@ class ScoreModel:
 
     def _spectrogram(self, wav: torch.Tensor, norm_factor: torch.Tensor) -> torch.Tensor:
         """``wav / norm_factor`` -> STFT -> compression, ``[B, 1, F, T]``
-        padded."""
-        return pad_spec(spec_fwd(self._stft(wav / norm_factor), self.spec_cfg)[:, None])
+        padded; on a frames shard this rank's frames of it."""
+        spec = pad_spec(spec_fwd(self._stft(wav / norm_factor), self.spec_cfg)[:, None])
+        seq = current_frames()
+        return spec if seq is None else seq.frames(spec).contiguous()
+
+    def _waveform(self, sample: torch.Tensor) -> torch.Tensor:
+        """iSTFT of a sample ``[B, 1, F, T]``, its frames gathered first on a
+        frames shard."""
+        seq = current_frames()
+        if seq is not None:
+            sample = seq.gather(sample).contiguous()
+        return self.to_audio(sample[:, 0])
 
     def _enhance_on_device(self, branch: str, noise: NoiseFn, n_steps: int, predictor: str,
                            corrector: str, corrector_steps: int, y: torch.Tensor,
@@ -574,7 +599,7 @@ class ScoreModel:
         else:  # sebridge_v3_snr
             z = noise(Y) * cfg.sigma_max * t_hat
             sample = self.forward(Y + z, full(t_hat), Y)
-        return self.to_audio(sample[:, 0]) * norm_factor, nfe
+        return self._waveform(sample) * norm_factor, nfe
 
     # bbed_ode in three parts, each free of waits on the device. The loop's
     # carry: the spectrogram "Y", "norm_factor", the RK45 state's fields and
@@ -607,13 +632,13 @@ class ScoreModel:
         """The denoising step (its draw discarded) -> iSTFT."""
         sampler = self._ode_sampler(n_steps, carry["Y"], noise)
         sample = sampler.finish(RK45State(*(carry[k] for k in RK45State._fields)))
-        return self.to_audio(sample[:, 0]) * carry["norm_factor"]
+        return self._waveform(sample) * carry["norm_factor"]
 
     def _graph_key(self, branch: str, t_pad: int, n_steps: int, predictor: str, corrector: str,
                    corrector_steps: int, oracle: bool, batch: int,
-                   timestep_type: str = "linear") -> EnhanceKey:
+                   timestep_type: str = "linear", mesh: Optional[tuple] = None) -> EnhanceKey:
         return EnhanceKey(branch, t_pad, n_steps, predictor, corrector, corrector_steps, oracle,
-                          None, timestep_type, batch, *self._program_settings())
+                          mesh, timestep_type, batch, *self._program_settings())
 
     def _program_settings(self) -> tuple:
         """What every captured program of this model also depends on: the
@@ -699,7 +724,7 @@ class ScoreModel:
                 predictor: str = "reverse_diffusion", corrector: str = "ald", N: int = 30,
                 corrector_steps: int = 1, snr: float = 0.5, timeit: bool = False,
                 oracle: bool = False, clean_rms: float = 1.0, noise_rms: float = 1.0,
-                timestep_type: str = "linear"):
+                timestep_type: str = "linear", seq_mesh=None):
         """Enhance the noisy waveform ``y`` ([1, samples]).
 
         ``x`` is the clean waveform; of the ported branches only
@@ -720,12 +745,29 @@ class ScoreModel:
         the CPU, and with a caller's ``noise`` callable, which a graph
         cannot call.
 
+        With ``seq_mesh`` (a 1-D mesh, ``parallel.sequence.make_seq_mesh``,
+        over which every rank of it calls ``enhance`` with the same
+        arguments) the spectrogram's frames are split over the mesh's ranks
+        (``constrain_frames``; a width that does not divide over them runs
+        whole on each) and the steps run eagerly: every rank returns the
+        whole waveform, the one-device program's to float tolerance. The
+        SNR estimate and the snap to the Karras grid run on the whole
+        waveform, as on one device. Configurations of the backbone other
+        than the paper's family raise ``NotImplementedError``.
+
         Returns the enhanced waveform as a numpy array of ``samples``; with
         ``timeit=True`` a tuple ``(x_hat, nfe, rtf)``.
         """
         start = time.time()
         cfg = self.cfg
         branch = self._branch(sampler_type)
+        if seq_mesh is not None:
+            check = getattr(self.backbone, "check_frames_parallel", None)
+            if check is None:
+                raise NotImplementedError(
+                    f"frames-parallel enhancement takes NCSN++ only, not {cfg.backbone} "
+                    "(ROADMAP.md queue 1, frames-parallel enhancement of the other backbones)")
+            check()
         x, y = _as_wave(x), _as_wave(y)
         t_orig = y.shape[-1]
 
@@ -755,7 +797,7 @@ class ScoreModel:
 
         if noise is None and generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
-        if noise is None and self.device.type == "cuda":
+        if seq_mesh is None and noise is None and self.device.type == "cuda":
             program = self._enhance_graph(branch, t_pad, N, predictor, corrector,
                                           corrector_steps, oracle, inputs,
                                           timestep_type=timestep_type)
@@ -769,9 +811,13 @@ class ScoreModel:
             tensors = {name: to_device(v, self.device) if torch.is_tensor(v) else
                        torch.full((), v, dtype=torch.float32, device=self.device)
                        for name, v in inputs.items()}
-            x_hat, nfe = self._enhance_on_device(branch, noise, N, predictor, corrector,
-                                                 corrector_steps, timestep_type=timestep_type,
-                                                 **tensors)
+            # frames-parallel: the frames split over the mesh's ranks where the
+            # width divides over them, else each rank runs the whole width
+            count = 1 if seq_mesh is None else seq_mesh.mesh.numel()
+            with constrain_frames(seq_mesh if t_pad % count == 0 else None) as seq:
+                x_hat, nfe = self._enhance_on_device(
+                    branch, noise if seq is None else seq.draws(noise), N, predictor, corrector,
+                    corrector_steps, timestep_type=timestep_type, **tensors)
 
         x_hat = x_hat[0, :t_orig].cpu().numpy()
         if x_hat.shape[-1] < t_orig:

@@ -34,7 +34,9 @@ the operators: ``torch.export`` keeps each as one node, so that an exported
 program (``serving/export.py``) runs the same kernels.
 
 ``launch_counts`` counts each wrapper's kernel launches (nowhere else), so a
-run can show that the model went through the kernels;
+run can show that the model went through the kernels
+(``stats_launch_counts`` the split statistics pass's, which only
+frames-parallel enhancement runs);
 ``conv_config_launches`` splits the conv's by instantiation. The bf16
 large-level conv (``wgmma.ss``) reads its weights packed in bf16
 (``pack_conv_weight_bf16``), which the model's blocks keep; ``weight_casts``
@@ -79,6 +81,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0, "fused_bias_leaky_relu": 0}
+# the statistics pass split in two (gn_group_sums, gn_fold_ab): frames-parallel
+# enhancement sums the shards' group sums between them
+stats_launch_counts = {"gn_group_sums": 0, "gn_fold_ab": 0}
 # gn_silu_conv3x3's launches by instantiation (CONV_CONFIGS' ids), so that a run
 # can show which of its kernels the model went through
 conv_config_launches = [0, 0, 0, 0]
@@ -94,9 +99,9 @@ recompute_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
 
 
 def reset_launch_counts() -> None:
-    """Zero ``launch_counts``, ``conv_config_launches``, ``weight_casts`` and
-    ``recompute_counts``."""
-    for counts in (launch_counts, weight_casts, recompute_counts):
+    """Zero ``launch_counts``, ``stats_launch_counts``, ``conv_config_launches``,
+    ``weight_casts`` and ``recompute_counts``."""
+    for counts in (launch_counts, stats_launch_counts, weight_casts, recompute_counts):
         for name in counts:
             counts[name] = 0
     conv_config_launches[:] = [0] * len(conv_config_launches)
@@ -362,13 +367,31 @@ def gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups: int, eps: float):
     ``a, b``. The sums, mean, variance and 1/sqrt(var + eps) are taken in
     float64 and rounded to float32, as the statistics kernel folds its sums:
     so the bf16 kernels' activations round where this version's do. x is
-    NHWC; returns two ``[B, C]`` float32 tensors."""
+    NHWC; returns two ``[B, C]`` float32 tensors: ``gn_fold_ab_reference`` of
+    ``gn_group_sums_reference``."""
     bsz, h, w, c = x.shape
-    cg = c // num_groups
-    xg = x.double().reshape(bsz, h * w, num_groups, cg)
-    n = h * w * cg
-    mean = xg.sum(dim=(1, 3)) / n
-    var = (xg * xg).sum(dim=(1, 3)) / n - mean * mean
+    return gn_fold_ab_reference(gn_group_sums_reference(x, num_groups), h * w, gn_scale,
+                                gn_bias, eps)
+
+
+def gn_group_sums_reference(x, num_groups: int):
+    """Plain version of ``gn_group_sums``: each (batch, group)'s sum and sum of
+    squares over the positions and the group's channels of NHWC ``x``, in
+    float64, ``[B, groups, 2]``."""
+    bsz, h, w, c = x.shape
+    xg = x.double().reshape(bsz, h * w, num_groups, c // num_groups)
+    return torch.stack([xg.sum(dim=(1, 3)), (xg * xg).sum(dim=(1, 3))], dim=-1)
+
+
+def gn_fold_ab_reference(sums, hw: int, gn_scale, gn_bias, eps: float):
+    """Plain version of ``gn_fold_ab``: the affine ``a, b`` (``[B, C]``
+    float32) of ``gn_stats_ab_reference`` from the groups' float64 sums
+    ``[B, groups, 2]`` over ``hw`` positions."""
+    groups = sums.shape[1]
+    cg = gn_scale.shape[0] // groups
+    n = hw * cg
+    mean = sums[..., 0] / n
+    var = sums[..., 1] / n - mean * mean
     rstd = (1.0 / torch.sqrt(var + eps)).float()
     mean_c = mean.float().repeat_interleave(cg, dim=1)
     rstd_c = rstd.repeat_interleave(cg, dim=1)
@@ -378,11 +401,13 @@ def gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups: int, eps: float):
 
 
 def groupnorm_silu_reference(x, scale, bias, num_groups: int, eps: float = 1e-6,
-                             apply_silu: bool = True, out_dtype: Optional[torch.dtype] = None):
+                             apply_silu: bool = True, out_dtype: Optional[torch.dtype] = None,
+                             ab=None):
     """Plain version of K3 (``_groupnorm_silu_kernel``, pallas_kernels.py:46):
-    GroupNorm with ``gn_stats_ab_reference``'s statistics, optional SiLU, in
+    GroupNorm with ``gn_stats_ab_reference``'s statistics (or the given
+    affine ``ab = (a, b)``, ``[B, C]`` float32 each), optional SiLU, in
     float32, rounded once to ``out_dtype`` (x's dtype when None)."""
-    a, b = gn_stats_ab_reference(x, scale, bias, num_groups, eps)
+    a, b = gn_stats_ab_reference(x, scale, bias, num_groups, eps) if ab is None else ab
     out = x.float() * a[:, None, None, :] + b[:, None, None, :]
     if apply_silu:
         out = out * torch.sigmoid(out)
@@ -391,18 +416,19 @@ def groupnorm_silu_reference(x, scale, bias, num_groups: int, eps: float = 1e-6,
 
 def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
                                      num_groups: int, eps: float = 1e-6,
-                                     skip=None, skip_coef: float = 1.0):
+                                     skip=None, skip_coef: float = 1.0, ab=None):
     """Plain version of K1/K2 (``_gn_silu_conv3x3_reference``,
     pallas_kernels.py:330): ``[skip +] conv3x3_SAME(SiLU(x*a+b)) + bias_total``,
-    the sum scaled by ``skip_coef`` when ``skip`` is given. NHWC in and out,
-    HWIO weights; zero padding applies to the activated map.
+    the sum scaled by ``skip_coef`` when ``skip`` is given, ``a, b`` x's
+    statistics or the given ``ab``. NHWC in and out, HWIO weights; zero
+    padding applies to the activated map.
 
     The products run in x's dtype: for bfloat16 x (``compute_dtype`` bf16 in
     the JAX package) the float32 activation and the weights are each rounded
     to bfloat16 (to nearest even) and their products summed in float32 (exact
     products, so the float32 conv computes them); bias, skip and scale in
     float32; one rounding to bfloat16 at the end."""
-    a, b = gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups, eps)
+    a, b = gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups, eps) if ab is None else ab
     v = x.float() * a[:, None, None, :] + b[:, None, None, :]
     act = (v * torch.sigmoid(v)).permute(0, 3, 1, 2)
     w = w.float()
@@ -486,8 +512,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.diffse_gn_silu_conv3x3.argtypes = [p, i, p, p, p, p, p, i, p, f, p, p, i, i, i, i, i,
                                            *[i] * 12, p]
     lib.diffse_fused_bias_lrelu.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, p]
+    lib.diffse_gn_group_sums.argtypes = [p, i, p, p, p, i, i, i, i, i, i, p]
+    lib.diffse_gn_fold_ab.argtypes = [p, i, p, p, p, p, i, i, i, i, f, p]
     for fn in (lib.diffse_gn_stats_ab, lib.diffse_gn_apply, lib.diffse_gn_silu_conv3x3,
-               lib.diffse_fused_bias_lrelu):
+               lib.diffse_fused_bias_lrelu, lib.diffse_gn_group_sums, lib.diffse_gn_fold_ab):
         fn.restype = ctypes.c_int
     return lib
 
@@ -663,29 +691,90 @@ def _check_stats_inputs(name, x, scale, bias, num_groups):
     _require_kernel_inputs(name, x.device, {"x": dtype}, x=x, scale=scale, bias=bias)
 
 
+def gn_group_sums(x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """The statistics pass's first half: each (batch, group)'s float64 sum and
+    sum of squares over NHWC ``x`` (float32 or bfloat16), ``[B, groups, 2]``,
+    summed in the order the one-pass ``gn_stats_ab`` sums them. A frames
+    shard takes these over its own positions; their sum over the shards,
+    folded by ``gn_fold_ab``, is the whole map's affine."""
+    if not _dispatch_device("gn_group_sums", x):
+        return gn_group_sums_reference(x, num_groups)
+    bsz, h, w, c = x.shape
+    _check_stats_inputs("gn_group_sums", x, None, None, num_groups)
+    parts, chunk = stats_plan(bsz, h * w, c)
+    with torch.cuda.device(x.device):
+        partial = torch.empty((bsz, num_groups, parts, 2), device=x.device, dtype=torch.float64)
+        sums = torch.empty((bsz, num_groups, 2), device=x.device, dtype=torch.float64)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        counters = _ticket_counters(x.device, stream, bsz)
+        _check(_library().diffse_gn_group_sums(
+            _ptr(x), _DTYPE_CODES[x.dtype], _ptr(partial), _ptr(counters), _ptr(sums), bsz,
+            h * w, c, num_groups, parts, chunk, ctypes.c_void_p(stream)), "gn_group_sums")
+    stats_launch_counts["gn_group_sums"] += 1
+    return sums
+
+
+def gn_fold_ab(sums: torch.Tensor, hw: int, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
+               eps: float = 1e-6, dtype: torch.dtype = torch.float32):
+    """The statistics pass's second half: the float32 affine ``a, b`` (``[B,
+    C]`` each) from the groups' float64 sums ``[B, groups, 2]`` over ``hw``
+    positions, with the arithmetic the one-pass kernel uses for activations of
+    ``dtype``: ``gn_fold_ab(gn_group_sums(x), H * W, ...)`` is
+    ``gn_stats_ab(x, ...)`` bit for bit."""
+    if not _dispatch_device("gn_fold_ab", sums):
+        return gn_fold_ab_reference(sums, hw, gn_scale, gn_bias, eps)
+    bsz, groups, two = sums.shape
+    c = gn_scale.shape[0]
+    if two != 2 or c % groups or dtype not in _DTYPE_CODES:
+        raise ValueError(f"gn_fold_ab: sums {tuple(sums.shape)} for C={c}, {dtype}")
+    _require_kernel_inputs("gn_fold_ab", sums.device, {"sums": torch.float64}, sums=sums,
+                           scale=gn_scale, bias=gn_bias)
+    with torch.cuda.device(sums.device):
+        a = torch.empty((bsz, c), device=sums.device, dtype=torch.float32)
+        b = torch.empty_like(a)
+        _check(_library().diffse_gn_fold_ab(
+            _ptr(sums), _DTYPE_CODES[dtype], _ptr(gn_scale), _ptr(gn_bias), _ptr(a), _ptr(b),
+            bsz, hw, c, groups, float(eps), _stream(sums.device)), "gn_fold_ab")
+    stats_launch_counts["gn_fold_ab"] += 1
+    return a, b
+
+
+def _check_ab(name: str, x: torch.Tensor, ab) -> None:
+    """A given affine: two contiguous float32 ``[B, C]`` on x's device."""
+    shape = (x.shape[0], x.shape[-1])
+    if len(ab) != 2 or any(tuple(t.shape) != shape for t in ab):
+        raise ValueError(f"{name}: ab must be two [B, C] = {list(shape)} tensors")
+    _require_kernel_inputs(name, x.device, {}, a=ab[0], b=ab[1])
+
+
 # ------------------------------------------------------------------- wrappers
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int, eps: float = 1e-6, apply_silu: bool = True,
-                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                   out_dtype: Optional[torch.dtype] = None, ab=None) -> torch.Tensor:
     """GroupNorm (+SiLU) over NHWC ``x`` (port of ``groupnorm_silu_pallas``,
     pallas_kernels.py:117). ``x``: float32 or bfloat16; ``scale``, ``bias``:
     ``[C]`` float32. Float32 statistics and maths; the output is x's dtype,
     or ``out_dtype`` (float32 for a bfloat16 x: flax's GroupNorm promotes a
-    bf16 input to float32, as the attention blocks' norm does)."""
+    bf16 input to float32, as the attention blocks' norm does). ``ab``: the
+    affine ``(a, b)`` to apply (``[B, C]`` float32 each, ``scale`` and
+    ``bias`` folded in) in place of x's own statistics, whose pass is then
+    skipped (a frames shard's, summed over the shards)."""
     out_dtype = out_dtype or x.dtype
     if not _dispatch_device("groupnorm_silu", x):
         return groupnorm_silu_reference(x, scale, bias, num_groups, eps, apply_silu,
-                                        out_dtype)
+                                        out_dtype, ab)
     bsz, h, w, c = x.shape
     _check_stats_inputs("groupnorm_silu", x, scale, bias, num_groups)
+    if ab is not None:
+        _check_ab("groupnorm_silu", x, ab)
     if out_dtype not in (x.dtype, torch.float32):
         raise TypeError(f"groupnorm_silu: out_dtype {out_dtype} for x of {x.dtype}; "
                         "the kernel writes x's dtype or float32")
     lib = _library()
     with torch.cuda.device(x.device):
-        a, b = _stats_ab(lib, x, scale, bias, num_groups, eps)
+        a, b = _stats_ab(lib, x, scale, bias, num_groups, eps) if ab is None else ab
         out = torch.empty(x.shape, device=x.device, dtype=out_dtype)
         _check(lib.diffse_gn_apply(_ptr(x), _DTYPE_CODES[x.dtype], _ptr(a), _ptr(b),
                                    _ptr(out), _DTYPE_CODES[out_dtype], bsz, h * w, c,
@@ -700,7 +789,7 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                            bias_total: torch.Tensor, num_groups: int,
                            eps: float = 1e-6, skip: Optional[torch.Tensor] = None,
                            skip_coef: float = 1.0,
-                           w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                           w_packed: Optional[torch.Tensor] = None, ab=None) -> torch.Tensor:
     """Fused GroupNorm + SiLU + conv3x3 (+bias [+skip] * skip_coef), the port
     of ``groupnorm_silu_conv3x3_pallas`` (pallas_kernels.py:565) covering both
     of its regimes.
@@ -718,6 +807,10 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             ``wgmma.ss`` instantiation reads; where the plan takes that
             instantiation and none is given, the wrapper packs ``w`` itself
             (counted in ``weight_casts``).
+        ab: optional GroupNorm affine ``(a, b)`` (``[B, Cin]`` float32 each,
+            ``gn_scale`` and ``gn_bias`` folded in) in place of x's own
+            statistics, whose pass is then skipped: a frames shard's, summed
+            over the shards, with x extended by its neighbours' columns.
 
     Returns ``[B, H, W, Cout]`` of x's dtype.
     """
@@ -733,7 +826,7 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                          f"{packed_weight_shape(cin, cout)} (pack_conv_weight_bf16)")
     if not _dispatch_device("gn_silu_conv3x3", x):
         return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
-                                                num_groups, eps, skip, skip_coef)
+                                                num_groups, eps, skip, skip_coef, ab)
     dtype = _activation_dtype("gn_silu_conv3x3", x)
     bk = conv_bk(dtype)
     if cin % bk or cout % 4 or cin % num_groups or cin > 4 * STATS_THREADS:
@@ -752,6 +845,8 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
     _require_kernel_inputs("gn_silu_conv3x3", x.device, {"x": dtype, "skip": dtype}, x=x,
                            gn_scale=gn_scale, gn_bias=gn_bias, w=w, bias_total=bias_rows,
                            skip=skip)
+    if ab is not None:
+        _check_ab("gn_silu_conv3x3", x, ab)
     plan = conv_plan(bsz, h, wd, cin, cout, dtype)
     if plan.config != CONV_WGMMA_SS:
         w_packed = None
@@ -762,7 +857,7 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                                w_packed=w_packed)
     lib = _library()
     with torch.cuda.device(x.device):
-        a, b = _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps)
+        a, b = _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps) if ab is None else ab
         out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=dtype)
         partial = None if plan.splits == 1 else torch.empty(
             (plan.splits, bsz * h * wd, cout), device=x.device, dtype=torch.float32)
@@ -817,25 +912,29 @@ class GroupNormSiLUConv3x3(torch.autograd.Function):
     ``groupnorm_silu_conv3x3_reference`` and takes its gradients with respect
     to x, gn_scale, gn_bias, the float32 w (through the bf16 rounding of a
     bf16 x, as ``w.astype(compute_dtype)`` in JAX), bias_total and skip.
-    ``w_packed`` is a copy of w for the bf16 kernel and carries no gradient."""
+    ``w_packed`` is a copy of w for the bf16 kernel and carries no gradient.
+    With a given affine ``a, b`` the gradients go to them in place of
+    gn_scale and gn_bias, which the function then does not read."""
 
     @staticmethod
-    def forward(ctx, x, gn_scale, gn_bias, w, bias_total, skip, w_packed, num_groups, eps,
-                skip_coef):
-        ctx.save_for_backward(x, gn_scale, gn_bias, w, bias_total, skip)
+    def forward(ctx, x, gn_scale, gn_bias, w, bias_total, skip, a, b, w_packed, num_groups,
+                eps, skip_coef):
+        ctx.save_for_backward(x, gn_scale, gn_bias, w, bias_total, skip, a, b)
         ctx.settings = (num_groups, eps, skip_coef)
         return gn_silu_conv3x3_custom_op(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
-                                         skip, skip_coef, w_packed)
+                                         skip, skip_coef, w_packed, a, b)
 
     @staticmethod
     def backward(ctx, grad_out):
         num_groups, eps, skip_coef = ctx.settings
 
-        def plain(x, gn_scale, gn_bias, w, bias_total, skip):
+        def plain(x, gn_scale, gn_bias, w, bias_total, skip, a, b):
             return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
-                                                    num_groups, eps, skip, skip_coef)
+                                                    num_groups, eps, skip, skip_coef,
+                                                    _given_ab(a, b))
 
-        grads = _recompute_grads("gn_silu_conv3x3", ctx, plain, grad_out, ctx.saved_tensors)
+        grads = _recompute_grads("gn_silu_conv3x3", ctx, plain, grad_out,
+                                 _read_inputs(ctx.saved_tensors))
         return (*grads, None, None, None, None)
 
 
@@ -845,49 +944,68 @@ class GroupNormSiLU(torch.autograd.Function):
     (pallas_kernels.py:195), the same function. The forward runs the op
     and saves the inputs; the backward recomputes
     ``groupnorm_silu_reference`` and takes its gradients with respect to x,
-    scale and bias."""
+    scale and bias (with a given affine ``a, b``: x, a and b)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu, out_dtype):
-        ctx.save_for_backward(x, scale, bias)
+    def forward(ctx, x, scale, bias, a, b, num_groups, eps, apply_silu, out_dtype):
+        ctx.save_for_backward(x, scale, bias, a, b)
         ctx.settings = (num_groups, eps, apply_silu, out_dtype)
-        return groupnorm_silu_custom_op(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
+        return groupnorm_silu_custom_op(x, scale, bias, num_groups, eps, apply_silu, out_dtype,
+                                        a, b)
 
     @staticmethod
     def backward(ctx, grad_out):
         num_groups, eps, apply_silu, out_dtype = ctx.settings
 
-        def plain(x, scale, bias):
+        def plain(x, scale, bias, a, b):
             return groupnorm_silu_reference(x, scale, bias, num_groups, eps, apply_silu,
-                                            out_dtype)
+                                            out_dtype, _given_ab(a, b))
 
-        grads = _recompute_grads("groupnorm_silu", ctx, plain, grad_out, ctx.saved_tensors)
+        grads = _recompute_grads("groupnorm_silu", ctx, plain, grad_out,
+                                 _read_inputs(ctx.saved_tensors))
         return (*grads, None, None, None, None)
+
+
+def _given_ab(a, b):
+    return None if a is None else (a, b)
+
+
+def _read_inputs(saved: tuple) -> tuple:
+    """The saved inputs ``(x, scale, bias, ..., a, b)`` of a GroupNorm op for
+    its recompute: with a given affine ``a, b`` the GroupNorm's scale and
+    bias are replaced by None, since the function does not read them."""
+    if saved[-1] is None:
+        return saved
+    return (saved[0], None, None, *saved[3:])
 
 
 def groupnorm_silu_conv3x3_op(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: torch.Tensor,
                               w: torch.Tensor, bias_total: torch.Tensor, num_groups: int,
                               eps: float = 1e-6, skip: Optional[torch.Tensor] = None,
                               skip_coef: float = 1.0,
-                              w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                              w_packed: Optional[torch.Tensor] = None,
+                              ab=None) -> torch.Tensor:
     """``groupnorm_silu_conv3x3`` (same arguments) that autograd can
     differentiate (``GroupNormSiLUConv3x3``); the wrapper's op when no
     input needs a gradient (under ``torch.no_grad()``, for one)."""
-    if not needs_grad(x, gn_scale, gn_bias, w, bias_total, skip):
+    a, b = (None, None) if ab is None else ab
+    if not needs_grad(x, gn_scale, gn_bias, w, bias_total, skip, a, b):
         return gn_silu_conv3x3_custom_op(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
-                                         skip, skip_coef, w_packed)
-    return GroupNormSiLUConv3x3.apply(x, gn_scale, gn_bias, w, bias_total, skip, w_packed,
-                                      num_groups, eps, skip_coef)
+                                         skip, skip_coef, w_packed, a, b)
+    return GroupNormSiLUConv3x3.apply(x, gn_scale, gn_bias, w, bias_total, skip, a, b,
+                                      w_packed, num_groups, eps, skip_coef)
 
 
 def groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                       num_groups: int, eps: float = 1e-6, apply_silu: bool = True,
-                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                      out_dtype: Optional[torch.dtype] = None, ab=None) -> torch.Tensor:
     """``groupnorm_silu`` (same arguments) that autograd can differentiate
     (``GroupNormSiLU``); the wrapper's op when no input needs a gradient."""
-    if not needs_grad(x, scale, bias):
-        return groupnorm_silu_custom_op(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
-    return GroupNormSiLU.apply(x, scale, bias, num_groups, eps, apply_silu, out_dtype)
+    a, b = (None, None) if ab is None else ab
+    if not needs_grad(x, scale, bias, a, b):
+        return groupnorm_silu_custom_op(x, scale, bias, num_groups, eps, apply_silu, out_dtype,
+                                        a, b)
+    return GroupNormSiLU.apply(x, scale, bias, a, b, num_groups, eps, apply_silu, out_dtype)
 
 
 def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
@@ -943,17 +1061,26 @@ def fused_bias_leaky_relu(x: torch.Tensor, bias: Optional[torch.Tensor] = None,
 # implementation gives the output's shape and dtype. The model's layers reach
 # the GroupNorm ops through ``groupnorm_silu_conv3x3_op`` and
 # ``groupnorm_silu_op``; ``ops.fused_act`` reaches the third. Registering
-# them builds nothing.
+# them builds nothing. A given GroupNorm affine is the two trailing optional
+# tensors ``a``, ``b`` of the GroupNorm ops (the wrappers' ``ab``).
 
 OP_NAMESPACE = "diffse"
 _OP_SCHEMAS = {
     "groupnorm_silu_conv3x3": (
         "(Tensor x, Tensor gn_scale, Tensor gn_bias, Tensor w, Tensor bias_total, "
         "int num_groups, float eps=1e-06, Tensor? skip=None, float skip_coef=1.0, "
-        "Tensor? w_packed=None) -> Tensor", groupnorm_silu_conv3x3),
+        "Tensor? w_packed=None, Tensor? a=None, Tensor? b=None) -> Tensor",
+        lambda x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
+        skip_coef=1.0, w_packed=None, a=None, b=None: groupnorm_silu_conv3x3(
+            x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef, w_packed,
+            _given_ab(a, b))),
     "groupnorm_silu": (
         "(Tensor x, Tensor scale, Tensor bias, int num_groups, float eps=1e-06, "
-        "bool apply_silu=True, ScalarType? out_dtype=None) -> Tensor", groupnorm_silu),
+        "bool apply_silu=True, ScalarType? out_dtype=None, Tensor? a=None, Tensor? b=None) "
+        "-> Tensor",
+        lambda x, scale, bias, num_groups, eps=1e-6, apply_silu=True, out_dtype=None, a=None,
+        b=None: groupnorm_silu(x, scale, bias, num_groups, eps, apply_silu, out_dtype,
+                               _given_ab(a, b))),
     "fused_bias_leaky_relu": (
         "(Tensor x, Tensor? bias=None, float negative_slope=0.2, "
         "float scale=1.4142135623730951) -> Tensor", fused_bias_leaky_relu),
@@ -961,11 +1088,12 @@ _OP_SCHEMAS = {
 
 
 def _conv_fake(x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
-               skip_coef=1.0, w_packed=None):
+               skip_coef=1.0, w_packed=None, a=None, b=None):
     return x.new_empty((*x.shape[:3], w.shape[-1]))
 
 
-def _groupnorm_fake(x, scale, bias, num_groups, eps=1e-6, apply_silu=True, out_dtype=None):
+def _groupnorm_fake(x, scale, bias, num_groups, eps=1e-6, apply_silu=True, out_dtype=None,
+                    a=None, b=None):
     return x.new_empty(x.shape, dtype=out_dtype or x.dtype)
 
 

@@ -63,18 +63,48 @@ def _fir_weight(k, gain: float, factor: int, up: bool, x: torch.Tensor) -> torch
     return weight
 
 
-def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
-    """FIR upsample by ``factor``."""
+def _frames_upfirdn(frames, x: torch.Tensor, weight: torch.Tensor, up: int, down: int,
+                    pad: tuple) -> torch.Tensor:
+    """``upfirdn2d_depthwise`` of the whole map, this rank's output columns,
+    from a frames shard's columns (``parallel.sequence.FramesShard``): an
+    output column reads the padded, zero-stuffed input from ``o * down -
+    pad0`` on over the filter's width, so the shard takes ``pad0 // up``
+    columns of the rank before and as many of the rank after as its last
+    output reaches (zeros past the global edges, the map's zero padding),
+    and pads or crops the stuffed width so that its outputs line up with the
+    whole map's."""
+    kw, w = weight.shape[-1], x.shape[-1]
+    left = pad[0] // up
+    right = max(0, (up - down - pad[0] + kw - 1) // up)
+    xe = frames.halo(x, 3, left, right)
+    pad_left = pad[0] - left * up
+    pad_right = (w * up // down - 1) * down + kw - xe.shape[-1] * up - pad_left
+    return upfirdn2d_depthwise(xe, weight, up=up, down=down, pad=pad,
+                               pad_w=(pad_left, pad_right))
+
+
+def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0,
+                frames=None) -> torch.Tensor:
+    """FIR upsample by ``factor``; on a frames shard (``frames``) this rank's
+    columns of the whole map's upsample."""
     weight = _fir_weight(k, gain, factor, True, x)
     p = weight.shape[-1] - factor
-    return upfirdn2d_depthwise(x, weight, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
+    pad = ((p + 1) // 2 + factor - 1, p // 2)
+    if frames is not None:
+        return _frames_upfirdn(frames, x, weight, factor, 1, pad)
+    return upfirdn2d_depthwise(x, weight, up=factor, pad=pad)
 
 
-def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> torch.Tensor:
-    """FIR downsample by ``factor``."""
+def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0,
+                  frames=None) -> torch.Tensor:
+    """FIR downsample by ``factor``; on a frames shard (``frames``) this
+    rank's columns of the whole map's downsample."""
     weight = _fir_weight(k, gain, factor, False, x)
     p = weight.shape[-1] - factor
-    return upfirdn2d_depthwise(x, weight, down=factor, pad=((p + 1) // 2, p // 2))
+    pad = ((p + 1) // 2, p // 2)
+    if frames is not None:
+        return _frames_upfirdn(frames, x, weight, 1, factor, pad)
+    return upfirdn2d_depthwise(x, weight, down=factor, pad=pad)
 
 
 def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k=None, factor: int = 2,

@@ -1,7 +1,8 @@
-"""The parallel layer (port of diffse_tpu/parallel, but for its
-frames-parallel ``sequence`` module): the process group and the data mesh,
-the ``(data, model)`` mesh of tensor parallelism, and ``dryrun``, which
-spawns ranks and runs a data- and a tensor-parallel step."""
+"""The parallel layer (port of diffse_tpu/parallel): the process group and
+the data mesh, the ``(data, model)`` mesh of tensor parallelism, the
+frames-parallel ``sequence`` mesh of one utterance's enhancement, and
+``dryrun``, which spawns ranks and runs a data- and a tensor-parallel
+step."""
 
 from .mesh import (
     batch_sharding,
@@ -23,6 +24,7 @@ from .model_sharding import (
     tree_shardings,
     variables_shardings,
 )
+from .sequence import constrain_frames, current_frames, make_seq_mesh, spec_seq_sharding
 
 __all__ = [
     "make_mesh",
@@ -41,4 +43,8 @@ __all__ = [
     "shard_variables",
     "state_shardings",
     "variables_shardings",
+    "make_seq_mesh",
+    "spec_seq_sharding",
+    "constrain_frames",
+    "current_frames",
 ]

@@ -7,6 +7,7 @@ import abc
 
 import torch
 
+from ..parallel.sequence import current_frames
 from ..registry import Registry
 from ..utils import bc
 
@@ -27,8 +28,13 @@ class Corrector(abc.ABC):
 
 
 def _row_norms_mean(a: torch.Tensor) -> torch.Tensor:
-    """The mean over the batch of each row's 2-norm (0-d)."""
-    return torch.linalg.vector_norm(a.reshape(a.shape[0], -1), dim=-1).mean()
+    """The mean over the batch of each row's 2-norm (0-d); on a frames shard
+    each row's norm over every rank's frames."""
+    seq = current_frames()
+    if seq is None:
+        return torch.linalg.vector_norm(a.reshape(a.shape[0], -1), dim=-1).mean()
+    squares = torch.square(torch.abs(a.reshape(a.shape[0], -1))).sum(dim=-1, dtype=torch.float64)
+    return torch.sqrt(seq.sum(squares)).float().mean()
 
 
 @CorrectorRegistry.register("langevin")

@@ -21,6 +21,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..parallel.sequence import current_frames
+
 # Dormand-Prince (RK45) Butcher tableau, as scipy.integrate.RK45 has it, in
 # float32.
 _C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0], dtype=np.float32)
@@ -63,8 +65,13 @@ class RK45State(NamedTuple):
 
 
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The RMS of ``|x| / scale``; on a frames shard over every rank's frames."""
     r = torch.abs(x) / scale
-    return torch.sqrt(torch.mean(r * r))
+    seq = current_frames()
+    if seq is None:
+        return torch.sqrt(torch.mean(r * r))
+    total = seq.sum((r * r).sum(dtype=torch.float64))
+    return torch.sqrt(total / (r.numel() * seq.count)).float()
 
 
 def _lincomb(coeffs, ks):

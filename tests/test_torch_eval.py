@@ -458,6 +458,10 @@ def test_eval_cli_start_at_one_is_the_jax_default_fault(dataset, checkpoints, tm
 
 
 def test_eval_cli_snr_branch_and_unported_flag(dataset, checkpoints, tmp_path):
+    """The SNR branch writes its results. ``--seq_shards`` (ported: frames-
+    parallel enhancement, run over ranks in tests/test_torch_sequence.py)
+    with ``--eval_batch_size 2`` is the JAX CLI's parser error, and more
+    shards than ranks raises, before any process group is made."""
     from diffse_tpu_torch.cli import eval as eval_cli
 
     test_dir = os.path.join(dataset, "test")
@@ -466,9 +470,12 @@ def test_eval_cli_snr_branch_and_unported_flag(dataset, checkpoints, tmp_path):
                    checkpoints["sebridge_v3_snr"], "--snr_ckpt", checkpoints["snr"],
                    "--device", "cpu"])
     _check_eval_outputs(out_dir, test_dir)
+    args = ["--destination_folder", out_dir, "--test_dir", test_dir, "--ckpt",
+            checkpoints["bbed"], "--device", "cpu", "--seq_shards", "2"]
     with pytest.raises(SystemExit):
-        eval_cli.main(["--destination_folder", out_dir, "--test_dir", test_dir, "--ckpt",
-                       checkpoints["bbed"], "--device", "cpu", "--seq_shards", "2"])
+        eval_cli.main(args + ["--eval_batch_size", "2"])
+    with pytest.raises(ValueError, match="need 2 ranks, have 1"):
+        eval_cli.main(args)
 
 
 def test_deep_eval_cli_writes_results(dataset, checkpoints, tmp_path, monkeypatch):
