@@ -71,8 +71,8 @@ Phases, each of which must pass:
    ``SAMPLER_CPU_NF`` channels wide) on the card against the CPU with the
    same draws (``SAMPLER_TOL``); heun and the exponential predictors under
    ``set_sync_debug_mode("error")``; then ``bbed_ode`` (RK45, rtol = atol
-   = 1e-5) through its three captured programs (``capture.LoopProgram``)
-   against the eager path, with 1 and 4 step attempts between two host
+   = 1e-5, on a 0.5 s utterance) through its three captured programs
+   (``capture.LoopProgram``) against the eager path, with 1 and 4 step attempts between two host
    reads of its done flag, its nfev, attempts, status, host reads and
    synchronisations, and (on the narrow NCSN++) on the card against the
    CPU: the same flags (an accept/reject flip is reported as one) and the
@@ -125,15 +125,15 @@ Phases, each of which must pass:
    gradient through the kernel path against the plain path (every wrapper's
    plain version), both on the card, beside the gap between two plain
    float32 paths (cuDNN off against on). Then ``make_train_step``, from the
-   same redrawn weights: 10 Adam steps of the paper's model on one fixed
+   same redrawn weights: ``TRAIN_STEPS`` (4) Adam steps of the paper's model on one fixed
    batch with the same draws each step (the loss must fall), 3 of bbed score
    matching and 1 of the bf16 trunk: every loss finite, every trained
    parameter given a gradient that is not all zero, 162/56 launches a
    consistency step
    (81/28 for bbed) and as many recomputes, a parameter and its EMA against
    ``ema_decay_schedule``; the median step wall after 2 warm-up steps, audio
-   seconds trained per second, the peak memory, and one profiled step's
-   device time by part and by kernel family with its idle share. Last, the
+   seconds trained per second, the peak memory, and one profiled bbed
+   step's device time by part and by kernel family with its idle share. Last, the
    training CLI (``diffse_tpu_torch.cli.train.main`` in this process, the
    paper's flags, ``--num_eval_files 0``) on a tiny wav directory written
    with the port's wavio: one epoch of 2 steps into a checkpoint,
@@ -144,7 +144,7 @@ Phases, each of which must pass:
    64, overlap 2, batch 16, flights of 16, 25 ms linger) behind the HTTP
    front (``make_server``) on the 65.6M bbed model (weights redrawn from
    seed 13, float32 trunk) with the certified sampler ``rd_ald_logit_N20``:
-   8 client threads POST 2 WAVs each (0.6 to 3.0 s); every answer 200, of
+   8 client threads POST ``SERVE_REQUESTS_EACH`` WAVs each (0.6 to 3.0 s); every answer 200, of
    its input's length and finite; ``/healthz`` and ``/stats``; flights,
    chunk batches and their occupancy, the chunk program's capture time on
    the first flight and the card memory kept, the service's wall per flight
@@ -202,17 +202,22 @@ Phases, each of which must pass:
 
 13. The exported artifact ("export", ``serving/export.py``): the paper's
    65.6M sebridge_v3 SNR-conditioned model through ``cli.export_artifact``
-   with two buckets (128 and 192 frames) and the 65.6M bbed model as a
-   ``bbed_pc`` artifact of ``EXPORT_BBED_N`` steps; each one's export, save
-   and load (capture included) times and size on disk, the kernels'
-   launches recorded inside each program per forward (81 / 28), each
-   artifact against ``ScoreModel.enhance`` on the card at the same seed and
-   ``est_snr`` (``EXPORT_TOL``, bitwise printed) with both walls per
-   utterance; the card's ``sebridge_v3_snr`` artifact against one exported
-   on the CPU from the same checkpoint, on the same draws
-   (``WAVEFORM_TOL``); ``cli.serve --artifact`` answering one POST of each
-   ``EXPORT_POST_SECONDS`` with ``?est_snr=`` (status 200, the loader's
-   output). Every phase prints its seconds.
+   with two buckets (128 and 192 frames); the 65.6M bbed model as a
+   ``bbed_pc`` artifact of ``EXPORT_BBED_N`` (30) steps (start, one step
+   replayed N times, finish, in one captured graph) and as a ``bbed_ode``
+   artifact (start, attempt, finish under a ``LoopProgram``); in bf16,
+   counted apart among the bf16 paths, the bbed model's ``bbed_pc`` and the
+   paper's model's ``sebridge_v3_snr``. For each: its export, save, load
+   and capture seconds and size on disk, the kernels' launches recorded
+   inside each program per forward (81 / 28) and no weight cast at capture
+   or over a replay, and the artifact against ``ScoreModel.enhance`` on the
+   card at the same seed and ``est_snr`` (``EXPORT_TOL``, bitwise printed)
+   with both walls per utterance (the ODE's nfev equal too); the card's
+   ``sebridge_v3_snr`` artifact against one exported on the CPU from the
+   same checkpoint, on the same draws (``WAVEFORM_TOL``); ``cli.serve
+   --artifact`` answering one POST of each ``EXPORT_POST_SECONDS`` with
+   ``?est_snr=`` (status 200, the loader's output). Every phase prints its
+   seconds.
 
 14. The other backbones ("backbones"), at full width: DCUNet
    (DilDCUNet-v2 at the training CLI's defaults, "bN", ``n_fft`` 512,
@@ -439,8 +444,9 @@ EXP_SAMPLER_TOL = 2e-3
 # set_sync_debug_mode("error") through these (predictor, corrector, grid)
 SYNC_FREE_CASES = [("heun", "none", "bridge_geom"), ("exp_euler", "none", "logit"),
                    ("exp_heun", "langevin", "logit")]
-# bbed_ode at rtol = atol = 1e-5: graphed vs eager on the 1.0 s utterance
-# (128 frames; ~490 evaluations at these weights). Card vs CPU on its first
+# bbed_ode at rtol = atol = 1e-5: graphed vs eager on the first ODE_SAMPLES
+# of the 1.0 s utterance (64 frames; half a 128-frame forward's work, since
+# PR 15 paid for phase 13's ODE artifact with it). Card vs CPU on its first
 # ODE_CPU_SAMPLES (64 frames), on the SAMPLER_CPU_NF-wide NCSN++ with the
 # output layer scaled by ODE_CPU_OUTPUT_SCALE, so that the CPU's side takes
 # ~100 evaluations of a narrow forward: the same accepted and rejected steps (flags equal;
@@ -449,6 +455,7 @@ SYNC_FREE_CASES = [("heun", "none", "bridge_geom"), ("exp_euler", "none", "logit
 # FORWARD_TOL, and the backward flow grows |x - y| ~1000-fold from T = 0.999
 # to eps, so differences of a forward's size are held to ten times it.
 ODE_SECONDS = 1.0
+ODE_SAMPLES = 8000
 ODE_CPU_SAMPLES = 8000
 ODE_CPU_OUTPUT_SCALE = 0.01
 ODE_WAVEFORM_TOL = 1e-3
@@ -468,7 +475,7 @@ BBED_TRAIN_CONFIG = dict(backbone="ncsnpp", sde="bbed", model_type="bbed",
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_HOP = 4, 256, 128
 TRAIN_SAMPLES = (TRAIN_FRAMES - 1) * TRAIN_HOP
 TRAIN_AUDIO_S = TRAIN_BATCH * TRAIN_SAMPLES / SR  # audio a step trains on
-TRAIN_STEPS, TRAIN_WARMUP, BBED_STEPS = 10, 2, 3
+TRAIN_STEPS, TRAIN_WARMUP, BBED_STEPS = 4, 2, 3
 # the full model's kernel path against its plain path on the card: redrawn
 # weights, the loss within 1e-5 relative and each parameter's gradient within
 # 1e-4 of its largest magnitude; printed beside the gap between two plain
@@ -493,12 +500,13 @@ CLI_SECONDS, CLI_TRAIN_FILES, CLI_VALID_FILES = 2.5, 8, 2
 # phase 10 ("serve"): the service over HTTP on the 65.6M bbed model (weights
 # redrawn from seed 13, float32 trunk) with the certified serving sampler
 # rd_ald_logit_N20 (reverse_diffusion + ald on the logit grid, N = 20: 40
-# forwards a chunk batch); 8 client threads send 2 requests each, request k
-# of SERVE_SECONDS[k % 8] seconds
+# forwards a chunk batch); 8 client threads send SERVE_REQUESTS_EACH requests
+# each (one since PR 15, which paid for phase 13's artifacts with the
+# second), request k of SERVE_SECONDS[k % 8] seconds
 SERVE_SAMPLER = {"timestep_type": "logit", "N": 20}
 SERVE_FORWARDS = 40
 SERVE_SECONDS = (0.6, 1.0, 1.4, 1.8, 2.0, 2.2, 2.6, 3.0)
-SERVE_CLIENTS, SERVE_REQUESTS_EACH = 8, 2
+SERVE_CLIENTS, SERVE_REQUESTS_EACH = 8, 1
 # the chunk batch replayed against the eager run, and run under
 # set_sync_debug_mode("error"): 1.4 + 1.8 + 2.0 s, 12 chunks and 4 padding rows
 SERVE_CHECK_SECONDS = (1.4, 1.8, 2.0)
@@ -538,14 +546,17 @@ SNR_SECONDS = 2.2
 SNR_STEP_WARMUP = 2
 SNR_STEP_REPS = 10
 # phase 13 ("export"): the sebridge_v3_snr artifact's two buckets (128 and
-# 192 frames), the est_snr its clients pass, the bbed_pc artifact's steps
-# (one: its prior, corrector and predictor draws, 2 forwards; its times at
-# N = 30: tools/artifact_times.py), the artifact against enhance on the
-# card, and the POSTs through cli.serve --artifact
+# 192 frames), the est_snr its clients pass, the bbed_pc artifacts' steps
+# (the real sampler: one step program, replayed N times in the capture),
+# the bbed_ode artifact's utterance, each artifact against enhance on the
+# card, the launches recorded per forward, and the POSTs through cli.serve
+# --artifact
 EXPORT_SECONDS = (1.0, 1.5)
 EXPORT_EST_SNRS = (0.35, 0.6, 1.2, 2.5)
-EXPORT_BBED_N = 1
+EXPORT_BBED_N = 30
+ODE_EXPORT_SECONDS = 0.5
 EXPORT_TOL = 1e-5
+EXPORT_LAUNCHES = {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}
 EXPORT_POST_SECONDS = (0.6, 1.0, 1.2, 1.5)
 
 
@@ -1584,7 +1595,7 @@ def run_ode(torch, ck, dev, weights):
     failures, paths = [], {}
     by_seconds = dict(zip(UTTERANCE_SECONDS, [noisy for _, noisy in main_path_pairs()]))
     model = sampler_model(torch, weights, device=dev)
-    y = by_seconds[ODE_SECONDS][None]
+    y = by_seconds[ODE_SECONDS][None, :ODE_SAMPLES]
     t_pad, _ = padded_wave(torch, y[0])
     ck.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1611,7 +1622,7 @@ def run_ode(torch, ck, dev, weights):
                           sampler_type="ode")
     reads4, flags4 = program.reads, list(program.flags)
     program.steps_per_read = 1
-    print(f"bbed_ode (rtol = atol = 1e-5), {ODE_SECONDS} s utterance ({t_pad} frames): nfev "
+    print(f"bbed_ode (rtol = atol = 1e-5), {ODE_SAMPLES / SR} s utterance ({t_pad} frames): nfev "
           f"{nfev}, attempts {flags[2]}, status {flags[3]}; first call (warm-up and capture of "
           f"three programs, then a run) {first:.4f} s, card memory they keep "
           f"{held / 2**20:.1f} MiB; graphed wall {wall:.4f} s with {reads} host reads of the "
@@ -1829,18 +1840,16 @@ def run_bf16_program(torch, ck, dev):
         path = card_runs(counts[name], [captured])
         breakdown = device_breakdown(prof)
         device_s, launches = breakdown["total_us"] / 1e6, breakdown["launches"]
+        # one eager run, warm since the capture's warm-up: its wall and peak
         gen = torch.Generator(dev).manual_seed(2)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         allocated = torch.cuda.memory_allocated()
-        program(model, gen, y, snr)  # a warm eager run
-        torch.cuda.synchronize()
-        eager_peak = torch.cuda.max_memory_allocated() - allocated
-        gen = torch.Generator(dev).manual_seed(2)
         t0 = time.perf_counter()
         eager = program(model, gen, y, snr)
         torch.cuda.synchronize()
         eager_wall = time.perf_counter() - t0
+        eager_peak = torch.cuda.max_memory_allocated() - allocated
         out = outs[name]
         err = relative_gap(out, eager)
         bitwise = torch.equal(out, eager)
@@ -2313,11 +2322,14 @@ def run_training(torch, ck, dev):
     part("ops", check_train_kernels, torch, ck, dev)
     model_path = part("kernel vs plain", check_train_model, torch, ck, dev)
     paper = part("paper steps", run_train_steps, torch, ck, dev, "sebridge_v3 (paper), float32",
-                 PAPER_CONFIG, PAPER_SDE_KWARGS, {}, TRAIN_STEPS, profile_step=True)
+                 PAPER_CONFIG, PAPER_SDE_KWARGS, {}, TRAIN_STEPS)
     if not paper["losses"][-1] < paper["losses"][0]:
         raise AssertionError(f"the paper model's loss did not fall: {paper['losses']}")
+    # the profiled step: bbed's, one forward and its recompute, half the
+    # paper step's kernels for the profiler to read back (since PR 15)
     bbed = part("bbed steps", run_train_steps, torch, ck, dev, "bbed score matching, float32",
-                BBED_TRAIN_CONFIG, dict(T_sampling=0.999, k=2.6, theta=0.52), {}, BBED_STEPS)
+                BBED_TRAIN_CONFIG, dict(T_sampling=0.999, k=2.6, theta=0.52), {}, BBED_STEPS,
+                profile_step=True)
     bf16 = part("bf16 step", run_train_steps, torch, ck, dev, "sebridge_v3 (paper), bf16 trunk",
                 PAPER_CONFIG, PAPER_SDE_KWARGS, {"dtype": "bf16"}, 1)
     part("CLI", run_train_cli, torch, dev)
@@ -2656,6 +2668,7 @@ class ProgramLog:
             init(program, *args, **kwargs)
             program.smoke_record = types.SimpleNamespace(
                 launch_counts=dict(program.launch_counts), replays=0,
+                conv_config_launches=list(program.conv_config_launches),
                 capture_seconds=program.capture_seconds,
                 reserved_after=torch.cuda.memory_reserved())
             log.records.append(program.smoke_record)
@@ -3140,23 +3153,145 @@ def artifact_size(path):
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
 
 
+def artifact_programs(bucket, nfe):
+    """``(role, capture.Program, forwards)`` of a loaded artifact bucket: the
+    one program of a whole call (``nfe`` forwards), or ``bbed_ode``'s
+    start, attempt and finish."""
+    if bucket.loop:
+        return [(role, program, bucket.programs[role][0]["forwards"])
+                for role, program in zip(("start", "attempt", "finish"), bucket.program.programs)]
+    return [("call", bucket.program, nfe)]
+
+
+def report_artifact(label, enhance, meta, failures, card, parts):
+    """A loaded artifact's programs: each one's launches recorded per forward
+    (81 / 28) and weight casts at its capture (none); its export, save, load
+    and capture seconds."""
+    capture = 0.0
+    for b in enhance.buckets:
+        for role, program, forwards in artifact_programs(b, meta["nfe"]):
+            launches = {k: v / forwards for k, v in program.launch_counts.items()}
+            casts = {k: v for k, v in program.weight_casts.items() if v}
+            capture += program.capture_seconds
+            print(f"{label}, {b.pad_samples} samples, {role} program: launches recorded per "
+                  f"forward {launches}, weight casts at capture {casts or 'none'}, capture "
+                  f"{program.capture_seconds:.2f} s")
+            if launches != EXPORT_LAUNCHES or casts:
+                failures.append(f"{label} {role}: launches per forward {launches}, casts {casts}")
+    seconds = meta["seconds"]
+    export_s = sum(x["export"] for x in seconds)
+    save_s = sum(x["save"] for x in seconds) + meta["weights_save_seconds"]
+    print(f"{card}: {label} artifact ({meta['dtype']}, buckets "
+          f"{[b['t_pad_frames'] for b in meta['buckets']]} frames, nfe {meta['nfe']}): export "
+          f"{export_s:.2f} s, save {save_s:.2f} s, load {meta['load_seconds']:.2f} s (capture "
+          f"{capture:.2f} s of it)")
+    parts[f"{label}: export + save + load"] = round(export_s + save_s + meta["load_seconds"], 1)
+
+
+def compare_artifact(torch, ck, label, art_call, ref_call, failures, card, timed_ref=True):
+    """``art_call()`` (a replay of the artifact's capture) against
+    ``ref_call()`` (``ScoreModel.enhance`` at the same seed, whose first call
+    captures its own program; with ``timed_ref`` a second call, a replay, is
+    timed) within ``EXPORT_TOL``, bitwise printed, both walls, and no weight
+    cast or pack over the artifact's call."""
+    casts = dict(ck.weight_casts)
+    t0 = time.perf_counter()
+    out = art_call()
+    art_wall = time.perf_counter() - t0
+    cast = ck.weight_casts != casts
+    if cast:
+        failures.append(f"{label}: weight casts {casts} -> {ck.weight_casts} over a replay")
+    t0 = time.perf_counter()
+    ref = ref_call()
+    ref_wall = time.perf_counter() - t0
+    if timed_ref:
+        t0 = time.perf_counter()
+        ref = ref_call()
+        ref_wall = time.perf_counter() - t0
+    err = float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
+    print(f"{card}: {label} artifact vs enhance, same seed: max|diff|/max|ref| {err:.3e} (tol "
+          f"{EXPORT_TOL}), bitwise equal {bool(np.array_equal(out, ref))}; wall artifact "
+          f"{art_wall:.4f} s, enhance {ref_wall:.4f} s "
+          f"({'a replay' if timed_ref else 'its first call, the capture included'}); weight "
+          f"casts over the artifact's call: {ck.weight_casts if cast else 'none'}")
+    if out.shape != ref.shape or not np.isfinite(out).all() or err > EXPORT_TOL:
+        failures.append(f"{label}: shape {out.shape} vs {ref.shape}, deviates by {err:.3e}")
+
+
+def bf16_window(torch, ck, records):
+    """A bf16 window's kernel runs (``card_runs``) with the conv's split by
+    instantiation (``conv_launches``), from the programs' records."""
+    window = list(ck.conv_config_launches)
+    runs = [w + sum(r.conv_config_launches[i] * (r.replays - 1) for r in records)
+            for i, w in enumerate(window)]
+    recorded = [sum(r.conv_config_launches[i] for r in records) for i in range(len(window))]
+    path = card_runs(dict(ck.launch_counts), records)
+    return {"runs": {**path["runs"], **conv_launches(ck, runs)},
+            "recorded": {**path["recorded"], **conv_launches(ck, recorded)}}
+
+
+def export_model(torch, dev, name):
+    """Phase 13's models, every weight redrawn: the 65.6M bbed model from seed
+    4 with the float32 ("bbed") or the bf16 trunk ("bbed_bf16"), and the
+    paper's model from seed 6 with the bf16 trunk ("paper_bf16"; its float32
+    checkpoint's weights)."""
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    backbone = {"dtype": "bf16"} if name.endswith("_bf16") else {}
+    if name.startswith("paper"):
+        model = ScoreModel(ScoreModelConfig(**PAPER_CONFIG), backbone_kwargs=backbone,
+                           sde_kwargs=PAPER_SDE_KWARGS, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        redraw_weights(torch, model.backbone, seed=6)
+        return model
+    model = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed",
+                                        snr_conditioned="false", sigma_max=0.5),
+                       backbone_kwargs=backbone,
+                       sde_kwargs=dict(T_sampling=0.999, k=2.6, theta=0.52, N=30),
+                       device=dev, generator=torch.Generator().manual_seed(0))
+    redraw_weights(torch, model.backbone, seed=4)
+    return model
+
+
+def export_artifacts(jobs):
+    """Phase 13's artifacts ``(path, model name, branch, seconds)`` of
+    ``export_model``'s models, exported one after another in a process of
+    its own (``bbed_pc`` at ``EXPORT_BBED_N`` steps): an export's trace and
+    save are host work, ~3 s a traced forward, which runs beside the rest
+    of the phase."""
+    import torch
+
+    from diffse_tpu_torch.serving.export import save_artifact
+
+    for path, name, branch, seconds in jobs:
+        model = export_model(torch, torch.device("cuda", 0), name)
+        save_artifact(path, model, None, branch, int(seconds * SR), n_steps=EXPORT_BBED_N)
+        del model
+        torch.cuda.empty_cache()
+
+
 def run_export(torch, ck, dev, card):
-    """Phase 13 ("export"): the exported enhance program. The paper's 65.6M
-    sebridge_v3 SNR-conditioned model (weights redrawn from seed 6, saved
-    with ``CheckpointManager``) through ``cli.export_artifact`` with two
-    buckets (1.0 and 1.5 s: 128 and 192 frames), and the 65.6M bbed model
-    (redrawn from seed 4) as a ``bbed_pc`` artifact of ``EXPORT_BBED_N``
-    steps: each one's export, save and load times (the load captures each
-    bucket's program) and size, the kernels' launches recorded inside each
-    program per forward, each artifact against ``ScoreModel.enhance`` on
-    the card at the same seed and ``est_snr`` (``EXPORT_TOL``, bitwise
-    printed) and the wall per utterance of both; the card's
-    ``sebridge_v3_snr`` artifact against one exported on the CPU from the
-    same checkpoint, given the same draws (``WAVEFORM_TOL``); TF32 allowed for cuDNN
-    (torch's default: the loader pins float32 itself); then
-    ``cli.serve --artifact`` answering a POST of each
-    ``EXPORT_POST_SECONDS`` with ``?est_snr=``. Returns the kernel runs of the phase by path."""
+    """Phase 13 ("export"): the exported enhance programs. In float32: the
+    paper's 65.6M sebridge_v3 SNR-conditioned model (weights redrawn from
+    seed 6, saved with ``CheckpointManager``) through
+    ``cli.export_artifact`` with two buckets (1.0 and 1.5 s: 128 and 192
+    frames); the 65.6M bbed model (redrawn from seed 4) as a ``bbed_pc``
+    artifact of ``EXPORT_BBED_N`` steps (start, one step replayed N times,
+    finish, in one captured graph) and as a ``bbed_ode`` artifact (start,
+    attempt, finish, a ``LoopProgram``); the card's ``sebridge_v3_snr``
+    artifact against one exported on the CPU from the same checkpoint,
+    given the same draws (``WAVEFORM_TOL``); ``cli.serve --artifact``
+    answering a POST of each ``EXPORT_POST_SECONDS`` with ``?est_snr=``.
+    In bf16, counted apart: the same bbed weights' ``bbed_pc`` artifact and
+    the paper's model's ``sebridge_v3_snr``. The ``bbed_ode`` and the bf16
+    artifacts are exported in two processes of their own
+    (``export_artifacts``), started with the phase. Each artifact's programs
+    (``report_artifact``) and its output against ``ScoreModel.enhance`` on
+    the card at the same seed and ``est_snr`` (``compare_artifact``). TF32
+    allowed for cuDNN (torch's default: the loader pins float32 itself).
+    Returns the float32 and the bf16 kernel runs of the phase by path."""
     import gc
+    import multiprocessing
     import os
     import shutil
     import tempfile
@@ -3174,6 +3309,7 @@ def run_export(torch, ck, dev, card):
     failures, parts = [], {}
     root = tempfile.mkdtemp(prefix="diffse_export_")
     pairs = main_path_pairs()
+    _, noisy = pairs[0]
     # torch's default, as a user's process has it: the loader pins float32 itself
     torch.backends.cudnn.allow_tf32 = True
     print("phase 13 with torch's defaults: torch.backends.cudnn.allow_tf32=True, "
@@ -3186,9 +3322,38 @@ def run_export(torch, ck, dev, card):
         if out.shape != ref.shape or not np.isfinite(out).all() or err > tol:
             failures.append(f"{label}: shape {out.shape} vs {ref.shape}, deviates by {err:.3e}")
 
-    def per_forward(bucket, nfe):
-        counts = bucket.program.launch_counts
-        return {k: v / nfe for k, v in counts.items()}
+    def pc_artifact(label, model, art):
+        start = time.time()
+        pc_enhance, meta = load_artifact(art)
+        print(f"{label}: {artifact_size(art):.1f} MB on disk")
+        report_artifact(label, pc_enhance, meta, failures, card, parts)
+        compare_artifact(torch, ck, label, lambda: pc_enhance(noisy, seed=5),
+                         lambda: model.enhance(noisy[None], noisy[None], N=EXPORT_BBED_N,
+                                               generator=torch.Generator(dev).manual_seed(5)),
+                         failures, card)
+        parts[label] = round(time.time() - start, 1)
+
+    # the exports of bbed_ode and of the bf16 artifacts, in two processes
+    # beside the rest of the phase
+    art_ode, art_pc16, art_v3_16 = (os.path.join(root, name)
+                                    for name in ("art_ode", "art_pc_bf16", "art_v3_bf16"))
+    jobs = {"bbed_ode": [(art_ode, "bbed", "bbed_ode", ODE_EXPORT_SECONDS)],
+            "bf16": [(art_pc16, "bbed_bf16", "bbed_pc", EXPORT_SECONDS[0]),
+                     (art_v3_16, "paper_bf16", "sebridge_v3_snr", EXPORT_SECONDS[0])]}
+    exports = {key: multiprocessing.get_context("spawn").Process(target=export_artifacts,
+                                                                 args=(job,))
+               for key, job in jobs.items()}
+    t_exports = time.time()
+    for process in exports.values():
+        process.start()
+
+    def joined(key):
+        exports[key].join(timeout=900)
+        if exports[key].exitcode != 0:
+            raise AssertionError(f"the {key} artifacts' export exited with "
+                                 f"{exports[key].exitcode}")
+        parts[f"{key} export + save, in its own process (started with the phase)"] = round(
+            time.time() - t_exports, 1)
 
     try:
         torch.cuda.synchronize()
@@ -3205,46 +3370,24 @@ def run_export(torch, ck, dev, card):
             del v3
             gc.collect()
             art = os.path.join(root, "art_v3")
-            meta = export_artifact.main(["--ckpt", ckpt, "--out", art, "--utt_seconds",
-                                         *map(str, EXPORT_SECONDS)])
-            parts["export sebridge_v3_snr (CLI)"] = round(time.time() - start, 1)
-            start = time.time()
+            export_artifact.main(["--ckpt", ckpt, "--out", art, "--utt_seconds",
+                                  *map(str, EXPORT_SECONDS)])
+            parts["export sebridge_v3_snr (CLI, checkpoint load included)"] = round(
+                time.time() - start, 1)
             enhance, meta = load_artifact(art)
-            parts["load sebridge_v3_snr"] = round(time.time() - start, 1)
-            print(f"{card}: sebridge_v3_snr artifact, buckets "
-                  f"{[b['t_pad_frames'] for b in meta['buckets']]} frames: export + save per "
-                  f"bucket (s) {meta['seconds']}, CLI wall {parts['export sebridge_v3_snr (CLI)']}"
-                  f" s (checkpoint load included), load {meta['load_seconds']:.2f} s (the "
-                  f"programs' warm-up and capture included), {artifact_size(art):.1f} MB on disk")
-            for b in enhance.buckets:
-                launches = per_forward(b, meta["nfe"])
-                print(f"sebridge_v3_snr artifact, {b.pad_samples} samples: launches recorded "
-                      f"per forward {launches}, capture {b.program.capture_seconds:.2f} s")
-                if launches != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28,
-                                "fused_bias_leaky_relu": 0}:
-                    failures.append(f"sebridge_v3_snr artifact: launches per forward {launches}")
-
+            print(f"sebridge_v3_snr artifact: {artifact_size(art):.1f} MB on disk")
+            report_artifact("sebridge_v3_snr float32", enhance, meta, failures, card, parts)
             model, state = load_score_model(ckpt, device=dev)
             load_ema(state)
-            for i, (_, noisy) in enumerate(pairs):
+            for i, (_, y) in enumerate(pairs):
                 est = float(np.float32(EXPORT_EST_SNRS[i]))
-                t0 = time.perf_counter()
-                out = enhance(noisy, seed=i, est_snr=est)
-                art_wall = time.perf_counter() - t0
-
-                def ref_call():
-                    return model.enhance(noisy[None], noisy[None],
-                                         generator=torch.Generator(dev).manual_seed(i),
-                                         oracle=True, noise_rms=est, clean_rms=1.0)
-
-                ref = ref_call()  # the bucket's first call captures its program
-                t0 = time.perf_counter()
-                ref = ref_call()
-                ref_wall = time.perf_counter() - t0
-                print(f"{card}: sebridge_v3_snr {UTTERANCE_SECONDS[i]} s, est_snr {est}: "
-                      f"artifact wall {art_wall:.4f} s, enhance (replay) {ref_wall:.4f} s")
-                compare(f"sebridge_v3_snr artifact vs enhance, utterance {i}", out, ref,
-                        EXPORT_TOL)
+                compare_artifact(
+                    torch, ck, f"sebridge_v3_snr float32, {UTTERANCE_SECONDS[i]} s, est_snr {est}",
+                    lambda: enhance(y, seed=i, est_snr=est),
+                    lambda: model.enhance(y[None], y[None],
+                                          generator=torch.Generator(dev).manual_seed(i),
+                                          oracle=True, noise_rms=est, clean_rms=1.0),
+                    failures, card)
 
             # the card's artifact against the CPU's, on the same draws
             start = time.time()
@@ -3253,10 +3396,9 @@ def run_export(torch, ck, dev, card):
             art_cpu = os.path.join(root, "art_v3_cpu")
             save_artifact(art_cpu, cpu_model, None, "sebridge_v3_snr", int(EXPORT_SECONDS[0] * SR))
             cpu_enhance, cpu_meta = load_artifact(art_cpu)
-            _, noisy = pairs[0]
-            noise = cpu_meta["buckets"][0]["noise"]
+            bucket = cpu_enhance.buckets[0]
             rng = np.random.default_rng(8)
-            shape = (noise["draws"], *noise["shape"])
+            shape = (bucket.draws, *bucket.draw_shape)
             draws = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)) / np.sqrt(2)
             est = float(np.float32(EXPORT_EST_SNRS[0]))
             compare("sebridge_v3_snr artifact, card vs CPU artifact (same draws)",
@@ -3268,48 +3410,35 @@ def run_export(torch, ck, dev, card):
             del cpu_model, cpu_state, cpu_enhance, model, state
             gc.collect()
 
-            # bbed_pc, EXPORT_BBED_N steps
-            start = time.time()
-            sde_kwargs = dict(T_sampling=0.999, k=2.6, theta=0.52, N=30)
-            bbed = ScoreModel(ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type="bbed",
-                                               snr_conditioned="false", sigma_max=0.5),
-                              sde_kwargs=sde_kwargs, device=dev,
-                              generator=torch.Generator().manual_seed(0))
-            redraw_weights(torch, bbed.backbone, seed=4)
+            # bbed_pc, EXPORT_BBED_N steps, and bbed_ode, float32
+            bbed = export_model(torch, dev, "bbed")
             art_pc = os.path.join(root, "art_pc")
-            pc_meta = save_artifact(art_pc, bbed, None, "bbed_pc", int(EXPORT_SECONDS[0] * SR),
-                                    n_steps=EXPORT_BBED_N)
-            parts[f"export bbed_pc N={EXPORT_BBED_N}"] = round(time.time() - start, 1)
+            save_artifact(art_pc, bbed, None, "bbed_pc", int(EXPORT_SECONDS[0] * SR),
+                          n_steps=EXPORT_BBED_N)
+            pc_artifact(f"bbed_pc N={EXPORT_BBED_N} float32", bbed, art_pc)
             start = time.time()
-            pc_enhance, pc_meta = load_artifact(art_pc)
-            parts[f"load bbed_pc N={EXPORT_BBED_N}"] = round(time.time() - start, 1)
-            (bucket,) = pc_enhance.buckets
-            launches = per_forward(bucket, pc_meta["nfe"])
-            print(f"{card}: bbed_pc artifact, N = {EXPORT_BBED_N} ({pc_meta['nfe']} forwards), "
-                  f"{bucket.pad_samples} samples: export + save {pc_meta['seconds']}, load "
-                  f"{pc_meta['load_seconds']:.2f} s, {artifact_size(art_pc):.1f} MB; launches "
-                  f"recorded per forward {launches}")
-            if launches != {"gn_silu_conv3x3": 81, "groupnorm_silu": 28,
-                            "fused_bias_leaky_relu": 0}:
-                failures.append(f"bbed_pc artifact: launches per forward {launches}")
-            _, noisy = pairs[0]
-            t0 = time.perf_counter()
-            out = pc_enhance(noisy, seed=5)
-            art_wall = time.perf_counter() - t0
+            joined("bbed_ode")
+            ode_enhance, ode_meta = load_artifact(art_ode)
+            y_ode = noisy[:int(ODE_EXPORT_SECONDS * SR)]
+            nfe = []
 
-            def pc_ref():
-                return bbed.enhance(noisy[None], noisy[None],
-                                    generator=torch.Generator(dev).manual_seed(5),
-                                    N=EXPORT_BBED_N)
+            def ode_ref():
+                out, n, _ = bbed.enhance(y_ode[None], y_ode[None], sampler_type="ode",
+                                         generator=torch.Generator(dev).manual_seed(7),
+                                         timeit=True)
+                nfe.append(n)
+                return out
 
-            ref = pc_ref()
-            t0 = time.perf_counter()
-            ref = pc_ref()
-            ref_wall = time.perf_counter() - t0
-            print(f"{card}: bbed_pc N = {EXPORT_BBED_N}, {UTTERANCE_SECONDS[0]} s: artifact wall "
-                  f"{art_wall:.4f} s, enhance (replay) {ref_wall:.4f} s")
-            compare("bbed_pc artifact vs enhance", out, ref, EXPORT_TOL)
-            del bbed, pc_enhance
+            report_artifact("bbed_ode float32", ode_enhance, ode_meta, failures, card, parts)
+            compare_artifact(torch, ck, "bbed_ode float32", lambda: ode_enhance(y_ode, seed=7),
+                             ode_ref, failures, card, timed_ref=False)
+            flags = ode_enhance.buckets[0].flags
+            print(f"bbed_ode artifact: flags [done, nfev, attempts, status] {flags}, enhance's "
+                  f"nfev {nfe[-1]}; {artifact_size(art_ode):.1f} MB on disk")
+            if flags[1] != nfe[-1] or not flags[0]:
+                failures.append(f"bbed_ode artifact: flags {flags}, enhance's nfev {nfe[-1]}")
+            parts["bbed_ode float32"] = round(time.time() - start, 1)
+            del bbed, ode_enhance
             gc.collect()
 
             # cli.serve --artifact: EXPORT_POSTS requests, one after another
@@ -3345,14 +3474,50 @@ def run_export(torch, ck, dev, card):
                 server.shutdown()
                 service.close()
             parts["cli.serve --artifact"] = round(time.time() - start, 1)
+            del enhance
+            gc.collect()
         path = card_runs(dict(ck.launch_counts), programs.records)
-        report_paths({"export: artifacts, enhance, cli.serve --artifact": path}, failures)
+
+        # the bf16 trunk, counted apart: bbed_pc on the same bbed weights and
+        # the paper's model (redrawn as its checkpoint) at 1.0 s
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ck.reset_launch_counts()
+        with ProgramLog(torch) as programs:
+            joined("bf16")
+            bbed16 = export_model(torch, dev, "bbed_bf16")
+            pc_artifact(f"bbed_pc N={EXPORT_BBED_N} bf16", bbed16, art_pc16)
+            del bbed16
+            gc.collect()
+            start = time.time()
+            v3 = export_model(torch, dev, "paper_bf16")
+            enhance16, meta16 = load_artifact(art_v3_16)
+            est = float(np.float32(EXPORT_EST_SNRS[0]))
+            report_artifact("sebridge_v3_snr bf16", enhance16, meta16, failures, card, parts)
+            compare_artifact(torch, ck, "sebridge_v3_snr bf16",
+                             lambda: enhance16(noisy, seed=3, est_snr=est),
+                             lambda: v3.enhance(noisy[None], noisy[None],
+                                                generator=torch.Generator(dev).manual_seed(3),
+                                                oracle=True, noise_rms=est, clean_rms=1.0),
+                             failures, card)
+            print(f"sebridge_v3_snr bf16 artifact: {artifact_size(art_v3_16):.1f} MB on disk")
+            parts["sebridge_v3_snr bf16"] = round(time.time() - start, 1)
+            del v3, enhance16
+            gc.collect()
+        bf16_path = bf16_window(torch, ck, programs.records)
+        paths = {"export: artifacts, enhance, cli.serve --artifact": path}
+        bf16_paths = {"export: bf16 artifacts, enhance (graphed)": bf16_path}
+        report_paths({**paths, **bf16_paths}, failures)
     finally:
+        for process in exports.values():
+            if process.is_alive():
+                process.terminate()
+            process.join(timeout=60)
         shutil.rmtree(root, ignore_errors=True)
     print(f"phase export, seconds by part: {parts}")
     if failures:
         raise AssertionError("; ".join(failures))
-    return {"export: artifacts, enhance, cli.serve --artifact": path}
+    return paths, bf16_paths
 
 # Phase 14: the other backbones at full width. DCUNet (DilDCUNet-v2 at the
 # training CLI's defaults; it needs n_fft 512, 257 bins) and score_sde's
@@ -3702,7 +3867,7 @@ PARALLEL_GRAD_TOL = 1e-4      # of each gradient's largest magnitude, as phase 9
 # weight to PARALLEL_PARAM_ATOL
 PARALLEL_PARAM_ATOL = 2e-6
 PARALLEL_STEPS = 2            # a rank's checked step, then a timed one
-PARALLEL_TIMED = 3            # world size 1: timed steps of each, in turns
+PARALLEL_TIMED = 2            # world size 1: timed steps of each, in turns
 PARALLEL_LAUNCHES = {"gn_silu_conv3x3": 2 * 81, "groupnorm_silu": 2 * 28,
                      "fused_bias_leaky_relu": 0}
 
@@ -4441,11 +4606,12 @@ def main(argv=None) -> int:
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
              **results["train"][0], **results["serve"], **results["eval"],
-             **results["snr_train"], **results["export"], **results["backbones"],
+             **results["snr_train"], **results["export"][0], **results["backbones"],
              **results["parallel"], **results["sequence"][0]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
-                  **results["samplers"][1], **results["train"][1], **results["sequence"][1]}
+                  **results["samplers"][1], **results["train"][1], **results["export"][1],
+                  **results["sequence"][1]}
 
     def launches(kernel, by=paths):
         # the split statistics' kernels run on the frames-parallel paths only

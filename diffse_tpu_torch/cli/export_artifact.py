@@ -1,9 +1,12 @@
 """Export a trained checkpoint's enhance program as an artifact (the port's
 counterpart of tools/export_artifact.py, with its flags).
 
-Writes the exported normalise -> STFT -> sampler -> iSTFT program of each
-width bucket, the weights (the checkpoint's EMA unless ``--no_ema``) and
-``meta.json`` into ``--out`` (``serving/export.py``), for
+Writes the exported normalise -> STFT -> sampler -> iSTFT programs of each
+width bucket (``bbed_pc``: start, one PC step, finish; ``bbed_ode``: start,
+one RK45 attempt, finish; the other branches: one program), the weights (the
+checkpoint's EMA unless ``--no_ema``), for a checkpoint of the bf16 trunk
+(``backbone_kwargs`` ``dtype: bf16``) its bf16 casts and packed conv weights,
+and ``meta.json`` into ``--out`` (``serving/export.py``), for
 ``python -m diffse_tpu_torch.cli.serve --artifact``. A program is traced for
 the device it runs on: ``--device`` (the card unless "cpu" is given) in
 place of the JAX tool's ``--platforms``, which this CLI refuses. ``main``
@@ -11,7 +14,7 @@ returns the artifact's meta.
 
 Usage:
     python -m diffse_tpu_torch.cli.export_artifact --ckpt savedir/<exp> \\
-        --out artifact/ --utt_seconds 8 [--branch bbed_pc] [--N 30]
+        --out artifact/ --utt_seconds 8 [--branch bbed_pc|bbed_ode] [--N 30]
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--ckpt", type=str, required=True)
     parser.add_argument("--out", type=str, required=True)
     parser.add_argument("--branch", type=str, default=None,
-                        help="enhance branch (default: from the checkpoint's "
-                             "model_type/snr_conditioned, PC sampler for bbed)")
+                        help="enhance branch, bbed_ode for a bbed checkpoint's ODE sampler "
+                             "(default: from the checkpoint's model_type/snr_conditioned, PC "
+                             "sampler for bbed)")
     parser.add_argument("--utt_seconds", type=float, nargs="+", default=[8.0],
-                        help="utterance length(s) the artifact serves: one exported program "
+                        help="utterance length(s) the artifact serves: exported programs "
                              "per distinct width bucket; the loader picks the smallest that fits")
     parser.add_argument("--N", type=int, default=30)
     parser.add_argument("--predictor", type=str, default="reverse_diffusion")
@@ -68,8 +72,8 @@ def main(argv=None) -> dict:
                          corrector_steps=args.corrector_steps)
     size = sum(os.path.getsize(os.path.join(args.out, f)) for f in os.listdir(args.out))
     buckets = [b["pad_samples"] for b in meta["buckets"]]
-    print(f"exported {branch} (buckets {buckets} samples, device {meta['device']}) -> "
-          f"{args.out} ({size / 1e6:.1f} MB)")
+    print(f"exported {branch} (buckets {buckets} samples, {meta['dtype']} trunk, device "
+          f"{meta['device']}) -> {args.out} ({size / 1e6:.1f} MB)")
     return meta
 
 

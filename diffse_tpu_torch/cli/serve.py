@@ -14,9 +14,11 @@ served weights are the checkpoint's EMA, as at evaluation. The port adds
 
 ``--artifact DIR`` serves an exported enhance program instead
 (``serving/export.py``, written by ``python -m
-diffse_tpu_torch.cli.export_artifact``): one utterance a request, no model
-code, on the device it was exported for; an artifact holds no SNR
-estimator, so clients of a ``*_snr`` artifact pass ``?est_snr=``. Exactly
+diffse_tpu_torch.cli.export_artifact``, any branch, float32 or bf16 trunk):
+one utterance a request, no model code, on the device it was exported for,
+each bucket's programs captured at load (``bbed_ode`` loops its attempt
+program on the host); an artifact holds no SNR estimator, so clients of a
+``*_snr`` artifact pass ``?est_snr=``. Exactly
 one of ``--ckpt`` / ``--artifact``; ``--snr_ckpt``, ``--ckpt_step`` and
 ``--monitor`` apply to ``--ckpt`` only.
 """
@@ -77,7 +79,8 @@ def main(argv=None, block=True):
 
         service = ArtifactService(args.artifact, seed=args.seed)
         buckets = [b["pad_samples"] for b in service.meta["buckets"]]
-        label = f"artifact {service.meta['branch']} (buckets {buckets})"
+        label = (f"artifact {service.meta['branch']}, {service.meta['dtype']} trunk "
+                 f"(buckets {buckets})")
     else:
         service = _checkpoint_service(args)
         label = service.model_type

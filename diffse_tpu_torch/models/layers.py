@@ -29,7 +29,10 @@ bf16 operands, sum in float32 and round once, then add their bias in bf16
 the bf16 copies of their parameters are cast once, ``cast_params``, and in
 training on every call, so that the gradient reaches the float32
 parameters); GroupNorm statistics, the attention's norm, q/k/v and softmax
-stay float32.
+stay float32. A program exported with the bf16 trunk (``serving/export.py``)
+takes those copies and the packed conv weights as inputs: inside
+``given_weights`` the blocks read them from the given store by their names
+in the backbone, in place of their caches.
 
 Inside a frames shard (``parallel.sequence.constrain_frames``: one
 utterance's frames split over ranks) the layers of the paper's configuration
@@ -43,7 +46,9 @@ frames.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -148,6 +153,43 @@ def ddpm_dense(in_dim: int, out_dim: int,
     return lin
 
 
+class _GivenWeights:
+    """The store of ``given_weights``: tensors by ``"<module name>.<what>"``,
+    the module's name in the backbone."""
+
+    def __init__(self, backbone: nn.Module, store: dict, record: bool):
+        self.names = {id(m): name for name, m in backbone.named_modules()}
+        self.store, self.record = store, record
+
+    def get(self, module: nn.Module, what: str, make: Callable[[], torch.Tensor]):
+        key = f"{self.names[id(module)]}.{what}"
+        if key not in self.store:
+            if not self.record:
+                raise KeyError(f"{key}: not among the given weights")
+            self.store[key] = make()
+        return self.store[key]
+
+
+_given = threading.local()
+
+
+@contextlib.contextmanager
+def given_weights(backbone: nn.Module, store: dict, record: bool = False):
+    """Within the block (on this thread), ``backbone``'s bf16 casts
+    (``cast_params``) and packed conv weights (``packed_weight``) are the
+    tensors of ``store``, by ``"<module name>.cast_weight"``,
+    ``".cast_bias"`` and ``".<conv name>.packed"``, not the modules' caches:
+    the inputs of an exported program. With ``record``, each one missing is
+    made as the cache would make it (from the weight the module holds then,
+    e.g. through ``torch.func.functional_call``) and put in ``store``."""
+    saved = getattr(_given, "store", None)
+    _given.store = _GivenWeights(backbone, store, record)
+    try:
+        yield
+    finally:
+        _given.store = saved
+
+
 def cast_params(module: nn.Module, dtype: torch.dtype):
     """``module``'s weight and bias cast to ``dtype``, cast once and again
     only when either moves or changes: the copies are kept on the module
@@ -155,7 +197,8 @@ def cast_params(module: nn.Module, dtype: torch.dtype):
     device, ``data_ptr()`` and ``_version``, with the parameters themselves
     held so that no other tensor takes their addresses while the key
     stands. Each cast is counted in ``cuda_kernels.weight_casts`` under the
-    module's kind ("conv" or "dense"), on any device.
+    module's kind ("conv" or "dense"), on any device. Inside
+    ``given_weights`` the copies are the given ones.
 
     Where autograd records (grad enabled and a parameter requiring grad), the
     casts are made anew on each call, neither cached nor counted: a copy
@@ -164,13 +207,22 @@ def cast_params(module: nn.Module, dtype: torch.dtype):
     w, b = module.weight, module.bias
     if needs_grad(w, b):
         return w.to(dtype), b.to(dtype)
+    kind = "conv" if isinstance(module, nn.Conv2d) else "dense"
+    given = getattr(_given, "store", None)
+    if given is not None:
+        def cast_weight():
+            weight_casts[kind] += 1
+            return w.detach().to(dtype)
+
+        return (given.get(module, "cast_weight", cast_weight),
+                given.get(module, "cast_bias", lambda: b.detach().to(dtype)))
     key = (dtype, w.device, w.data_ptr(), w._version, b.data_ptr(), b._version)
     cached = getattr(module, "_cast", None)
     if cached is None or cached[0] != key:
         forbid_capture(w.device, "a cast weight")
         cached = (key, (w.detach(), b.detach()), w.detach().to(dtype), b.detach().to(dtype))
         module._cast = cached
-        weight_casts["conv" if isinstance(module, nn.Conv2d) else "dense"] += 1
+        weight_casts[kind] += 1
     return cached[2], cached[3]
 
 
@@ -676,7 +728,8 @@ class ResnetBlockBigGANpp(_ResnetBlock):
         moves or changes: the copy is keyed on the parameter's device,
         ``data_ptr()`` and ``_version`` (an in-place update or
         ``load_state_dict`` bumps it), and holds the weight's storage, so that
-        no other tensor takes its address while the key stands. In training
+        no other tensor takes its address while the key stands (inside
+        ``given_weights``: the given one). In training
         the cache serves too: the packed copy feeds only the kernel's
         forward, and the gradient reaches the float32 weight through the op's
         recompute, which reads the weight itself (``GroupNormSiLUConv3x3``);
@@ -684,6 +737,10 @@ class ResnetBlockBigGANpp(_ResnetBlock):
         w = getattr(self, name).weight
         if self.compute_dtype != torch.bfloat16 or w.shape[1] % CONV_BK_BF16:
             return None
+        given = getattr(_given, "store", None)
+        if given is not None:
+            return given.get(self, f"{name}.packed",
+                             lambda: pack_conv_weight_bf16(conv_hwio(getattr(self, name))))
         key = (w.device, w.data_ptr(), w._version)
         cached = self._packed.get(name)
         if cached is None or cached[0] != key:

@@ -64,7 +64,7 @@ from ..parallel.mesh import current_shard
 from ..parallel.sequence import constrain_frames, current_frames
 from ..karras import (T_30_F32, calculate_normfac_direct, calculate_snr_direct,  # noqa: F401
                       karras_t, snap_to_karras_grid, t_30)
-from ..sampling import get_ode_sampler, get_pc_sampler
+from ..sampling import PredictorRegistry, get_ode_sampler, get_pc_sampler, pc_grid
 from ..sampling.ode import RK45State
 from ..sde import SDERegistry
 from ..transforms import (
@@ -558,17 +558,27 @@ class ScoreModel:
         """Normalise -> STFT -> the branch's sampler or forward -> iSTFT, all
         on the device and with no wait on it, but for ``bbed_ode``'s reads of
         its done flag (``_ode_start``, ``_ode_attempt`` and ``_ode_finish`` are
-        its parts without them). ``y`` (and ``x``, which ``sebridge_v2_snr``
-        reads): ``[B, samples]`` float32 on the model's device, padded to the
-        width bucket; ``snr`` (``bbed_pc``'s corrector), ``t_hat``
-        (``sebridge_v3_snr``) and ``normfac`` (the ``_snr`` branches):
-        float32 0-d tensors there. Returns the waveform ``[B, samples']`` on
-        the device and the NFE."""
+        its parts without them); ``bbed_pc`` runs as its parts, ``_pc_start``,
+        ``_pc_step`` at each entry of ``_pc_grid``, ``_pc_finish``. ``y`` (and
+        ``x``, which ``sebridge_v2_snr`` reads): ``[B, samples]`` float32 on
+        the model's device, padded to the width bucket; ``snr`` (``bbed_pc``'s
+        corrector), ``t_hat`` (``sebridge_v3_snr``) and ``normfac`` (the
+        ``_snr`` branches): float32 0-d tensors there. Returns the waveform
+        ``[B, samples']`` on the device and the NFE."""
         if branch == "bbed_ode":
             carry = self._ode_start(noise, n_steps, y)
             while not carry["flags"][0]:
                 carry = self._ode_attempt(n_steps, carry)
             return self._ode_finish(noise, n_steps, carry), int(carry["nfev"])
+        if branch == "bbed_pc":
+            pc = (n_steps, predictor, corrector, corrector_steps)
+            carry = self._pc_start(noise, *pc, y, timestep_type)
+            grid = self._pc_grid(n_steps, predictor, carry["Y"].device, timestep_type)
+            for i in range(len(grid["t"])):
+                carry = self._pc_step(noise, *pc, carry, snr, timestep_type=timestep_type,
+                                      **{k: v[i] for k, v in grid.items()})
+            nfe = self._pc_sampler(None, *pc, carry["Y"], timestep_type=timestep_type).nfe
+            return self._pc_finish(carry), nfe
         cfg = self.cfg
         norm_factor = torch.max(torch.abs(y))
         if branch.endswith("_snr"):
@@ -579,14 +589,7 @@ class ScoreModel:
         def full(value):
             return torch.full((batch,), 1.0, dtype=torch.float32, device=Y.device) * value
 
-        nfe = 1
-        if branch == "bbed_pc":
-            sampler = get_pc_sampler(
-                predictor, corrector, sde=self.sde.replace(N=n_steps), score_fn=self.forward,
-                Y=Y, noise=noise, eps=cfg.t_eps, snr=snr, corrector_steps=corrector_steps,
-                timestep_type=timestep_type)
-            sample, nfe = sampler()
-        elif branch == "sebridge":
+        if branch == "sebridge":
             sample = self.forward(Y, full(0.999), Y)
         elif branch == "sebridge_v2":
             z = noise(Y) * cfg.sigma_max * 0.999
@@ -599,7 +602,50 @@ class ScoreModel:
         else:  # sebridge_v3_snr
             z = noise(Y) * cfg.sigma_max * t_hat
             sample = self.forward(Y + z, full(t_hat), Y)
-        return self._waveform(sample) * norm_factor, nfe
+        return self._waveform(sample) * norm_factor, 1
+
+    # bbed_pc in three parts, as the JAX package's scan runs one step body:
+    # the grid's values are a step's inputs. The carry: the spectrogram "Y",
+    # "norm_factor", the sampler's "x" and, after a step, "x_mean".
+    def _pc_sampler(self, noise: Optional[NoiseFn], n_steps: int, predictor: str,
+                    corrector: str, corrector_steps: int, Y: torch.Tensor,
+                    snr: Optional[torch.Tensor] = None, timestep_type: str = "linear"):
+        return get_pc_sampler(predictor, corrector, sde=self.sde.replace(N=n_steps),
+                              score_fn=self.forward, Y=Y, noise=noise, eps=self.cfg.t_eps,
+                              snr=snr, corrector_steps=corrector_steps,
+                              timestep_type=timestep_type)
+
+    def _pc_start(self, noise: NoiseFn, n_steps: int, predictor: str, corrector: str,
+                  corrector_steps: int, y: torch.Tensor, timestep_type: str = "linear") -> dict:
+        """Normalise -> STFT -> the prior draw."""
+        norm_factor = torch.max(torch.abs(y))
+        Y = self._spectrogram(y, norm_factor)
+        sampler = self._pc_sampler(noise, n_steps, predictor, corrector, corrector_steps, Y,
+                                   timestep_type=timestep_type)
+        x, _ = sampler.start()
+        return {"Y": Y, "norm_factor": norm_factor, "x": x}
+
+    def _pc_grid(self, n_steps: int, predictor: str, device,
+                 timestep_type: str = "linear") -> dict:
+        """The steps' grid values (``sampling.pc_grid``) on ``device``."""
+        return pc_grid(self.sde.replace(N=n_steps), PredictorRegistry.get_by_name(predictor),
+                       self.cfg.t_eps, timestep_type, device)
+
+    def _pc_step(self, noise: NoiseFn, n_steps: int, predictor: str, corrector: str,
+                 corrector_steps: int, carry: dict, snr: torch.Tensor, t: torch.Tensor,
+                 step: torch.Tensor, std: torch.Tensor, end: Optional[torch.Tensor] = None,
+                 timestep_type: str = "linear") -> dict:
+        """One corrector and one predictor update at the grid values ``t``,
+        ``step``, ``std`` (and ``end``), 0-d float32 tensors; the carry with
+        the new ``x`` and ``x_mean``."""
+        sampler = self._pc_sampler(noise, n_steps, predictor, corrector, corrector_steps,
+                                   carry["Y"], snr, timestep_type)
+        x, x_mean = sampler.step(carry["x"], t, step, std, end)
+        return {**carry, "x": x, "x_mean": x_mean}
+
+    def _pc_finish(self, carry: dict) -> torch.Tensor:
+        """The last step's denoised mean -> iSTFT."""
+        return self._waveform(carry["x_mean"]) * carry["norm_factor"]
 
     # bbed_ode in three parts, each free of waits on the device. The loop's
     # carry: the spectrogram "Y", "norm_factor", the RK45 state's fields and

@@ -5,13 +5,15 @@ and ``get_ode_sampler``).
 The JAX package runs the N predictor-corrector steps as one ``lax.scan``
 over a carried counter, computing each step's time and step size in closed
 form in float32 on the device. Here they are a plain Python loop over the
-same float32 arithmetic, made once for the whole grid on the device when the
-sampler is built (elementwise, so each entry is what the step's own
+same float32 arithmetic, made once for the whole grid on the device
+(``PCSampler.grid``, elementwise, so each entry is what the step's own
 computation gives): the times, the step sizes (the last step integrates
 ``t_last`` down to 0), the marginal std at each time for the corrector and,
-for the exponential predictors, at each step's end. Draw order: the prior
-first, then for each step the corrector's draws and then the predictor's,
-all through one ``noise(like)`` callable.
+for the exponential predictors, at each step's end. A step takes its grid
+values as tensors, as the JAX step body computes its own from the counter,
+so that one step can be run (or exported) on its own. Draw order: the
+prior first, then for each step the corrector's draws and then the
+predictor's, all through one ``noise(like)`` callable.
 
 Nothing in the loop waits on the device, and the corrector's ``snr`` is a
 float32 device scalar, the JAX program's traced ``snr``, so that a captured
@@ -33,7 +35,7 @@ from .ode import RK45, RK45State
 from .predictors import PredictorRegistry, ReverseDiffusionPredictor
 
 __all__ = ["PredictorRegistry", "CorrectorRegistry", "get_pc_sampler", "get_ode_sampler",
-           "ODESampler", "timesteps_space"]
+           "PCSampler", "ODESampler", "pc_grid", "timesteps_space"]
 
 NoiseFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -86,12 +88,95 @@ def step_grid(timesteps: np.ndarray, timestep_type: Optional[str], device):
     return times, torch.where(i < n - 1, steps, t_last)
 
 
+def pc_grid(sde, predictor, eps: float, timestep_type: Optional[str], device) -> dict:
+    """The PC sampler's step values, float32 ``[N]`` each on ``device``:
+    ``"t"`` the time, ``"step"`` the step size (``step_grid``), ``"std"``
+    the SDE's marginal std at t and, for the exponential predictors
+    (``predictor.uses_std``, a predictor class), ``"end"`` the std at the
+    step's end ``max(t - step, T_FLOOR)``."""
+    timesteps = timesteps_space(sde.T, sde.N, eps, timestep_type)
+    times, steps = step_grid(timesteps, timestep_type, device)
+    grid = {"t": times, "step": steps, "std": sde._std(times)}
+    if predictor.uses_std:
+        grid["end"] = sde._std(torch.clamp_min(times - steps, predictor.T_FLOOR))
+    return grid
+
+
+class PCSampler:
+    """The predictor-corrector sampler: the prior draw, then N steps of one
+    corrector update and one predictor update each on the time grid, then
+    the last step's denoised mean (its ``x`` with ``denoise=False``).
+
+    ``start``, ``step`` and ``finish`` are the phases a caller may run (or
+    export) apart, the way the JAX package's ``lax.scan`` runs one step
+    body: ``start() -> (x, x_mean)``; ``step(x, t, step, std, end)`` takes
+    step i's grid values (``grid()``'s entries at i, float32 0-d tensors;
+    ``end`` only for the exponential predictors) and returns ``(x,
+    x_mean)``; ``finish(x, x_mean)`` picks the sample. ``snr`` may be None
+    for a sampler that runs no corrector step. ``sampler() ->
+    (sample, nfe)`` runs them in order over ``grid()``, so that a caller of
+    the phases draws what it draws, in its order.
+    """
+
+    def __init__(self, predictor_name: str, corrector_name: str, sde, score_fn: Callable,
+                 Y: torch.Tensor, noise: NoiseFn, Y_prior: Optional[torch.Tensor] = None,
+                 denoise: bool = True, eps: float = 3e-2, snr=0.1, corrector_steps: int = 1,
+                 probability_flow: bool = False, intermediate: bool = False,
+                 timestep_type: Optional[str] = "linear"):
+        if snr is not None and not torch.is_tensor(snr):
+            snr = torch.full((), float(snr), dtype=torch.float32, device=Y.device)
+        self.sde, self.Y, self.noise = sde, Y, noise
+        self.y_prior = Y if Y_prior is None else Y_prior
+        self.denoise, self.intermediate = denoise, intermediate
+        self.eps, self.timestep_type = eps, timestep_type
+        self.predictor = PredictorRegistry.get_by_name(predictor_name)(
+            sde, score_fn, probability_flow=probability_flow)
+        self.corrector = CorrectorRegistry.get_by_name(corrector_name)(
+            sde, score_fn, snr=snr, n_steps=corrector_steps)
+        self.n_steps = len(timesteps_space(sde.T, sde.N, eps, timestep_type))
+        self.nfe = self.n_steps * (self.corrector.n_steps + self.predictor.nfe_per_step)
+
+    def grid(self) -> dict:
+        """``pc_grid`` of this sampler on Y's device."""
+        return pc_grid(self.sde, type(self.predictor), self.eps, self.timestep_type,
+                       self.Y.device)
+
+    def start(self):
+        x, _ = self.sde.prior_sampling(self.noise, self.y_prior)
+        return x, x
+
+    def step(self, x: torch.Tensor, t: torch.Tensor, step: torch.Tensor, std: torch.Tensor,
+             end: Optional[torch.Tensor] = None):
+        batch = self.Y.shape[0]
+        vec_t = t.expand(batch)
+        std = std.expand(batch)
+        x, _ = self.corrector.update_fn(self.noise, x, vec_t, self.Y, std=std)
+        pred_std = (std, end.expand(batch)) if self.predictor.uses_std else None
+        return self.predictor.update_fn(self.noise, x, vec_t, self.Y, step, pred_std)
+
+    def finish(self, x: torch.Tensor, x_mean: torch.Tensor) -> torch.Tensor:
+        return x_mean if self.denoise else x
+
+    def __call__(self):
+        grid = self.grid()
+        x, x_mean = self.start()
+        trajectory = []
+        for i in range(self.n_steps):
+            x, x_mean = self.step(x, **{k: v[i] for k, v in grid.items()})
+            if self.intermediate:
+                trajectory.append(self.finish(x, x_mean))
+        if self.intermediate:
+            return torch.stack(trajectory), self.nfe
+        return self.finish(x, x_mean), self.nfe
+
+
 def get_pc_sampler(predictor_name: str, corrector_name: str, sde, score_fn: Callable,
                    Y: torch.Tensor, noise: NoiseFn, Y_prior: Optional[torch.Tensor] = None,
                    denoise: bool = True, eps: float = 3e-2, snr: float = 0.1,
                    corrector_steps: int = 1, probability_flow: bool = False,
-                   intermediate: bool = False, timestep_type: Optional[str] = "linear"):
-    """Create a predictor-corrector sampler.
+                   intermediate: bool = False,
+                   timestep_type: Optional[str] = "linear") -> PCSampler:
+    """Create a predictor-corrector sampler (``PCSampler``).
 
     Args:
         sde: forward SDE (its ``N`` gives the number of reverse steps).
@@ -106,38 +191,10 @@ def get_pc_sampler(predictor_name: str, corrector_name: str, sde, score_fn: Call
     (its ``x`` with ``denoise=False``); with ``intermediate=True`` the
     trajectory of those, stacked on a leading axis of length N.
     """
-    if not torch.is_tensor(snr):
-        snr = torch.full((), float(snr), dtype=torch.float32, device=Y.device)
-    predictor = PredictorRegistry.get_by_name(predictor_name)(
-        sde, score_fn, probability_flow=probability_flow)
-    corrector = CorrectorRegistry.get_by_name(corrector_name)(
-        sde, score_fn, snr=snr, n_steps=corrector_steps)
-    timesteps = timesteps_space(sde.T, sde.N, eps, timestep_type)
-    n_steps = len(timesteps)
-    times, steps = step_grid(timesteps, timestep_type, Y.device)
-    stds = sde._std(times)
-    if predictor.uses_std:
-        ends = sde._std(torch.clamp_min(times - steps, predictor.T_FLOOR))
-    y_prior = Y if Y_prior is None else Y_prior
-    batch = Y.shape[0]
-
-    def pc_sampler():
-        x, _ = sde.prior_sampling(noise, y_prior)
-        x_mean, trajectory = x, []
-        for i in range(n_steps):
-            vec_t = times[i].expand(batch)
-            std = stds[i].expand(batch)
-            x, x_mean = corrector.update_fn(noise, x, vec_t, Y, std=std)
-            pred_std = (std, ends[i].expand(batch)) if predictor.uses_std else None
-            x, x_mean = predictor.update_fn(noise, x, vec_t, Y, steps[i], pred_std)
-            if intermediate:
-                trajectory.append(x_mean if denoise else x)
-        nfe = n_steps * (corrector.n_steps + predictor.nfe_per_step)
-        if intermediate:
-            return torch.stack(trajectory), nfe
-        return (x_mean if denoise else x), nfe
-
-    return pc_sampler
+    return PCSampler(predictor_name, corrector_name, sde, score_fn, Y, noise, Y_prior=Y_prior,
+                     denoise=denoise, eps=eps, snr=snr, corrector_steps=corrector_steps,
+                     probability_flow=probability_flow, intermediate=intermediate,
+                     timestep_type=timestep_type)
 
 
 class ODESampler:
