@@ -270,6 +270,24 @@ Phases, each of which must pass:
    (``SEQUENCE_LAUNCHES``), its walls beside the one device's (graphed,
    replayed, eager) and its peak memory.
 
+17. The paper-reproduction path ("import"): the paper's 65.6M model (M6:
+   ``sebridge_v3``, SNR-conditioned, fixed_snr 0.17783) and an SNRNet, each
+   written as a reference-layout Lightning ``.ckpt`` (a ``dnn.``-prefixed
+   state_dict, ``hyper_parameters``, an EMA shadow; weights and shadow
+   redrawn from ``IMPORT_SEEDS``), imported by
+   ``cli.convert_torch_checkpoint --ema`` (seconds, sizes on disk, and the
+   score import's steps apart): the restored parameters and EMA on the card
+   bitwise the checkpoint's; ``sebridge_v3_snr`` through ``enhance`` on two
+   utterances of the 192-frame bucket, imported against a model loaded
+   directly from the same tensors, bitwise (81 / 28 launches a forward);
+   then ``cli.reproduce_tables --ckpt M6.ckpt --snr_ckpt
+   snr_estimator.ckpt --eta 10 --device cuda`` on a synthetic stand-in (3
+   valid and 2 valid2 files of 1.2 s): its own imports, ``cli.eval`` and
+   ``cli.deep_eval`` on the card, exit code 1 with a ``PARITY FAIL``
+   verdict (redrawn weights cannot match the paper: a pass would mean a
+   broken harness), all 24 enforced cells printed and both CSVs complete;
+   its wall split into imports, enhance (captures apart) and host scoring.
+
 ``python3 chip_smoke.py --phases train,forward`` runs only the phases named
 (no kernel record then); the driver's run takes none.
 
@@ -4525,6 +4543,312 @@ def run_sequence(torch, ck, dev, card):
     return paths, bf16_paths, rows
 
 
+# phase 17 ("import"): the paper-reproduction path. The paper's 65.6M model
+# (M6: sebridge_v3, SNR-conditioned, fixed_snr 0.17783 for eta = 10) and an
+# SNRNet, each written as a reference-layout Lightning .ckpt with weights and
+# an EMA shadow redrawn from seeds; imported with cli.convert_torch_checkpoint
+# --ema; sebridge_v3_snr on two utterances of the 192-frame bucket, imported
+# against loaded directly from the same tensors; then cli.reproduce_tables on
+# a synthetic stand-in (3 valid and 2 valid2 files of 1.2 s), which must fail
+# parity on every run of redrawn weights with all of its 24 cells printed
+IMPORT_HYPER = dict(sde="bbed", model_type="sebridge_v3", snr_conditioned="true",
+                    fixed_snr=FIXED_SNR, sigma_max=1.0, k=2.6, theta=0.52, T_sampling=0.999)
+IMPORT_SEEDS = {"score": 41, "score_ema": 42, "snr": 43, "snr_ema": 44}
+IMPORT_SECONDS = (1.2, 1.5)
+IMPORT_CELLS = ["mixture PESQ", "mixture ESTOI", "mixture SI-SDR", "M6 PESQ", "M6 ESTOI",
+                "M6 SI-SDR"] + [f"{m} @ {s:+d} dB" for m in ("PESQ", "SI-SDR")
+                                for s in (-5, 0, 5, 10, 15, 20, 25, 30, 35)]
+IMPORT_FORWARD_LAUNCHES = {"gn_silu_conv3x3": 81, "groupnorm_silu": 28,
+                           "fused_bias_leaky_relu": 0}
+
+
+def reference_checkpoints(torch, root):
+    """The phase's Lightning .ckpt files under ``root``: the 65.6M NCSN++
+    (``dnn.``-prefixed state_dict, ``IMPORT_HYPER``, an EMA shadow redrawn
+    from its own seed, without the frozen Fourier ``W``, as torch_ema keeps
+    it) and an SNRNet (shadow over its whole state_dict; both LSTM biases
+    drawn). Returns their paths and the tensors the EMA must restore to, by
+    port name, the ``W`` live."""
+    import os
+
+    from diffse_tpu_torch.models.ncsnpp import NCSNpp
+
+    net = NCSNpp(generator=torch.Generator().manual_seed(0))
+    frozen = {name for name, p in net.named_parameters() if not p.requires_grad}
+
+    def tensors(module):
+        return {k: v.detach().contiguous().clone() for k, v in module.state_dict().items()}
+
+    redraw_weights(torch, net, seed=IMPORT_SEEDS["score"])
+    params = tensors(net)
+    redraw_weights(torch, net, seed=IMPORT_SEEDS["score_ema"])
+    ema = tensors(net)
+    del net
+    snr_params = tensors(redraw_snrnet(torch, seed=IMPORT_SEEDS["snr"]))
+    snr_ema = tensors(redraw_snrnet(torch, seed=IMPORT_SEEDS["snr_ema"]))
+    paths = {"score": os.path.join(root, "M6.ckpt"),
+             "snr": os.path.join(root, "snr_estimator.ckpt")}
+    torch.save({"state_dict": {"dnn." + k: v for k, v in params.items()},
+                "hyper_parameters": IMPORT_HYPER,
+                "ema": {"shadow_params": [v for k, v in ema.items() if k not in frozen]}},
+               paths["score"])
+    torch.save({"state_dict": {"dnn." + k: v for k, v in snr_params.items()},
+                "hyper_parameters": {"transform_type": "none"},
+                "ema": {"shadow_params": list(snr_ema.values())}}, paths["snr"])
+    return paths, {"score": params, "score_ema": ema, "snr": snr_params, "snr_ema": snr_ema}
+
+
+def check_imported(torch, label, state, params, ema, failures):
+    """The restored state on the card against the checkpoint's tensors:
+    parameters and EMA bit for bit (a parameter outside the EMA evaluates
+    with its live value)."""
+    from diffse_tpu_torch.train.state import eval_variables
+
+    restored = state.module.state_dict()
+    params_equal = sorted(restored) == sorted(params) and all(
+        torch.equal(restored[k].cpu(), v) for k, v in params.items())
+    variables = eval_variables(state)
+    ema_equal = all(torch.equal(variables[k].cpu(), ema[k] if k in state.names else params[k])
+                    for k in params)
+    devices = {str(t.device) for t in state.ema}
+    print(f"import: {label}: {len(state.names)} EMA tensors on {devices}, parameters bitwise "
+          f"the checkpoint's {params_equal}, EMA bitwise the shadow {ema_equal}")
+    if not (params_equal and ema_equal):
+        failures.append(f"{label}: parameters equal {params_equal}, EMA equal {ema_equal}")
+
+
+class CliSummaries:
+    """Inside the block, each call of the named modules' ``main`` keeps its
+    return value and wall seconds, by module (``cli.eval`` and
+    ``cli.deep_eval`` return their summaries)."""
+
+    def __init__(self, *modules):
+        self.modules, self.calls = modules, []
+
+    def __enter__(self):
+        self.mains = [m.main for m in self.modules]
+        for module, real in zip(self.modules, self.mains):
+            def timed(argv=None, real=real, name=module.__name__.rsplit(".", 1)[-1]):
+                start = time.time()
+                out = real(argv)
+                self.calls.append((name, time.time() - start, out))
+                return out
+
+            module.main = timed
+        return self
+
+    def __exit__(self, *exc):
+        for module, real in zip(self.modules, self.mains):
+            module.main = real
+        return False
+
+
+def check_programs(label, programs, counts, forwards, failures):
+    """A captured path's launches: each program recorded one forward's
+    ``IMPORT_FORWARD_LAUNCHES``, the wrappers counted its warm-up and
+    capture and nothing else, and the replays ran ``forwards`` forwards."""
+    per = [r.launch_counts for r in programs]
+    through = {k: 2 * v * len(programs) for k, v in IMPORT_FORWARD_LAUNCHES.items()}
+    replays = sum(r.replays for r in programs)
+    print(f"import: {label}: {len(programs)} program(s), recorded {per}, replays {replays}, "
+          f"through the wrappers {counts}")
+    if (any(p != IMPORT_FORWARD_LAUNCHES for p in per) or counts != through
+            or replays != forwards):
+        failures.append(f"{label}: recorded {per}, wrappers {counts} (expected {through}), "
+                        f"replays {replays} (expected {forwards})")
+
+
+def run_import(torch, ck, dev, card):
+    """Phase 17 ("import"). Returns the paths' kernel runs."""
+    import contextlib
+    import csv
+    import gc
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from diffse_tpu_torch.cli import convert_torch_checkpoint, reproduce_tables
+    from diffse_tpu_torch.cli import deep_eval as deep_eval_cli
+    from diffse_tpu_torch.cli import eval as eval_cli
+    from diffse_tpu_torch.data.synthetic import make_synthetic_dataset
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+    from diffse_tpu_torch.models.snrnet import SNRNet
+    from diffse_tpu_torch.train import CheckpointManager
+    from diffse_tpu_torch.train.restore import load_score_model, load_snr_model
+    from diffse_tpu_torch.train.state import load_ema
+
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    failures, paths = [], {}
+    root = tempfile.mkdtemp(prefix="diffse_import_")
+    try:
+        t0 = time.time()
+        ckpts, tensors = reference_checkpoints(torch, root)
+        print(f"import: reference .ckpt files written in {time.time() - t0:.1f} s: "
+              f"M6.ckpt {os.path.getsize(ckpts['score']) / 1e6:.1f} MB, snr_estimator.ckpt "
+              f"{os.path.getsize(ckpts['snr']) / 1e6:.1f} MB")
+
+        # 1. the importer, as a user runs it
+        dirs, seconds = {}, {}
+        for kind, flag in (("score", "score"), ("snr", "snrnet")):
+            dirs[kind] = os.path.join(root, f"imported_{kind}")
+            start = time.time()
+            convert_torch_checkpoint.main(["--torch_ckpt", ckpts[kind], "--out_dir", dirs[kind],
+                                           "--ema", "--kind", flag])
+            seconds[kind] = time.time() - start
+            size = os.path.getsize(os.path.join(dirs[kind], "step_0", "state.pt"))
+            print(f"{card}: import {kind}: {seconds[kind]:.2f} s (torch.load, build on the "
+                  f"CPU, load, save; host I/O), state.pt {size / 1e6:.1f} MB")
+
+        # where the score import's time goes: its steps once more, apart
+        start = time.time()
+        ckpt = torch.load(ckpts["score"], map_location="cpu")
+        t_load = time.time() - start
+        start = time.time()
+        model, state = convert_torch_checkpoint.import_score(ckpt, {}, True)
+        t_build = time.time() - start
+        start = time.time()
+        CheckpointManager(os.path.join(root, "again"), hparams=model.hparams).save(0, state, {})
+        t_save = time.time() - start
+        print(f"{card}: import score, its steps apart: torch.load {t_load:.2f} s, the model built "
+              f"on the CPU and the tensors loaded {t_build:.2f} s, the save {t_save:.2f} s "
+              f"(page cache warm)")
+        del ckpt, model, state
+        shutil.rmtree(os.path.join(root, "again"))
+
+        # 2. restored on the card: the EMA bitwise the shadow
+        snr_model, snr_state = load_snr_model(dirs["snr"], device=dev)
+        check_imported(torch, "SNRNet", snr_state, tensors["snr"], tensors["snr_ema"], failures)
+        load_ema(snr_state)
+        model, state = load_score_model(dirs["score"], snr_model=snr_model.dnn, device=dev)
+        check_imported(torch, "NCSN++ (65.6M)", state, tensors["score"], tensors["score_ema"],
+                       failures)
+        load_ema(state)
+        print(f"import: restored config {model.cfg.model_type}, snr_conditioned "
+              f"{model.cfg.snr_conditioned}, fixed_snr {model.cfg.fixed_snr}, sde "
+              f"{model.cfg.sde} {model.hparams['sde_kwargs']}")
+
+        # 3. sebridge_v3_snr through enhance, imported against loaded directly
+        rng = np.random.default_rng(17)
+        utterances = [synthetic_pair(rng, int(s * SR))[1] for s in IMPORT_SECONDS]
+
+        def enhance_all(m):
+            outs, walls = [], []
+            for i, y in enumerate(utterances):
+                torch.cuda.synchronize()
+                start = time.time()
+                outs.append(m.enhance(y[None], y[None],
+                                      generator=torch.Generator(dev).manual_seed(170 + i)))
+                torch.cuda.synchronize()
+                walls.append(time.time() - start)
+            return outs, walls
+
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        with ProgramLog(torch) as programs:
+            outs, walls = enhance_all(model)
+        counts = dict(ck.launch_counts)
+        check_programs("sebridge_v3_snr (imported)", programs.records, counts,
+                       len(utterances), failures)
+        paths["import: sebridge_v3_snr, imported checkpoints (graphed)"] = card_runs(
+            counts, programs.records)
+        model.drop_programs()
+        del model, state, snr_model, snr_state
+        snr_net = SNRNet()
+        snr_net.load_state_dict(tensors["snr_ema"])
+        direct = ScoreModel(ScoreModelConfig(
+            backbone="ncsnpp", sde="bbed", model_type="sebridge_v3", snr_conditioned="true",
+            fixed_snr=FIXED_SNR, sigma_max=1.0), sde_kwargs=dict(k=2.6, theta=0.52,
+                                                                 T_sampling=0.999),
+            device=dev, generator=torch.Generator().manual_seed(0), snr_model=snr_net)
+        direct.backbone.load_state_dict(
+            {k: tensors["score_ema"][k] if p.requires_grad else tensors["score"][k]
+             for k, p in direct.backbone.named_parameters()})
+        refs, ref_walls = enhance_all(direct)
+        direct.drop_programs()
+        del direct, snr_net
+        for y, out, ref, wall, ref_wall in zip(utterances, outs, refs, walls, ref_walls):
+            bitwise = out.shape == ref.shape and np.array_equal(out, ref)
+            print(f"{card}: import: sebridge_v3_snr on {len(y) / SR:.2f} s, imported vs loaded "
+                  f"directly: bitwise equal {bitwise}, max|diff| "
+                  f"{float(np.max(np.abs(out - ref))):.3e}; walls {wall:.4f} / {ref_wall:.4f} s "
+                  f"(first call of a bucket: warm-up, capture, replay); finite "
+                  f"{bool(np.isfinite(out).all())}")
+            if not bitwise or not np.isfinite(out).all() or out.shape != y.shape:
+                failures.append(f"sebridge_v3_snr on {len(y) / SR:.2f} s: bitwise {bitwise}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 4. cli.reproduce_tables on the two .ckpt files and a synthetic stand-in
+        vbd = os.path.join(root, "vbd")
+        make_synthetic_dataset(vbd, num_train=0, num_valid=3, num_valid2=2, num_test=0,
+                               duration_s=1.2)
+        out_dir = os.path.join(root, "tables")
+        printed = io.StringIO()
+        ck.reset_launch_counts()
+        start = time.time()
+        try:
+            with ProgramLog(torch) as programs, CliSummaries(
+                    convert_torch_checkpoint, eval_cli, deep_eval_cli) as clis, \
+                    contextlib.redirect_stdout(printed):
+                rc = reproduce_tables.main(["--vbd_dir", vbd, "--ckpt", ckpts["score"],
+                                            "--snr_ckpt", ckpts["snr"], "--eta", "10",
+                                            "--device", "cuda", "--out_dir", out_dir])
+        finally:  # the harness's own lines (its CLIs' per-file lines left out)
+            out = printed.getvalue()
+            for line in out.splitlines():
+                if line.startswith("[tables]") or " ours=" in line:
+                    print(line)
+        wall = time.time() - start
+        counts = dict(ck.launch_counts)
+        verdict = json.loads([line for line in out.splitlines()
+                              if line.startswith("[tables] RESULT")][-1].split(" ", 2)[2])
+        printed_cells = [c for c in IMPORT_CELLS if f"  {c:<28} ours=" in out]
+        check_programs("reproduce_tables", programs.records, counts, 3 + 2 * 9, failures)
+        paths["import: reproduce_tables, cli.eval + cli.deep_eval (graphed)"] = card_runs(
+            counts, programs.records)
+        with open(os.path.join(out_dir, "table1", "_results.csv")) as f:
+            t1 = list(csv.reader(f))
+        with open(os.path.join(out_dir, "tables23", "_results_deep.csv")) as f:
+            t23 = list(csv.reader(f))
+        t1_ok = (t1[0] == ["filename", "pesq", "si_sdr", "estoi"] and len(t1) == 4
+                 and all(np.isfinite(float(r[2])) for r in t1[1:]))
+        t23_ok = (len(t23) == 3 and len(t23[0]) == 28
+                  and all(np.isfinite(float(v)) for r in t23[1:]
+                          for name, v in zip(t23[0], r) if name.startswith("si_sdr")))
+        phases = {name: [] for name in ("convert_torch_checkpoint", "eval", "deep_eval")}
+        for name, secs, summary in clis.calls:
+            phases[name].append((secs, summary))
+        captures = [round(r.capture_seconds, 3) for r in programs.records]
+        parts = "; ".join(
+            f"{name} {secs:.2f} s" + (f" (enhance {summary['enhance_seconds']:.2f} s, host "
+                                       f"scoring {summary['scoring_seconds']:.2f} s, "
+                                       f"{summary['files']} files)"
+                                       if isinstance(summary, dict) else "")
+            for name, calls in phases.items() for secs, summary in calls)
+        print(f"{card}: import: reproduce_tables rc {rc}, verdict {verdict['verdict'][:40]}..., "
+              f"{len(printed_cells)} of {len(IMPORT_CELLS)} cells printed; wall {wall:.2f} s: "
+              f"{parts}; captures {captures} s (inside enhance); _results.csv {len(t1) - 1} "
+              f"rows complete {t1_ok}, _results_deep.csv {len(t23) - 1} rows of "
+              f"{len(t23[0]) - 1} values complete {t23_ok}")
+        if (rc != 1 or not verdict["verdict"].startswith("PARITY FAIL")
+                or len(printed_cells) != len(IMPORT_CELLS) or not (t1_ok and t23_ok)
+                or len(phases["convert_torch_checkpoint"]) != 2):
+            failures.append(f"reproduce_tables: rc {rc}, verdict {verdict['verdict'][:60]}, "
+                            f"cells {len(printed_cells)}, CSVs {t1_ok} / {t23_ok}, "
+                            f"conversions {len(phases['convert_torch_checkpoint'])}")
+        report_paths(paths, failures)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase import: {time.time() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return paths
+
+
 def main(argv=None) -> int:
     """Runs every phase; ``--phases a,b`` runs only those (a probe: no JSON
     lines then)."""
@@ -4582,7 +4906,8 @@ def main(argv=None) -> int:
                         ("export", lambda: run_export(torch, ck, dev, card)),
                         ("backbones", lambda: run_backbones(torch, ck, dev, card)),
                         ("parallel", lambda: run_parallel(torch, ck, dev, card)),
-                        ("sequence", lambda: run_sequence(torch, ck, dev, card))):
+                        ("sequence", lambda: run_sequence(torch, ck, dev, card)),
+                        ("import", lambda: run_import(torch, ck, dev, card))):
         if only is not None and name not in only:
             continue
         t0 = time.time()
@@ -4607,7 +4932,7 @@ def main(argv=None) -> int:
              **results["snr"], **results["graphs"], **results["samplers"][0],
              **results["train"][0], **results["serve"], **results["eval"],
              **results["snr_train"], **results["export"][0], **results["backbones"],
-             **results["parallel"], **results["sequence"][0]}
+             **results["parallel"], **results["sequence"][0], **results["import"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1], **results["export"][1],

@@ -8,7 +8,9 @@ converter (``tools/convert_torch_checkpoint.py``), numpy only, so that the
 port loads nothing outside its package.
 
 For ``ncsnpp`` the ``all_modules`` indices are those of the reference's
-torch NCSN++, so its published checkpoints load too. The SNR-conditioned
+torch NCSN++, so its published checkpoints load as they are
+(``cli.convert_torch_checkpoint`` imports them, and reads the GFP ``W``
+keys, which the reference's EMA skips, from this walk). The SNR-conditioned
 backbone (``snr_conditioning=True``) adds, in the flax call order,
 ``noise_embed`` right after ``time_embed``, ``semb_dense_0``/``semb_dense_1``
 right after the time embedding's two dense layers, and a ``Dense_1`` in every

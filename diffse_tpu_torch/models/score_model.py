@@ -198,7 +198,16 @@ class ScoreModel:
         self.backbone = self.backbone.to(self.device).eval()
         self.backbone_takes_noise_cond = getattr(self.backbone, "snr_conditioning", False)
         self.snr_model = None if snr_model is None else snr_model.to(self.device).eval()
-        self.sde = SDERegistry.get_by_name(config.sde)(**(sde_kwargs or {}))
+        sde_name, sde_kwargs = config.sde, dict(sde_kwargs or {})
+        if sde_name == "bbve":
+            # the reference's legacy name of BBED (its model.py:70-77), whose
+            # sigma_max is BBED's k; the keywords are kept remapped, as the
+            # JAX package keeps them, so a restore finds k already there
+            sde_name = "bbed"
+            if "sigma_max" in sde_kwargs:
+                sde_kwargs["k"] = sde_kwargs.pop("sigma_max")
+            sde_kwargs.pop("sigma_min", None)
+        self.sde = SDERegistry.get_by_name(sde_name)(**sde_kwargs)
         self.stft_cfg = StftConfig(n_fft=config.n_fft, hop_length=config.hop_length,
                                    window=config.window)
         self.spec_cfg = SpecTransformConfig(
@@ -206,7 +215,7 @@ class ScoreModel:
             spec_abs_exponent=config.spec_abs_exponent)
         self._window = get_window(config.window, config.n_fft, device=self.device)
         self._backbone_kwargs = dict(backbone_kwargs or {})
-        self._sde_kwargs = dict(sde_kwargs or {})
+        self._sde_kwargs = sde_kwargs
         # EnhanceKey -> (the parameters' key, capture.Program)
         self._graphs = {}
 

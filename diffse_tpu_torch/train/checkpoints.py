@@ -10,7 +10,9 @@ and renamed when complete, then ``metadata.json`` (each step's metrics) is
 rewritten; a manager that finds an entry whose directory is missing (a
 process that died mid-save) drops it and falls back to the newest complete
 step. ``hparams.json`` keeps the model's hyperparameters. These are the
-port's own files: no checkpoint crosses frameworks.
+port's own files: the JAX package's orbax checkpoints do not load here, and
+a reference Lightning ``.ckpt`` becomes one through
+``cli.convert_torch_checkpoint``.
 
 In a group of several ranks every rank calls ``save`` (the state is
 gathered whole, a collective under tensor parallelism) and rank 0 alone
