@@ -203,7 +203,7 @@ Phases, each of which must pass:
 13. The exported artifact ("export", ``serving/export.py``): the paper's
    65.6M sebridge_v3 SNR-conditioned model through ``cli.export_artifact``
    with two buckets (128 and 192 frames); the 65.6M bbed model as a
-   ``bbed_pc`` artifact of ``EXPORT_BBED_N`` (30) steps (start, one step
+   ``bbed_pc`` artifact of ``EXPORT_BBED_N`` (10) steps (start, one step
    replayed N times, finish, in one captured graph) and as a ``bbed_ode``
    artifact (start, attempt, finish under a ``LoopProgram``); in bf16,
    counted apart among the bf16 paths, the bbed model's ``bbed_pc`` and the
@@ -222,7 +222,7 @@ Phases, each of which must pass:
 14. The other backbones ("backbones"), at full width: DCUNet
    (DilDCUNet-v2 at the training CLI's defaults, "bN", ``n_fft`` 512,
    redrawn weights and running statistics, its output layer scaled by
-   ``DCUNET_OUTPUT_SCALE``): ``bbed_pc`` at N = 30 through its captured
+   ``DCUNET_OUTPUT_SCALE``): ``bbed_pc`` (``BACKBONE_PC_N``) through its captured
    programs on 1.0 and 1.5 s utterances against the eager path (bitwise),
    card vs CPU at ``BACKBONE_CPU_N`` steps, three train steps at 4 x 256
    frames with the running statistics moving and finite, and one
@@ -232,9 +232,26 @@ Phases, each of which must pass:
    graphed at 1.0 s against eager with its launches per forward (75 / 4),
    a forward card vs CPU, three train steps with dropout on (38 / 41
    launches a step), and every fused-conv and ``groupnorm_silu`` call
-   shape of both against the plain versions (``KERNEL_TOL``; the batch-1
-   shapes timed beside their bounds). Walls, capture times and peak
-   memory are printed beside the card's name and power limit.
+   both made (``record_kernel_calls``), with the fused conv at
+   ``skip_coef`` 1, against the plain versions (``check_kernel_calls``,
+   ``KERNEL_TOL``; the batch-1 calls timed beside their bounds). Then the
+   trunks of other
+   configurations (``run_backbone_trunks``): DDPM++ in bf16 and the
+   paper's NCSN++ with both residual pyramids (``RESIDUAL``: BigGAN FIR
+   blocks, the ``FirConv2d`` resampling convs; 71.1M) in float32 and bf16,
+   each with the same redrawn weights in both trunks: one forward card vs
+   CPU (``FORWARD_TOL`` in float32; in bf16, as phase 7 holds the paper's,
+   each module of the card's forward re-run on the CPU from the card's
+   inputs, and the whole forward at the model's own initialisation within
+   ``BF16_GAP_RATIO`` of its bf16-vs-float32 gap), its K1/K2 and K3
+   launches a forward by the
+   activations' dtype (``TRUNK_LAUNCHES``), every kernel call of that
+   forward against its plain version, ``bbed_pc`` at 1.0 s graphed
+   against eager (bitwise) and ``sebridge_v2`` graphed against eager, with
+   the walls per utterance of both trunks side by side. Phase 14's
+   ``bbed_pc`` runs take ``BACKBONE_PC_N`` (10) steps. Walls, capture
+   times and peak memory are printed beside the card's name and power
+   limit.
 
 15. Parallelism ("parallel"), the paper's 65.6M model (weights redrawn from
    ``TRAIN_WEIGHT_SEED``, float32 pinned) at the CLI's 4 x 256 frames, every
@@ -257,18 +274,22 @@ Phases, each of which must pass:
 
 16. Frames-parallel enhancement ("sequence", ``parallel/sequence.py``): the
    split statistics (``gn_group_sums`` + ``gn_fold_ab``) bitwise against the
-   one-pass ``gn_stats_ab`` and each against its plain version, K1/K2 and
-   K3 with a given affine (``ab=``) against their plain versions, at the
-   sharded path's shapes (a rank's columns plus its neighbours'); then the
-   paper's 65.6M NCSN++ (weights redrawn) on one 4.0 s utterance (512
-   frames) over ``SEQUENCE_RANKS`` gloo ranks on the one card
-   (``parallel.dryrun.launch``): ``sebridge_v2`` in float32 and in the bf16
-   trunk and ``bbed_pc`` at N = ``SEQUENCE_PC_N``, each rank's whole
-   waveform against the one-device ``enhance`` on the same generator seed
-   (``SEQUENCE_ONE_NFE_TOL``, ``SEQUENCE_PC_TOL``; bf16 within the
-   one-device bf16-vs-float32 gap), each rank's launches per forward
-   (``SEQUENCE_LAUNCHES``), its walls beside the one device's (graphed,
-   replayed, eager) and its peak memory.
+   one-pass ``gn_stats_ab`` and each against its plain version at a rank's
+   shapes; then the
+   paper's 65.6M NCSN++, DDPM++ and the residual configuration (weights
+   redrawn) on one 4.0 s utterance (512 frames) over ``SEQUENCE_RANKS``
+   gloo ranks on the one card (``parallel.dryrun.launch``):
+   ``sebridge_v2`` of each in float32 and in the bf16 trunk, and
+   ``bbed_pc`` at N = ``SEQUENCE_PC_N`` of the paper's and the residual
+   configuration, each rank's whole waveform against the one-device
+   ``enhance`` on the same generator seed (``SEQUENCE_ONE_NFE_TOL``,
+   ``SEQUENCE_PC_TOL``; bf16 within the one-device bf16-vs-float32 gap),
+   each rank's launches per forward (``TRUNK_LAUNCHES``, every K1/K2 and
+   K3 with one group-sums pass and one fold), every kernel call the ranks
+   made (K1/K2 and K3 with a shard's affine, ``ab=``, on a rank's columns
+   plus its neighbours') against its plain version, a shard's full-width
+   fused conv timed in each dtype, its walls beside the one device's
+   (graphed, replayed, eager) and its peak memory.
 
 17. The paper-reproduction path ("import"): the paper's 65.6M model (M6:
    ``sebridge_v3``, SNR-conditioned, fixed_snr 0.17783) and an SNRNet, each
@@ -554,6 +575,7 @@ EVAL_SPLIT_SECONDS = 2.0
 EVAL_BATCH = 4
 # cli.eval's certified sampler rd_ald_logit_N20 through batch_enhance
 EVAL_LOGIT_FLAGS = ["--N", "20", "--timestep_type", "logit"]
+EVAL_PC_N = 10  # the per-file cli.eval's steps (the CLI's default is 30)
 CONV_NAMES = ("mma.sync 64x64", "mma.sync 128x8", "wgmma", "wgmma.ss")
 # phase 12 ("snr_train"): the SNR estimator's training at the CLI's defaults
 # (batch 4 x 256 frames = 2.04 s crops) on a synthetic dataset of 2.2 s files
@@ -571,7 +593,7 @@ SNR_STEP_REPS = 10
 # --artifact
 EXPORT_SECONDS = (1.0, 1.5)
 EXPORT_EST_SNRS = (0.35, 0.6, 1.2, 2.5)
-EXPORT_BBED_N = 30
+EXPORT_BBED_N = 10  # the bbed_pc artifacts' steps: their one step program, replayed
 ODE_EXPORT_SECONDS = 0.5
 EXPORT_TOL = 1e-5
 EXPORT_LAUNCHES = {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0}
@@ -2861,10 +2883,11 @@ def run_eval(torch, ck, dev, card):
             return summary
 
         with ProgramLog(torch) as programs:
-            # 1. cli.eval, one file at a time through enhance (bbed_pc, 30 steps)
+            # 1. cli.eval, one file at a time through enhance (bbed_pc, EVAL_PC_N steps)
             out1 = os.path.join(root, "eval_per_file")
-            cli("1 cli.eval per file (bbed_pc, N 30)", eval_cli,
-                ["--destination_folder", out1, "--test_dir", test_dir, "--ckpt", ckpts["bbed"]])
+            cli(f"1 cli.eval per file (bbed_pc, N {EVAL_PC_N})", eval_cli,
+                ["--destination_folder", out1, "--test_dir", test_dir, "--ckpt", ckpts["bbed"],
+                 "--N", str(EVAL_PC_N)])
             rows = check_eval_outputs("cli.eval per file", out1, test_dir, failures)
             print(f"cli.eval per file: rows {rows}")
 
@@ -3553,6 +3576,8 @@ DDPMPP = dict(resblock_type="ddpm", fir=False, resamp_with_conv=True, progressiv
 # (outputs near 1) the samples stay finite
 DCUNET_OUTPUT_SCALE = 0.01
 BACKBONE_SECONDS = (1.0, 1.5)
+# bbed_pc steps of the graphed-vs-eager checks
+BACKBONE_PC_N = 10
 BACKBONE_CPU_N = 2        # bbed_pc steps of the card-vs-CPU check (4 forwards)
 BACKBONE_TRAIN_STEPS = 3
 # kernel launches a forward of the DDPM++ NCSN++: two fused chains in each of
@@ -3561,126 +3586,45 @@ BACKBONE_TRAIN_STEPS = 3
 # groupnorm_silu (the dropout sits between the second SiLU and Conv_1).
 DDPMPP_EVAL_LAUNCHES = {"gn_silu_conv3x3": 75, "groupnorm_silu": 4, "fused_bias_leaky_relu": 0}
 DDPMPP_TRAIN_LAUNCHES = {"gn_silu_conv3x3": 38, "groupnorm_silu": 41, "fused_bias_leaky_relu": 0}
-
-
-def _kernel_calls(torch, model, run):
-    """The (B, H, W, Cin, Cout, skip_coef or None) of each fused-conv call and
-    the (B, H, W, C) of each groupnorm_silu call a DDPM++ forward makes,
-    from its blocks' input shapes (``run`` drives the forward)."""
-    from diffse_tpu_torch.models import layers
-
-    convs, norms, hooks = set(), set(), []
-
-    def block_hook(mod, args):
-        b, c, h, w = args[0].shape
-        convs.add((b, h, w, c, mod.out_ch, None))
-        if mod.training and mod.dropout > 0:
-            norms.add((b, h, w, mod.out_ch))
-        else:
-            convs.add((b, h, w, mod.out_ch, mod.out_ch, mod.skip_coef))
-
-    def attn_hook(mod, args):
-        b, c, h, w = args[0].shape
-        norms.add((b, h, w, c))
-
-    def head_hook(mod, args):  # GroupNorm -> SiLU -> conv3x3 to 4 channels
-        b, _, h, w = args[0].shape
-        convs.add((b, h, w, mod.nf, 4, None))
-
-    hooks.append(model.backbone.register_forward_pre_hook(head_hook))
-    for m in model.backbone.modules():
-        if isinstance(m, layers.ResnetBlockDDPMpp):
-            hooks.append(m.register_forward_pre_hook(block_hook))
-        elif isinstance(m, layers.AttnBlockpp):
-            hooks.append(m.register_forward_pre_hook(attn_hook))
-    try:
-        run()
-    finally:
-        for h in hooks:
-            h.remove()
-    return convs, norms
-
-
-def check_backbone_kernel_calls(torch, ck, dev, convs, norms):
-    """Each fused-conv and groupnorm_silu call shape of the DDPM++ path (and
-    the fused conv with ``skip_coef`` 1, which ``skip_rescale=False`` gives)
-    held against its plain version on the card (``KERNEL_TOL``), with the
-    max error, times and bound printed."""
-    rng = np.random.default_rng(50)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
-
-    failures, worst = [], {"gn_silu_conv3x3": 0.0, "groupnorm_silu": 0.0}
-    extra = {(1, 256, 128, 128, 128, 1.0)}
-    for b, h, w, cin, cout, coef in sorted(convs | extra, key=str):
-        x = t(rng.standard_normal((b, h, w, cin)))
-        args = (x, t(1 + 0.1 * rng.standard_normal(cin)), t(0.1 * rng.standard_normal(cin)),
-                t(0.05 * rng.standard_normal((3, 3, cin, cout))),
-                t(0.1 * rng.standard_normal((b, cout))), min(cin // 4, 32))
-        kw = {} if coef is None else dict(skip=t(rng.standard_normal((b, h, w, cout))),
-                                          skip_coef=coef)
-        out = ck.groupnorm_silu_conv3x3(*args, **kw)
-        ref = ck.groupnorm_silu_conv3x3_reference(*args, **kw)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        ok = torch.allclose(out, ref, **KERNEL_TOL)
-        name = (f"gn_silu_conv3x3 {[b, h, w, cin]}->{cout}"
-                f"{'' if coef is None else f' +skip x{coef:.4f}'}")
-        timed = ""
-        if b == 1:  # the enhance path's shapes are timed; training's are checked
-            times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, **kw),
-                           lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
-            bound_ms, bound_by = conv_bounds(b, h, w, cin, cout, coef is not None)["tf32x3"]
-            timed = f" | {describe(times, bound_ms, bound_by)}"
-        print(f"{name}: max_abs_err {err:.3e} ok {ok}{timed}")
-        worst["gn_silu_conv3x3"] = max(worst["gn_silu_conv3x3"], err)
-        if not ok:
-            failures.append(name)
-    for b, h, w, c in sorted(norms):
-        x = t(2 * rng.standard_normal((b, h, w, c)) + 1)
-        args = (x, t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c)),
-                min(c // 4, 32))
-        for apply_silu in (True, False):
-            out = ck.groupnorm_silu(*args, apply_silu=apply_silu)
-            ref = ck.groupnorm_silu_reference(*args, apply_silu=apply_silu)
-            torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            ok = torch.allclose(out, ref, **KERNEL_TOL)
-            name = f"groupnorm_silu {[b, h, w, c]} silu={apply_silu}"
-            timed = ""
-            if b == 1:
-                times = timing(torch, lambda: ck.groupnorm_silu(*args, apply_silu=apply_silu),
-                               lambda: ck.groupnorm_silu_reference(*args, apply_silu=apply_silu))
-                bound_ms, bound_by = bound((9 if apply_silu else 5) * x.numel(),
-                                           4 * (2 * x.numel() + 2 * c))
-                timed = f" | {describe(times, bound_ms, bound_by)}"
-            print(f"{name}: max_abs_err {err:.3e} ok {ok}{timed}")
-            worst["groupnorm_silu"] = max(worst["groupnorm_silu"], err)
-            if not ok:
-                failures.append(name)
-    print(f"backbones: {len(convs | extra)} fused-conv and {2 * len(norms)} groupnorm_silu call "
-          f"shapes against their plain versions; max_abs_err {worst} (tol {KERNEL_TOL})")
-    return failures
+# the paper's NCSN++ with both residual pyramids (71.1M parameters)
+RESIDUAL = dict(progressive="residual", progressive_input="residual")
+TRUNK_CONFIGS = {"paper": {}, "ddpm++": DDPMPP, "residual": RESIDUAL}
+# K1/K2 and K3 launches a forward by configuration and trunk, and of those
+# on bf16 activations. DDPM-style blocks are float32 in a bf16 trunk (the
+# JAX package gives them no dtype): 75 / 4, none bf16. The residual
+# configuration's 37 blocks' two chains and its final head (float32: no
+# dtype) are K1; in bf16 the first head of the residual output pyramid runs
+# the plain chain (K3 without its SiLU) where float32 runs K1 (76 / 28 and
+# 75 / 29). Each K3 is the attention's norm or an up/down block's.
+TRUNK_LAUNCHES = {
+    ("paper", "float32"): ((81, 28), (0, 0)), ("paper", "bf16"): ((81, 28), (81, 28)),
+    ("ddpm++", "float32"): ((75, 4), (0, 0)), ("ddpm++", "bf16"): ((75, 4), (0, 0)),
+    ("residual", "float32"): ((76, 28), (0, 0)), ("residual", "bf16"): ((75, 29), (74, 29))}
+TRUNK_SEEDS = {"ddpm++": 58, "residual": 74}
 
 
 def _graphed_vs_eager(torch, dev, label, model, waves, seed_base, failures, card):
-    """``enhance`` of each wave through its captured program against the eager
-    path on the same generator state (bitwise); prints each first call
-    (capture) and replay wall."""
+    """``enhance`` of each wave (``BACKBONE_PC_N`` steps where the branch
+    samples) through its captured program against the eager path on the same
+    generator state (bitwise); prints each first call (capture) and replay
+    wall. Returns the replay walls."""
     from diffse_tpu_torch.utils import randn_like
 
+    walls = []
     for i, y in enumerate(waves):
         seed = seed_base + i
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(seed))
+        model.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(seed),
+                      N=BACKBONE_PC_N)
         first = time.perf_counter() - t0
         t0 = time.perf_counter()
-        graphed = model.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(seed))
+        graphed = model.enhance(y[None], y[None], generator=torch.Generator(dev).manual_seed(seed),
+                                N=BACKBONE_PC_N)
         wall = time.perf_counter() - t0
         gen = torch.Generator(dev).manual_seed(seed)
-        eager = model.enhance(y[None], y[None], noise=lambda like: randn_like(like, gen))
+        eager = model.enhance(y[None], y[None], noise=lambda like: randn_like(like, gen),
+                              N=BACKBONE_PC_N)
         bitwise = bool(np.array_equal(graphed, eager))
         err = float(np.max(np.abs(graphed - eager)) / np.max(np.abs(eager)))
         print(f"{label}, {len(y) / SR:.2f} s utterance: first call (eager warm-up, capture, "
@@ -3690,6 +3634,8 @@ def _graphed_vs_eager(torch, dev, label, model, waves, seed_base, failures, card
         if not bitwise or graphed.shape != y.shape or not np.isfinite(graphed).all():
             failures.append(f"{label} {len(y) / SR} s: replay vs eager bitwise {bitwise}, "
                             f"shape {graphed.shape}")
+        walls.append(wall)
+    return walls
 
 
 def _card_vs_cpu(torch, label, model, make_cpu, y, failures):
@@ -3744,7 +3690,7 @@ def _train_backbone(torch, ck, dev, label, model, steps, failures, card, expecte
 def run_backbones(torch, ck, dev, card):
     """Phase 14 ("backbones"): DCUNet and the DDPM++ NCSN++ at full width.
     DCUNet (DilDCUNet-v2 at the training CLI's defaults, "bN", n_fft 512):
-    bbed_pc at N = 30 through its captured programs on 1.0 and 1.5 s
+    bbed_pc at N = BACKBONE_PC_N through its captured programs on 1.0 and 1.5 s
     utterances against the eager path (bitwise), card vs CPU, three train
     steps with the running statistics moving and finite, one ``cli.eval``
     file from its checkpoint. DDPM++ (score_sde's settings, dropout 0.1):
@@ -3783,7 +3729,8 @@ def run_backbones(torch, ck, dev, card):
                     else 0.1 * torch.randn(b.shape, generator=g))
     n_params = sum(p.numel() for p in model.backbone.parameters())
     ck.reset_launch_counts()
-    _graphed_vs_eager(torch, dev, f"dcunet ({n_params} params) bbed_pc N=30", model, waves, 60,
+    _graphed_vs_eager(torch, dev, f"dcunet ({n_params} params) bbed_pc N={BACKBONE_PC_N}", model,
+                      waves, 60,
                       failures, card)
     paths["dcunet bbed_pc (graphed and eager)"] = card_runs(
         dict(ck.launch_counts), [p for _, p in model._graphs.values()])
@@ -3828,10 +3775,12 @@ def run_backbones(torch, ck, dev, card):
     n_params = sum(p.numel() for p in model.backbone.parameters())
     y = waves[0]
     ck.reset_launch_counts()
-    convs, norms = _kernel_calls(torch, model, lambda: _graphed_vs_eager(
-        torch, dev, f"ddpm++ ({n_params} params) bbed_pc N=30", model, [y], 70, failures, card))
+    f32_walls = {}
+    f32_walls["ddpm++"], calls = record_kernel_calls(ck, lambda: _graphed_vs_eager(
+        torch, dev, f"ddpm++ ({n_params} params) bbed_pc N={BACKBONE_PC_N}", model, [y], 70,
+        failures, card)[0])
     programs = [p for _, p in model._graphs.values()]
-    per_forward = {k: v // 60 for k, v in programs[0].launch_counts.items()}
+    per_forward = {k: v // (2 * BACKBONE_PC_N) for k, v in programs[0].launch_counts.items()}
     print(f"ddpm++: launches per forward in the captured program {per_forward} "
           f"(expected {DDPMPP_EVAL_LAUNCHES})")
     if per_forward != DDPMPP_EVAL_LAUNCHES:
@@ -3852,22 +3801,336 @@ def run_backbones(torch, ck, dev, card):
     if not err <= FORWARD_TOL:
         failures.append(f"ddpm++ forward card vs CPU {err:.3e}")
     del cpu
-    trained = []
-    train_convs, train_norms = _kernel_calls(torch, model, lambda: trained.append(_train_backbone(
+    trained, train_calls = record_kernel_calls(ck, lambda: _train_backbone(
         torch, ck, dev, "ddpm++ (dropout 0.1)", model, BACKBONE_TRAIN_STEPS, failures, card,
-        expected=DDPMPP_TRAIN_LAUNCHES)))
-    paths["ddpm++ train (dropout)"] = card_runs(trained[0], [])
+        expected=DDPMPP_TRAIN_LAUNCHES))
+    paths["ddpm++ train (dropout)"] = card_runs(trained, [])
     del model
-    failures += check_backbone_kernel_calls(torch, ck, dev, convs | train_convs,
-                                            norms | train_norms)
-    for label, path in paths.items():
+    # with the fused conv at skip_coef 1, which skip_rescale=False gives; the
+    # enhance path's calls (batch 1) timed, training's checked
+    extra = ("gn_silu_conv3x3", (1, 256, 128, 128), torch.float32, 128, 1.0, False)
+    check_kernel_calls(torch, ck, dev, "ddpm++: the enhance and train steps' kernel calls",
+                       calls | train_calls | {extra}, failures, timed=lambda c: c[1][0] == 1)
+    trunk_paths, bf16_paths = run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures)
+    paths.update(trunk_paths)
+    for label, path in {**paths, **bf16_paths}.items():
         print(f"{label}: kernel runs on the card {path['runs']}, recorded at capture "
               f"{path['recorded']}")
     if not paths["ddpm++ bbed_pc (graphed and eager)"]["runs"]["gn_silu_conv3x3"]:
         failures.append("ddpm++: gn_silu_conv3x3 never ran")
     if failures:
         raise AssertionError("; ".join(failures))
-    return paths
+    return paths, bf16_paths
+
+
+def record_kernel_calls(ck, run):
+    """``run()`` with every K1/K2 and K3 wrapper call recorded: the set of
+    ``("gn_silu_conv3x3", x shape, dtype, Cout, skip_coef or None, with
+    ab)`` and ``("groupnorm_silu", x shape, dtype, apply_silu, out_dtype,
+    with ab)``. Returns (``run``'s result, the calls)."""
+    conv, norm, calls = ck.groupnorm_silu_conv3x3, ck.groupnorm_silu, set()
+
+    def conv_spy(x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
+                 skip_coef=1.0, w_packed=None, ab=None):
+        calls.add(("gn_silu_conv3x3", tuple(x.shape), x.dtype, w.shape[-1],
+                   None if skip is None else float(skip_coef), ab is not None))
+        return conv(x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef,
+                    w_packed, ab)
+
+    def norm_spy(x, scale, bias, num_groups, eps=1e-6, apply_silu=True, out_dtype=None,
+                 ab=None):
+        calls.add(("groupnorm_silu", tuple(x.shape), x.dtype, bool(apply_silu),
+                   out_dtype or x.dtype, ab is not None))
+        return norm(x, scale, bias, num_groups, eps, apply_silu, out_dtype, ab)
+
+    ck.groupnorm_silu_conv3x3, ck.groupnorm_silu = conv_spy, norm_spy
+    try:
+        return run(), calls
+    finally:
+        ck.groupnorm_silu_conv3x3, ck.groupnorm_silu = conv, norm
+
+
+def check_kernel_calls(torch, ck, dev, label, calls, failures, timed=None):
+    """Each recorded K1/K2 and K3 call (``record_kernel_calls``) on seeded
+    inputs of its shape and dtype against its plain version: float32 within
+    ``KERNEL_TOL``, bf16 within one bf16 ulp but on ``BF16_SHARE`` of the
+    elements (``bf16_agreement``); a call given an affine (``ab=``, a frames
+    shard's) with the affine of x's columns but its first. The calls that
+    ``timed(call)`` picks are timed beside their bound and printed. Returns
+    the largest error."""
+    rng = np.random.default_rng(75)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev, dtype)
+
+    worst, bad = 0.0, []
+    for call in sorted(calls, key=str):
+        kind, shape, dtype = call[:3]
+        c = shape[-1]
+        groups = min(c // 4, 32)
+        x = t(2 * rng.standard_normal(shape) + 0.5, dtype)
+        gs, gb = t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c))
+        ab = None
+        if call[-1]:
+            ab = ck.gn_stats_ab(x[:, :, 1:].contiguous() if shape[2] > 1 else x, gs, gb, groups)
+        if kind == "gn_silu_conv3x3":
+            cout, coef = call[3:5]
+            w = t(rng.standard_normal((3, 3, c, cout)) / np.sqrt(9 * c))
+            args = (x, gs, gb, w, t(0.1 * rng.standard_normal((shape[0], cout))), groups)
+            kw = dict(ab=ab) if coef is None else dict(
+                skip=t(rng.standard_normal((*shape[:3], cout)), dtype), skip_coef=coef, ab=ab)
+            packed = (ck.pack_conv_weight_bf16(w) if dtype == torch.bfloat16
+                      and c % ck.CONV_BK_BF16 == 0 else None)
+
+            def kernel():
+                return ck.groupnorm_silu_conv3x3(*args, w_packed=packed, **kw)
+
+            def plain():
+                return ck.groupnorm_silu_conv3x3_reference(*args, **kw)
+
+            plan = ck.CONV_CONFIGS[ck.conv_plan(*shape, cout, dtype).config][3]
+            name = (f"gn_silu_conv3x3 {list(shape)}->{cout} {str(dtype)[6:]}"
+                    f"{'' if coef is None else f' +skip x{coef:.4f}'}"
+                    f"{' ab=' if ab is not None else ''} (plan {plan})")
+        else:
+            silu, out_dtype = call[3:5]
+            kw = dict(apply_silu=silu, out_dtype=out_dtype, ab=ab)
+
+            def kernel():
+                return ck.groupnorm_silu(x, gs, gb, groups, **kw)
+
+            def plain():
+                return ck.groupnorm_silu_reference(x, gs, gb, groups, **kw)
+
+            name = (f"groupnorm_silu {list(shape)} {str(dtype)[6:]} silu={silu} -> "
+                    f"{str(out_dtype)[6:]}{' ab=' if ab is not None else ''}")
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if out.dtype == torch.float32:
+            ok, err = torch.allclose(out, ref, **KERNEL_TOL), (out - ref).abs().max().item()
+        else:
+            ok, _, err = bf16_agreement(torch, out, ref)
+        worst = max(worst, err)
+        if not ok:
+            bad.append(name)
+        if timed is not None and timed(call):
+            if kind == "gn_silu_conv3x3":
+                bounds = conv_bounds(*shape, cout, coef is not None, x.element_size())
+                bound_ms, bound_by = bounds["bf16" if dtype == torch.bfloat16 else "tf32x3"]
+            else:  # x in, the output out, the scale and bias
+                bound_ms, bound_by = bound((9 if silu else 5) * x.numel(),
+                                           (x.element_size() + out.element_size()) * x.numel()
+                                           + 8 * c)
+            times = timing(torch, kernel, plain)
+            print(f"{name}: max_abs_err {err:.3e} ok {ok} | "
+                  f"{describe(times, bound_ms, bound_by)}")
+    print(f"{label}: {len(calls)} kernel call shapes against their plain versions, "
+          f"max_abs_err {worst:.3e}; disagreeing {bad}")
+    failures += [f"{label}: {b} disagrees" for b in bad]
+    return worst
+
+
+def modules_on_cpu(torch, label, card, cpu, run, failures):
+    """Every residual block, attention, Combine and up/down layer of the
+    card's forward (``run``) re-run on ``cpu`` (the same weights) from the
+    card's inputs: a bf16 output within ``BF16_MODULE_ULPS`` bf16 ulps of its
+    largest magnitude, a float32 one within ``FORWARD_TOL`` of it (phase 7's
+    check of the paper's bf16 trunk: a whole bf16 forward with full-size
+    weights grows one flipped rounding through the depth, a module does
+    not)."""
+    from diffse_tpu_torch.models import layers
+
+    kinds = (layers.ResnetBlockBigGANpp, layers.ResnetBlockDDPMpp, layers.AttnBlockpp,
+             layers.Combine, layers.Upsample, layers.Downsample)
+    records, hooks = [], []
+    for i, m in enumerate(card.all_modules):
+        if isinstance(m, kinds):
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out, i=i: records.append((i, args, out))))
+    try:
+        run()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for i, args, out in records:
+        ref = cpu.all_modules[i](*[a.cpu() if torch.is_tensor(a) else a for a in args])
+        top = ref.double().abs().max()
+        diff = (out.cpu().double() - ref.double()).abs().max()
+        if out.dtype == torch.bfloat16:
+            err, limit = (diff / torch.exp2(torch.floor(torch.log2(top)) - 7)).item(), \
+                BF16_MODULE_ULPS
+        else:
+            err, limit = (diff / top).item(), FORWARD_TOL
+        worst[out.dtype] = max(worst[out.dtype], err)
+        if err > limit or out.dtype != ref.dtype:
+            failures.append(f"{label} module {i} ({type(cpu.all_modules[i]).__name__}): "
+                            f"{err:.3e} ({out.dtype}, limit {limit})")
+    print(f"{label}: {len(records)} modules of the card's forward run on the CPU from the card's "
+          f"inputs: worst bf16 output {worst[torch.bfloat16]:.2f} bf16 ulps of its largest "
+          f"magnitude (limit {BF16_MODULE_ULPS}), worst float32 output "
+          f"{worst[torch.float32]:.3e} of it (limit {FORWARD_TOL})")
+
+
+def own_init_forward(torch, label, make, dev, x, t, failures):
+    """The bf16 forward at the model's own initialisation (``make(...,
+    redrawn=False)``), card vs CPU within ``BF16_GAP_RATIO`` of its card
+    bf16-vs-float32 gap, as phase 7 holds the paper's; returns the line's
+    words."""
+    import copy
+
+    with torch.no_grad():
+        own = make(dev, redrawn=False).backbone
+        own32 = make(dev, dtype="float32", redrawn=False).backbone
+        out16, out32 = own(x.to(dev), t.to(dev)), own32(x.to(dev), t.to(dev))
+        ref = copy.deepcopy(own).cpu()(x, t)
+    gap, f32_gap = relative_gap(out16, ref), relative_gap(out16, out32)
+    if not gap <= BF16_GAP_RATIO * f32_gap:
+        failures.append(f"{label} own initialisation: card vs CPU {gap:.3e}")
+    return (f"own initialisation: card vs CPU {gap:.3e}, {gap / f32_gap:.3f} of its "
+            f"bf16-vs-float32 gap {f32_gap:.3e} (limit {BF16_GAP_RATIO})")
+
+
+def dtype_runs(ck, counts, bf16_counts, by_config, programs=()):
+    """A path's kernel runs on the card split by the activations' dtype:
+    ``(float32, bf16)``, each ``{"runs": ..., "recorded": ...}`` as
+    ``card_runs`` gives them, from the wrappers' counts over the path's
+    window (``launch_counts`` with ``stats_launch_counts``,
+    ``bf16_launch_counts``, ``conv_config_launches``) and its captured
+    programs. The bf16 part splits the conv's launches between the
+    ``wgmma.ss`` kernel and the others (``conv_launches``)."""
+    def total(window, recorded_of):
+        recorded = {k: sum(recorded_of(p).get(k, 0) for p in programs) for k in window}
+        runs = {k: n + sum(recorded_of(p).get(k, 0) * (p.replays - 1) for p in programs)
+                for k, n in window.items()}
+        return runs, recorded
+
+    ws = ck.CONV_WGMMA_SS
+    all_runs, all_recorded = total(counts, lambda p: p.launch_counts)
+    b16 = dict(bf16_counts, gn_silu_conv3x3_ws=by_config[ws])
+    b16_runs, b16_recorded = total(b16, lambda p: {**p.bf16_launch_counts,
+                                                   "gn_silu_conv3x3_ws":
+                                                   p.conv_config_launches[ws]})
+    f32 = ({k: v - b16_runs.get(k, 0) for k, v in all_runs.items()},
+           {k: v - b16_recorded.get(k, 0) for k, v in all_recorded.items()})
+
+    def bf16_entries(part):
+        return {**part, "fused_bias_leaky_relu": 0,
+                "gn_silu_conv3x3_other": part["gn_silu_conv3x3"] - part["gn_silu_conv3x3_ws"]}
+
+    return ({"runs": f32[0], "recorded": f32[1]},
+            {"runs": bf16_entries(b16_runs), "recorded": bf16_entries(b16_recorded)})
+
+
+def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
+    """Phase 14, the trunks of other configurations: DDPM++ in bf16 (its
+    float32 ``bbed_pc`` ran above: ``f32_walls``) and the residual
+    configuration in float32 and bf16, on ``y`` (1.0 s), each with the same
+    redrawn weights in both trunks. Returns the float32 and the bf16
+    kernels' runs by path."""
+    import copy
+
+    from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
+
+    paths, bf16_paths = {}, {}
+    rng = np.random.default_rng(76)
+    shape = (1, 2, 256, BENCH_FRAMES)
+    x = torch.from_numpy((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+                         .astype(np.complex64))
+    t = torch.tensor([0.5])
+    all_calls = set()
+    for config in ("ddpm++", "residual"):
+        walls, outs, weights = {k: v for k, v in f32_walls.items() if k == config}, {}, None
+        for dtype in ("float32", "bf16"):
+            label = f"{config} {dtype}"
+
+            def make(device, model_type="bbed", dtype=dtype, redrawn=True):
+                cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type=model_type,
+                                       sigma_max=1.0 if model_type == "sebridge_v2" else 0.5)
+                model = ScoreModel(cfg, backbone_kwargs={**TRUNK_CONFIGS[config],
+                                                         "dtype": dtype},
+                                   sde_kwargs=SAMPLER_SDE_KWARGS["bbed"], device=device,
+                                   generator=torch.Generator().manual_seed(0))
+                if weights is not None and redrawn:
+                    model.backbone.load_state_dict(weights)
+                return model
+
+            model = make(dev)
+            if weights is None:
+                redraw_weights(torch, model.backbone, seed=TRUNK_SEEDS[config])
+                weights = {k: v.detach().clone() for k, v in model.backbone.state_dict().items()}
+            n_params = sum(p.numel() for p in model.backbone.parameters())
+            # one forward: its launches by dtype, its kernel calls, card vs CPU
+            with torch.no_grad():
+                ck.reset_launch_counts()
+                outs[dtype], calls = record_kernel_calls(
+                    ck, lambda: model.backbone(x.to(dev), t.to(dev)))
+                torch.cuda.synchronize()
+                got = ((ck.launch_counts["gn_silu_conv3x3"], ck.launch_counts["groupnorm_silu"]),
+                       (ck.bf16_launch_counts["gn_silu_conv3x3"],
+                        ck.bf16_launch_counts["groupnorm_silu"]))
+            if (config, dtype) == ("ddpm++", "float32"):  # held to the CPU above
+                if got != TRUNK_LAUNCHES[(config, dtype)]:
+                    failures.append(f"{label}: launches a forward {got}")
+                del model
+                continue
+            all_calls |= calls
+            with torch.no_grad():
+                cpu = copy.deepcopy(model.backbone).cpu().eval()
+                if dtype == "float32":
+                    gap = relative_gap(outs[dtype], cpu(x, t))
+                    what = f"card vs CPU max|diff|/max|ref| {gap:.3e} (tol {FORWARD_TOL})"
+                    if not gap <= FORWARD_TOL:
+                        failures.append(f"{label} forward card vs CPU {gap:.3e}")
+                else:  # module by module, and whole at the own initialisation
+                    modules_on_cpu(torch, label, model.backbone, cpu,
+                                   lambda: model.backbone(x.to(dev), t.to(dev)), failures)
+                    what = (f"bf16 vs float32 on the card "
+                            f"{relative_gap(outs[dtype], outs['float32']):.3e}; "
+                            f"{own_init_forward(torch, label, make, dev, x, t, failures)}")
+                del cpu
+            print(f"{label} NCSN++ ({n_params} params) forward (F=256 T={BENCH_FRAMES}, "
+                  f"redrawn weights): {what}; "
+                  f"launches a forward (K1/K2, K3) {got[0]}, on bf16 activations {got[1]} "
+                  f"(expected {TRUNK_LAUNCHES[(config, dtype)]})")
+            if got != TRUNK_LAUNCHES[(config, dtype)]:
+                failures.append(f"{label}: launches a forward {got}")
+            # bbed_pc and sebridge_v2, graphed against eager
+            ck.reset_launch_counts()
+            walls[dtype] = _graphed_vs_eager(torch, dev, f"{label} ({n_params} params) bbed_pc "
+                                             f"N={BACKBONE_PC_N}", model, [y], 77, failures,
+                                             card)[0]
+            v2 = make(dev, "sebridge_v2")
+            v2_walls = _graphed_vs_eager(torch, dev, f"{label} sebridge_v2", v2, [y], 78,
+                                         failures, card)
+            programs = [p for _, p in model._graphs.values()] + [
+                p for _, p in v2._graphs.values()]
+            per_forward = {k: programs[0].launch_counts[k] // (2 * BACKBONE_PC_N)
+                           for k in ("gn_silu_conv3x3", "groupnorm_silu")}
+            print(f"{label}: launches per forward in the captured bbed_pc program "
+                  f"{per_forward}; sebridge_v2 replay wall {v2_walls[0]:.4f} s per utterance")
+            if tuple(per_forward.values()) != TRUNK_LAUNCHES[(config, dtype)][0]:
+                failures.append(f"{label}: bbed_pc launches per forward {per_forward}")
+            f32_part, bf16_part = dtype_runs(
+                ck, {**ck.launch_counts, **ck.stats_launch_counts}, ck.bf16_launch_counts,
+                ck.conv_config_launches, programs)
+            name = f"{label} trunk: bbed_pc + sebridge_v2 (graphed and eager)"
+            paths[name] = f32_part
+            if any(TRUNK_LAUNCHES[(config, dtype)][1]):
+                bf16_paths[name] = bf16_part
+            del model, v2
+            torch.cuda.empty_cache()
+        print(f"{config} ({card}): bbed_pc N={BACKBONE_PC_N} on a 1.0 s utterance, replay wall "
+              "per utterance: "
+              + ", ".join(f"{'float32' if k == config else k} {v:.4f} s"
+                          for k, v in walls.items()))
+    check_kernel_calls(torch, ck, dev, "trunks: the forwards' kernel calls", all_calls, failures)
+    if not all(p["runs"]["gn_silu_conv3x3"] for p in paths.values()):
+        failures.append("trunks: a path ran no float32 gn_silu_conv3x3")
+    if not all(p["runs"]["gn_silu_conv3x3"] and p["runs"]["groupnorm_silu"]
+               for p in bf16_paths.values()):
+        failures.append("trunks: a bf16 path ran no bf16 K1/K3")
+    return paths, bf16_paths
 
 
 # ---------------------------------------------------------------- parallel
@@ -3885,7 +4148,7 @@ PARALLEL_GRAD_TOL = 1e-4      # of each gradient's largest magnitude, as phase 9
 # weight to PARALLEL_PARAM_ATOL
 PARALLEL_PARAM_ATOL = 2e-6
 PARALLEL_STEPS = 2            # a rank's checked step, then a timed one
-PARALLEL_TIMED = 2            # world size 1: timed steps of each, in turns
+PARALLEL_TIMED = 1            # world size 1: timed steps of each, in turns
 PARALLEL_LAUNCHES = {"gn_silu_conv3x3": 2 * 81, "groupnorm_silu": 2 * 28,
                      "fused_bias_leaky_relu": 0}
 
@@ -4239,38 +4502,46 @@ def run_parallel(torch, ck, dev, card, backbone_kwargs=None, backend="gloo"):
 # SEQUENCE_RANKS gloo ranks on the one card (NCCL refuses two ranks on one
 # device), against the one-device enhance on the card on the same draws.
 SEQUENCE_RANKS = 2
-SEQUENCE_BACKBONE = {}        # the paper's NCSN++: its defaults
+SEQUENCE_BACKBONE = {}        # keywords over each configuration's (none: full width)
 SEQUENCE_SECONDS = 4.0
 SEQUENCE_WEIGHT_SEED = 31
 SEQUENCE_PC_N = 3
 SEQUENCE_ONE_NFE_TOL = 1e-4   # of max|ref|: float32 sums in other orders
 SEQUENCE_PC_TOL = 5e-3        # of max|ref|: as tests/test_sequence_parallel.py's PC bound
-# (label, model_type, sigma_max, backbone keywords, generator seed, enhance keywords)
-SEQUENCE_CASES = [("sebridge_v2", "sebridge_v2", 1.0, {}, 61, {}),
-                  ("sebridge_v2 bf16", "sebridge_v2", 1.0, {"dtype": "bf16"}, 61, {}),
-                  ("bbed_pc", "bbed", 0.5, {}, 62, {"N": SEQUENCE_PC_N})]
-# a rank's launches per forward: every K1/K2 and K3 call (81 / 28) with the
-# shards' statistics, each from one group-sums pass and one fold
-SEQUENCE_LAUNCHES = {"gn_silu_conv3x3": 81, "groupnorm_silu": 28, "fused_bias_leaky_relu": 0,
-                     "gn_group_sums": 109, "gn_fold_ab": 109}
-# the sharded path's kernel shapes on a rank at 512 frames over 2 ranks: the
-# statistics of its own columns; K1/K2 on its columns and one of its
-# neighbour's ([.., 257, ..]; 258 for a rank between two others); K3 with
-# the shards' affine
+# (label, model_type, sigma_max, configuration (TRUNK_CONFIGS), trunk dtype,
+# generator seed, enhance keywords); a bf16 label is its float32 label's
+# with " bf16"
+SEQUENCE_CASES = [("sebridge_v2", "sebridge_v2", 1.0, "paper", "float32", 61, {}),
+                  ("sebridge_v2 bf16", "sebridge_v2", 1.0, "paper", "bf16", 61, {}),
+                  ("bbed_pc", "bbed", 0.5, "paper", "float32", 62, {"N": SEQUENCE_PC_N}),
+                  ("ddpm++ sebridge_v2", "sebridge_v2", 1.0, "ddpm++", "float32", 63, {}),
+                  ("ddpm++ sebridge_v2 bf16", "sebridge_v2", 1.0, "ddpm++", "bf16", 63, {}),
+                  ("residual sebridge_v2", "sebridge_v2", 1.0, "residual", "float32", 64, {}),
+                  ("residual sebridge_v2 bf16", "sebridge_v2", 1.0, "residual", "bf16", 64, {}),
+                  ("residual bbed_pc", "bbed", 0.5, "residual", "float32", 65,
+                   {"N": SEQUENCE_PC_N})]
+
+
+def sequence_launches(config, dtype, forwards):
+    """A rank's launches over ``forwards`` forwards: every K1/K2 and K3 call
+    of the one-device forward (``TRUNK_LAUNCHES``) with the shards'
+    statistics, each from one group-sums pass and one fold."""
+    (k1, k3), _ = TRUNK_LAUNCHES[(config, dtype)]
+    per = {"gn_silu_conv3x3": k1, "groupnorm_silu": k3, "fused_bias_leaky_relu": 0,
+           "gn_group_sums": k1 + k3, "gn_fold_ab": k1 + k3}
+    return {k: v * forwards for k, v in per.items()}
+
+
+# the shapes of a rank's statistics at 512 frames over 2 ranks: its own
+# columns (K1/K2 and K3 are checked at the shapes the ranks recorded)
 SEQUENCE_STATS_SHAPES = [(1, 256, 256, 128), (1, 256, 256, 256), (1, 64, 64, 256),
                          (1, 4, 4, 256)]
-SEQUENCE_K1_SHAPES = [(1, 256, 257, 128, 128, True), (1, 256, 257, 256, 128, True),
-                      (1, 256, 258, 128, 128, True), (1, 256, 257, 128, 4, False),
-                      (1, 16, 17, 256, 256, True), (1, 4, 5, 512, 256, True)]
-SEQUENCE_K3_SHAPES = [(1, 256, 256, 128, True), (1, 16, 16, 256, False)]
 
 
 def check_sequence_kernels(torch, ck, dev):
-    """Phase 16's kernels: ``gn_fold_ab(gn_group_sums(x))`` bitwise against
-    the one-pass ``gn_stats_ab`` and each against its plain version; K1/K2
-    and K3 with a given affine (``ab=``) against their plain versions
-    (``KERNEL_TOL`` in float32, ``bf16_agreement`` in bf16), at the sharded
-    path's shapes. Returns the JSON record's rows of the two new kernels."""
+    """Phase 16's statistics kernels: ``gn_fold_ab(gn_group_sums(x))``
+    bitwise against the one-pass ``gn_stats_ab`` and each against its plain
+    version, at a rank's shapes. Returns the JSON record's rows of the two."""
     rng = np.random.default_rng(16)
 
     def t(a, dtype=torch.float32):
@@ -4321,65 +4592,8 @@ def check_sequence_kernels(torch, ck, dev):
                 print(f"gn_fold_ab [{b}, {groups}, 2] -> [{b}, {c}]: "
                       f"{describe(times, bound_ms, bound_by)}")
                 rows["gn_fold_ab"].update(times, bound_ms=bound_ms, bound_by=bound_by)
-    for dtype in (torch.float32, torch.bfloat16):
-        for b, h, w, cin, cout, with_skip in SEQUENCE_K1_SHAPES:
-            x = t(rng.standard_normal((b, h, w, cin)), dtype)
-            gs, gb = t(1 + 0.1 * rng.standard_normal(cin)), t(0.1 * rng.standard_normal(cin))
-            wk = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
-            bt = t(0.1 * rng.standard_normal((b, cout)))
-            skip = t(rng.standard_normal((b, h, w, cout)), dtype) if with_skip else None
-            groups = min(cin // 4, 32)
-            # the affine of the columns but the first: a shard's, not x's own
-            ab = ck.gn_stats_ab(x[:, :, 1:].contiguous(), gs, gb, groups)
-            packed = ck.pack_conv_weight_bf16(wk) if dtype == torch.bfloat16 else None
-            args = (x, gs, gb, wk, bt, groups)
-            kw = dict(skip=skip, skip_coef=1 / np.sqrt(2.0), ab=ab)
-            out = ck.groupnorm_silu_conv3x3(*args, w_packed=packed, **kw)
-            ref = ck.groupnorm_silu_conv3x3_reference(*args, **kw)
-            torch.cuda.synchronize()
-            if dtype == torch.float32:
-                ok = torch.allclose(out, ref, **KERNEL_TOL)
-                err = (out - ref).abs().max().item()
-                how = f"max_abs_err {err:.3e}"
-            else:
-                ok, share, err = bf16_agreement(torch, out, ref)
-                how = f"max_abs_err {err:.3e}, share over one ulp {share:.2e}"
-            plan = ck.conv_plan(b, h, w, cin, cout, dtype)
-            name = (f"gn_silu_conv3x3 ab= {[b, h, w, cin]}->{cout}{' +skip' if with_skip else ''}"
-                    f" {str(dtype)[6:]}")
-            line = f"{name}: {how} ok {ok} | plan {ck.CONV_CONFIGS[plan.config][3]}"
-            if (b, h, w) == (1, 256, 257) and cin == cout == 128:
-                times = timing(torch, lambda: ck.groupnorm_silu_conv3x3(*args, w_packed=packed,
-                                                                       **kw),
-                               lambda: ck.groupnorm_silu_conv3x3_reference(*args, **kw))
-                bounds = conv_bounds(b, h, w, cin, cout, with_skip,
-                                     2 if dtype == torch.bfloat16 else 4)
-                line += " | " + describe(times, *bounds["bf16" if dtype == torch.bfloat16
-                                                         else "tf32x3"])
-            print(line)
-            if not ok:
-                failures.append(name)
-        for b, h, w, c, silu in SEQUENCE_K3_SHAPES:
-            x = t(2 * rng.standard_normal((b, h, w, c)) + 1, dtype)
-            sc, bi = t(1 + 0.1 * rng.standard_normal(c)), t(0.1 * rng.standard_normal(c))
-            groups = min(c // 4, 32)
-            ab = ck.gn_stats_ab(x[:, :, 1:].contiguous(), sc, bi, groups)
-            out_dtype = None if silu else torch.float32  # the attention's norm: float32 out
-            out = ck.groupnorm_silu(x, sc, bi, groups, apply_silu=silu, out_dtype=out_dtype,
-                                    ab=ab)
-            ref = ck.groupnorm_silu_reference(x, sc, bi, groups, apply_silu=silu,
-                                              out_dtype=out_dtype, ab=ab)
-            torch.cuda.synchronize()
-            if out.dtype == torch.float32:
-                ok, err = torch.allclose(out, ref, **KERNEL_TOL), (out - ref).abs().max().item()
-            else:
-                ok, _, err = bf16_agreement(torch, out, ref)
-            name = f"groupnorm_silu ab= {[b, h, w, c]} silu={silu} {str(dtype)[6:]}"
-            print(f"{name}: max_abs_err {err:.3e} ok {ok}")
-            if not ok:
-                failures.append(name)
     if failures:
-        raise AssertionError(f"phase 16's kernels disagree: {failures}")
+        raise AssertionError(f"phase 16's statistics kernels disagree: {failures}")
     return rows
 
 
@@ -4400,7 +4614,8 @@ def sequence_model(torch, dev, model_type, sigma_max, backbone, weights):
 def _sequence_rank(rank, workdir, device):
     """One rank of phase 16: each case's enhance over the frames mesh of
     every rank, each 1-NFE case twice (the second timed warm), with its
-    waveform, walls, launches and the programs it kept."""
+    waveform, walls, launches (of those, on bf16 activations, and by conv
+    instantiation), the kernel calls it made and the programs it kept."""
     import os
 
     import torch
@@ -4415,21 +4630,23 @@ def _sequence_rank(rank, workdir, device):
     out = {}
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for label, model_type, sigma_max, backbone, seed, kw in SEQUENCE_CASES:
+    for label, model_type, sigma_max, config, dtype, seed, kw in SEQUENCE_CASES:
         model = sequence_model(torch, dev, model_type, sigma_max,
-                               {**ref["backbone"], **backbone}, ref["weights"])
+                               {**ref["backbones"][config], "dtype": dtype},
+                               ref["weights"][config])
         walls = []
         for _ in range(1 if kw else 2):
             ck.reset_launch_counts()
             _sync(torch, dev)
             t0 = time.perf_counter()
-            wave = model.enhance(y, y, generator=torch.Generator(dev).manual_seed(seed),
-                                 seq_mesh=mesh, **kw)
+            wave, calls = record_kernel_calls(ck, lambda: model.enhance(
+                y, y, generator=torch.Generator(dev).manual_seed(seed), seq_mesh=mesh, **kw))
             _sync(torch, dev)
             walls.append(time.perf_counter() - t0)
         out[label] = {"wave": wave, "walls": walls, "graphs": len(model._graphs),
                       "launches": {**ck.launch_counts, **ck.stats_launch_counts},
-                      "by_config": list(ck.conv_config_launches)}
+                      "bf16": dict(ck.bf16_launch_counts),
+                      "by_config": list(ck.conv_config_launches), "calls": calls}
         del model
     out["peak"] = _peak(torch, dev)
     return out
@@ -4442,6 +4659,7 @@ def run_sequence(torch, ck, dev, card):
     import shutil
     import tempfile
 
+    from diffse_tpu_torch.models.ncsnpp import NCSNpp
     from diffse_tpu_torch.parallel import dryrun
     from diffse_tpu_torch.utils import generator_noise
 
@@ -4450,21 +4668,22 @@ def run_sequence(torch, ck, dev, card):
     print(f"sequence kernels: {time.time() - t_phase:.1f} s")
     failures, paths, bf16_paths = [], {}, {}
     _, wave = synthetic_pair(np.random.default_rng(16), int(SEQUENCE_SECONDS * SR))
-    from diffse_tpu_torch.models.ncsnpp import NCSNpp
-
-    backbone = NCSNpp(**SEQUENCE_BACKBONE, generator=torch.Generator().manual_seed(0))
-    redraw_weights(torch, backbone, seed=SEQUENCE_WEIGHT_SEED)
-    weights = {k: v.detach().clone() for k, v in backbone.state_dict().items()}
-    n_params = sum(p.numel() for p in backbone.parameters())
-    del backbone
+    weights, n_params, backbones = {}, {}, {}
+    for config in dict.fromkeys(case[3] for case in SEQUENCE_CASES):
+        backbones[config] = {**TRUNK_CONFIGS[config], **SEQUENCE_BACKBONE}
+        backbone = NCSNpp(**backbones[config], generator=torch.Generator().manual_seed(0))
+        redraw_weights(torch, backbone, seed=SEQUENCE_WEIGHT_SEED)
+        weights[config] = {k: v.detach().clone() for k, v in backbone.state_dict().items()}
+        n_params[config] = sum(p.numel() for p in backbone.parameters())
+        del backbone
 
     # one device: each case graphed (its capture, then a timed replay) and,
     # for the 1-NFE cases, eagerly (timed warm)
     t0 = time.time()
     one = {}
-    for label, model_type, sigma_max, backbone_kw, seed, kw in SEQUENCE_CASES:
+    for label, model_type, sigma_max, config, dtype, seed, kw in SEQUENCE_CASES:
         model = sequence_model(torch, dev, model_type, sigma_max,
-                               {**SEQUENCE_BACKBONE, **backbone_kw}, weights)
+                               {**backbones[config], "dtype": dtype}, weights[config])
         walls = {}
         for how in ("graphed", "replay") + (() if kw else ("eager",)):
             gen = torch.Generator(dev).manual_seed(seed)
@@ -4484,10 +4703,10 @@ def run_sequence(torch, ck, dev, card):
     t0 = time.time()
     workdir = tempfile.mkdtemp(prefix="diffse_sequence_")
     try:
-        torch.save({"weights": weights, "wave": wave, "backbone": SEQUENCE_BACKBONE},
+        torch.save({"weights": weights, "wave": wave, "backbones": backbones},
                    os.path.join(workdir, "reference.pt"))
         ranks = dryrun.launch(_sequence_rank, SEQUENCE_RANKS, (workdir, str(dev)),
-                              device=str(dev), backend="gloo", timeout=300)
+                              device=str(dev), backend="gloo", timeout=600)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     spawn = time.time() - t0
@@ -4495,17 +4714,20 @@ def run_sequence(torch, ck, dev, card):
     def wave_gap(out, ref):
         return float(np.max(np.abs(out - ref)) / np.max(np.abs(ref)))
 
-    f32_gap = wave_gap(one["sebridge_v2 bf16"], one["sebridge_v2"])
-    for label, model_type, sigma_max, backbone_kw, seed, kw in SEQUENCE_CASES:
+    calls = set()
+    for label, model_type, sigma_max, config, dtype, seed, kw in SEQUENCE_CASES:
         ref = one[label]
         forwards = 2 * SEQUENCE_PC_N if kw else 1
-        expected = {k: v * forwards for k, v in SEQUENCE_LAUNCHES.items()}
+        expected = sequence_launches(config, dtype, forwards)
+        expected_bf16 = [v * forwards for v in TRUNK_LAUNCHES[(config, dtype)][1]]
         for r, res in enumerate(ranks):
             x = res[label]
+            calls |= x["calls"]
             gap = wave_gap(x["wave"], ref)
-            if label == "bbed_pc":
+            if kw:
                 tol, what = SEQUENCE_PC_TOL, f"tol {SEQUENCE_PC_TOL}"
-            elif "bf16" in label:
+            elif dtype == "bf16":
+                f32_gap = wave_gap(ref, one[label.removesuffix(" bf16")])
                 tol = BF16_GAP_RATIO * f32_gap
                 what = (f"tol {BF16_GAP_RATIO} x the one-device bf16-vs-float32 gap "
                         f"{f32_gap:.3e}")
@@ -4514,26 +4736,33 @@ def run_sequence(torch, ck, dev, card):
             launches = x["launches"]
             walls = one[label + " walls"]
             print(f"sequence ({card}): {label} on a {SEQUENCE_SECONDS} s utterance (512 frames, "
-                  f"the {n_params}-parameter NCSN++, weights redrawn from seed "
+                  f"the {n_params[config]}-parameter {config} NCSN++, weights redrawn from seed "
                   f"{SEQUENCE_WEIGHT_SEED}), gloo rank {r} of {SEQUENCE_RANKS} against one "
                   f"device: max|diff|/max|ref| {gap:.3e} ({what}); launches on the rank "
-                  f"{launches} over {forwards} forward(s), by conv instantiation "
-                  f"{x['by_config']}; programs kept {x['graphs']}; walls sharded (eager) "
-                  f"{[f'{w:.4f}' for w in x['walls']]} s, one device "
-                  + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items()))
+                  f"{launches} over {forwards} forward(s), of those on bf16 activations "
+                  f"{x['bf16']}, by conv instantiation {x['by_config']}; programs kept "
+                  f"{x['graphs']}; walls sharded (eager) {[f'{w:.4f}' for w in x['walls']]} s, "
+                  "one device " + ", ".join(f"{k} {v:.4f} s" for k, v in walls.items()))
             if not np.isfinite(x["wave"]).all() or x["wave"].shape != ref.shape or gap > tol:
                 failures.append(f"{label} rank {r}: {gap:.3e}")
-            if launches != expected:
-                failures.append(f"{label} rank {r}: launches {launches}, expected {expected}")
+            if launches != expected or list(x["bf16"].values()) != expected_bf16:
+                failures.append(f"{label} rank {r}: launches {launches}, bf16 {x['bf16']}, "
+                                f"expected {expected}, bf16 {expected_bf16}")
             if x["graphs"]:
                 failures.append(f"{label} rank {r}: a sharded call kept a program")
-        total = {k: sum(res[label]["launches"][k] for res in ranks) for k in SEQUENCE_LAUNCHES}
+        total = {k: sum(res[label]["launches"][k] for res in ranks) for k in expected}
+        bf16 = {k: sum(res[label]["bf16"][k] for res in ranks) for k in ck.bf16_launch_counts}
+        by_config = [sum(v) for v in zip(*(res[label]["by_config"] for res in ranks))]
+        f32_part, bf16_part = dtype_runs(ck, total, bf16, by_config)
         name = f"sequence: {label}, {SEQUENCE_RANKS} gloo ranks (eager)"
-        if "bf16" in label:
-            by_config = [sum(v) for v in zip(*(res[label]["by_config"] for res in ranks))]
-            bf16_paths[name] = card_runs({**total, **conv_launches(ck, by_config)}, [])
-        else:
-            paths[name] = card_runs(total, [])
+        paths[name] = f32_part
+        if any(expected_bf16):
+            bf16_paths[name] = bf16_part
+    # a shard's fused conv at full width, its own columns and one of its
+    # neighbour's, timed in each dtype
+    check_kernel_calls(torch, ck, dev, "sequence: the ranks' kernel calls", calls, failures,
+                       timed=lambda c: c[:2] == ("gn_silu_conv3x3", (1, 256, 257, 128))
+                       and c[3] == 128 and c[4] is not None)
     peaks = [f"{res['peak'] / 2**30:.2f}" for res in ranks]
     print(f"sequence: {SEQUENCE_RANKS} ranks spawned and done in {spawn:.1f} s; peak memory a "
           f"rank {peaks} GiB")
@@ -4888,6 +5117,7 @@ def main(argv=None) -> int:
 
     ok = True
     results = {}
+    t_start = time.time()
     for name, phase in (("kernels", lambda: check_kernels(torch, ck, dev)),
                         ("fused_act", lambda: check_fused_act(torch, ck, dev)),
                         ("forward", lambda: check_forward(torch, ck, dev)),
@@ -4919,6 +5149,7 @@ def main(argv=None) -> int:
             ok = False
             continue
         print(f"phase {name}: ok in {time.time() - t0:.1f} s")
+    print(f"phases: {time.time() - t_start:.1f} s in all")
     if not ok:
         return 1
     if only is not None:
@@ -4931,12 +5162,12 @@ def main(argv=None) -> int:
     paths = {"bbed_pc (graphed) + sebridge_v2 (eager, caller's noise)": results["enhance"][0],
              **results["snr"], **results["graphs"], **results["samplers"][0],
              **results["train"][0], **results["serve"], **results["eval"],
-             **results["snr_train"], **results["export"][0], **results["backbones"],
+             **results["snr_train"], **results["export"][0], **results["backbones"][0],
              **results["parallel"], **results["sequence"][0], **results["import"]}
     bf16_paths = {"bf16_forward (eager)": results["bf16_forward"],
                   "bf16_bench_program (graphed)": results["bf16_program"],
                   **results["samplers"][1], **results["train"][1], **results["export"][1],
-                  **results["sequence"][1]}
+                  **results["backbones"][1], **results["sequence"][1]}
 
     def launches(kernel, by=paths):
         # the split statistics' kernels run on the frames-parallel paths only

@@ -15,33 +15,68 @@ through ``groupnorm_silu``; both through their differentiable ops
 (``groupnorm_silu_conv3x3_op``, ``groupnorm_silu_op``), so that training runs
 the same kernels forward. With dropout in training a block's second chain is
 ``groupnorm_silu``, the dropout (flax's: ``h / keep`` where the caller's keep
-mask keeps), then its conv. Other nonlinearities run the blocks' chains in
-plain PyTorch, as the JAX package gates its kernels to SiLU. The remaining
-convolutions (stem, shortcuts, Combine, the up/down layers' convs, output
-layer) and the attention einsums are plain PyTorch, as the JAX package
-leaves them to XLA.
+mask keeps), then its conv. Other nonlinearities run the blocks' chains as
+the JAX package runs flax: the GroupNorm (``groupnorm_silu`` without its
+SiLU, ``gn_act``), rounded to the block's dtype, then the activation and the
+conv. The remaining convolutions (stem, shortcuts, Combine, the up/down
+layers' convs, output layer) and the attention einsums are plain PyTorch,
+as the JAX package leaves them to XLA.
 
 The bf16 trunk (``NCSNpp(dtype="bf16")``) keeps the parameters in float32 and
-computes where the JAX package's bf16 path does (diffse_tpu/models/layers.py):
-activations cross memory in bfloat16; convs and the blocks' dense layers take
-bf16 operands, sum in float32 and round once, then add their bias in bf16
-(``conv``, ``dense``, as flax's ``nn.Conv``/``nn.Dense`` with ``dtype``;
-the bf16 copies of their parameters are cast once, ``cast_params``, and in
-training on every call, so that the gradient reaches the float32
-parameters); GroupNorm statistics, the attention's norm, q/k/v and softmax
-stay float32. A program exported with the bf16 trunk (``serving/export.py``)
-takes those copies and the packed conv weights as inputs: inside
-``given_weights`` the blocks read them from the given store by their names
-in the backbone, in place of their caches.
+rounds where the JAX package's op-by-op bf16 program rounds, which is flax's
+dtype inference: a layer with a dtype computes in it; one without promotes
+its input with its float32 parameters. Convs and dense layers with a dtype
+take operands of it, sum in float32 and round once, then add their bias in
+that dtype (``conv``, ``dense``; the bf16 copies of their parameters are
+cast once, ``cast_params``, and in training on every call, so that the
+gradient reaches the float32 parameters); GroupNorm statistics are float32
+whatever the output. Layer by layer, for a bf16 map reaching it:
+
+  ======================  ====================================================
+  layer                   dtype and rounding points
+  ======================  ====================================================
+  stem conv, Combine      bf16 (the trunk's dtype), bias added in bf16;
+                          Combine ``sum`` rounds ``Conv_0(x) + y`` and
+                          ``cat`` rounds y to bf16
+  ResnetBlockBigGANpp     bf16 throughout (input cast); the fused chains (K1)
+                          round once after conv + bias [+ skip]; the plain
+                          chain (``gn_act``) rounds after the GroupNorm and
+                          after the activation, each conv after its sum and
+                          after its bias; the residual sum is bf16, divided
+                          by bf16(sqrt(2))
+  ResnetBlockDDPMpp       float32 (no dtype: its GroupNorm promotes): input
+                          cast to float32, every conv and dense float32
+  AttnBlockpp             norm, q/k/v and softmax float32; the attended map
+                          and NIN_3's output rounded to the input's dtype,
+                          the residual sum in it
+  NIN                     float32 (the einsum promotes)
+  Upsample / Downsample   float32: the DDPM-style 3x3 convs have no dtype;
+                          the nearest / mean / FIR resampling keeps x's dtype
+  FirConv2d               the fused up/down conv in x's dtype (the weight
+                          cast to it), the float32 bias promotes the result
+  residual(x, h)          the sum's dtype (bf16 + float32 is float32), the
+                          divisor sqrt(2) rounded to it
+  ======================  ====================================================
+
+The heads (models/ncsnpp.py): an output_skip head with swish is K1 in the
+trunk's dtype; every other head inside the trunk is the plain chain in it
+(the residual pyramid's first head rounds after its GroupNorm and its SiLU,
+as flax does); the final head of a configuration without output_skip has
+no dtype: float32. A program exported with the bf16 trunk
+(``serving/export.py``) takes the bf16 copies and the packed conv weights
+as inputs: inside ``given_weights`` the layers read them from the given
+store by their names in the backbone, in place of their caches.
 
 Inside a frames shard (``parallel.sequence.constrain_frames``: one
-utterance's frames split over ranks) the layers of the paper's configuration
-compute this rank's columns of the whole map's result: each GroupNorm's
-statistics are the shards' group sums, summed over the ranks
-(``gn_group_sums``, then ``gn_fold_ab``) and handed to the kernels as their
-affine (``ab=``); each 3x3 conv and FIR resample reads its neighbours' edge
-columns (``FramesShard.halo``); the attention attends over every rank's
-frames.
+utterance's frames split over ranks) every layer computes this rank's
+columns of the whole map's result: each GroupNorm's statistics are the
+shards' group sums, summed over the ranks (``gn_group_sums``, then
+``gn_fold_ab``) and handed to the kernels as their affine (``ab=``), in the
+fused chains and the plain ones alike; each 3x3 conv and FIR resample reads
+its neighbours' edge columns (``FramesShard.halo``), the stride-2 DDPM
+downsampling conv its right neighbour's first column, the fused FIR convs
+their reach (ops/fir.py); the nearest / mean resampling is the shard's own;
+the attention attends over every rank's frames.
 """
 
 from __future__ import annotations
@@ -73,17 +108,36 @@ FIR_KERNEL = (1, 3, 3, 1)
 SKIP_COEF = 1.0 / math.sqrt(2.0)
 
 
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``; on a bf16 x rounded where the JAX package's
+    ``jax.nn.silu`` rounds it, XLA expanding the logistic into ``1 / (1 +
+    exp(-x))`` with each step in bf16."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+# the leaky slope 0.2 rounded to each floating dtype, as a Python float: a
+# weakly typed scalar takes the array's dtype in the JAX package
+_LRELU_SLOPE = {dtype: float(torch.tensor(0.2, dtype=dtype))
+                for dtype in (torch.bfloat16, torch.float16, torch.float32, torch.float64)}
+
+
+def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope=_LRELU_SLOPE[x.dtype])
+
+
 def get_act(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     """The NCSN++ nonlinearity by name: elu, relu, lrelu (slope 0.2) or
-    swish (SiLU)."""
+    swish (SiLU), each rounding a bf16 input as the JAX package's does."""
     if name == "elu":
         return F.elu
     if name == "relu":
         return F.relu
     if name == "lrelu":
-        return lambda x: F.leaky_relu(x, negative_slope=0.2)
+        return _leaky_relu
     if name == "swish":
-        return F.silu
+        return _silu
     raise NotImplementedError("activation function does not exist!")
 
 
@@ -226,40 +280,80 @@ def cast_params(module: nn.Module, dtype: torch.dtype):
     return cached[2], cached[3]
 
 
-def conv(module: nn.Conv2d, x: torch.Tensor,
-         dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def conv(module: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype = torch.float32,
+         products: Optional[torch.dtype] = None) -> torch.Tensor:
     """``module(x)`` computed in ``dtype``, as flax's ``nn.Conv(dtype=...)``
     does: x and the weight cast to ``dtype``, the conv rounded to it once,
     then the bias (cast to ``dtype``) added in ``dtype``. Float32 is the
-    module's own call; the cast weight and bias are kept (``cast_params``).
-    On a frames shard a conv wider than one column reads its neighbours'
-    columns (zeros past the global edges, its SAME padding there) and pads
-    none along the frames."""
+    module's own call on x cast to float32 (flax's ``nn.Conv`` without a
+    dtype promotes a bf16 input with its float32 kernel); the cast weight
+    and bias are kept (``cast_params``). On a frames shard a conv wider than
+    one column reads its neighbours' columns (zeros past the global edges,
+    its SAME padding there) and pads none along the frames.
+
+    ``products`` (bf16 with a float32 ``dtype``): x and the weight rounded
+    to it, their products summed in float32 with a float32 output and bias,
+    as the JAX package's fused chain computes with ``compute_dtype`` on a
+    float32 map."""
+    x, padding = _frames_halo(module, x.to(dtype))
+    if products is not None:
+        weight = cast_params(module, products)[0].float()
+        return F.conv2d(x.to(products).float(), weight, module.bias, stride=module.stride,
+                        padding=padding)
+    if dtype == torch.float32:
+        return F.conv2d(x, module.weight, module.bias, stride=module.stride, padding=padding)
+    weight, bias = cast_params(module, dtype)
+    return _conv_nobias(module, x, weight, padding) + bias[None, :, None, None]
+
+
+def _frames_halo(module: nn.Conv2d, x: torch.Tensor):
+    """x and the padding ``module``'s conv takes it with: on a frames shard
+    x extended by its SAME padding's width of its neighbours' columns
+    (zeros past the global edges) and no padding along the frames."""
     padding = module.padding
     seq = current_frames()
-    if seq is not None and module.kernel_size[1] > 1:
-        if module.stride != (1, 1) or module.padding[1] != module.kernel_size[1] // 2:
-            raise NotImplementedError("a frames shard takes stride-1 SAME convs only")
-        x = seq.halo(x, 3, padding[1], padding[1])
-        padding = (padding[0], 0)
-        if dtype == torch.float32:
-            return F.conv2d(x, module.weight, module.bias, padding=padding)
-    elif dtype == torch.float32:
-        return module(x)
-    weight, bias = cast_params(module, dtype)
-    y = round_once(lambda a, w: F.conv2d(a, w, stride=module.stride, padding=padding),
-                   x.to(dtype), weight)
-    return y + bias[None, :, None, None]
+    if seq is None or module.kernel_size[1] == 1:
+        return x, padding
+    if module.stride != (1, 1) or padding[1] != module.kernel_size[1] // 2:
+        raise NotImplementedError("a frames shard takes stride-1 SAME convs only")
+    return seq.halo(x, 3, padding[1], padding[1]), (padding[0], 0)
+
+
+def _conv_nobias(module: nn.Conv2d, x: torch.Tensor, weight: torch.Tensor,
+                 padding) -> torch.Tensor:
+    """``weight``'s conv of x with ``module``'s stride, in x's dtype: a bf16
+    x's products summed in float32 and rounded once (``round_once``)."""
+    return round_once(lambda a, w: F.conv2d(a, w, stride=module.stride, padding=padding),
+                      x, weight)
+
+
+def conv_parts(module: nn.Conv2d, parts, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``conv(module, torch.cat(parts, 1), dtype)`` as the JAX package's
+    virtual-concat block computes it (``ResnetBlockBigGANpp._call_split``):
+    one conv per part with its slice of the weight's input channels, each
+    rounded to ``dtype``, their sum rounded to it, then the bias added in
+    it. One part is ``conv``'s call."""
+    if len(parts) == 1:
+        return conv(module, parts[0], dtype)
+    weight, bias = ((module.weight, module.bias) if dtype == torch.float32
+                    else cast_params(module, dtype))
+    total, start = None, 0
+    for part in parts:
+        x, padding = _frames_halo(module, part.to(dtype))
+        y = _conv_nobias(module, x, weight[:, start: start + x.shape[1]], padding)
+        total, start = (y if total is None else total + y), start + x.shape[1]
+    return total + bias[None, :, None, None]
 
 
 def dense(module: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``module(x)`` computed in ``dtype``, as flax's ``nn.Dense(dtype=...)``
     does (see ``conv``)."""
+    x = x.to(dtype)
     if dtype == torch.float32:
         return module(x)
     weight, bias = cast_params(module, dtype)
-    y = round_once(lambda a, w: a @ w.t(), x.to(dtype), weight)
+    y = round_once(lambda a, w: a @ w.t(), x, weight)
     return y + bias
 
 
@@ -275,13 +369,15 @@ def _sqrt2(dtype: torch.dtype) -> float:
 
 
 def residual(x: torch.Tensor, h: torch.Tensor, rescale: bool = True) -> torch.Tensor:
-    """``(x + h) / sqrt(2)`` in x's dtype (``x + h`` without ``rescale``). The
-    JAX package divides by the Python float sqrt(2), a weakly typed scalar that
-    takes the array's dtype: in bfloat16 the divisor is bf16(sqrt(2)) =
+    """``(x + h) / sqrt(2)`` (``x + h`` without ``rescale``), in the sum's
+    dtype: bf16 for two bf16 maps, float32 where either is float32. The JAX
+    package divides by the Python float sqrt(2), a weakly typed scalar that
+    takes the sum's dtype: in bfloat16 the divisor is bf16(sqrt(2)) =
     1.4140625, and so it is here."""
+    total = x + h
     if not rescale:
-        return x + h
-    return (x + h) / _sqrt2(x.dtype)
+        return total
+    return total / _sqrt2(total.dtype)
 
 
 def hwio_memory_(conv: nn.Conv2d) -> nn.Conv2d:
@@ -333,6 +429,18 @@ def gn_silu_conv(x: torch.Tensor, gn: "GroupNorm", conv: nn.Conv2d, bias: torch.
     return out[:, :, left: out.shape[2] - right].contiguous()
 
 
+def gn_act(gn: "GroupNorm", x: torch.Tensor, act: Callable[[torch.Tensor], torch.Tensor],
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``act(GroupNorm(x))`` with the GroupNorm rounded to ``out_dtype`` (x's
+    when None) before the activation, as flax's ``nn.GroupNorm(dtype=...)``
+    and then the activation round: ``groupnorm_silu`` without its SiLU (on a
+    frames shard with the whole map's statistics), then ``act``. The kernel
+    writes x's dtype or float32, so a float32 x's norm is rounded after it."""
+    out_dtype = out_dtype or x.dtype
+    h = gn(x, apply_silu=False, out_dtype=None if x.dtype == torch.float32 else out_dtype)
+    return act(h.to(out_dtype))
+
+
 class GroupNorm(nn.Module):
     """GroupNorm's parameters (``weight``, ``bias``) with the NCSN++ group
     count and eps 1e-6; calling it runs GroupNorm (+SiLU) through
@@ -368,7 +476,8 @@ class NIN(nn.Module):
         default_init_(self.W.data.T, init_scale, generator)
 
     def forward_nhwc(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.W + self.b
+        """Float32, as the JAX package's einsum promotes a bf16 x."""
+        return x.to(self.W.dtype) @ self.W + self.b
 
 
 class GaussianFourierProjection(nn.Module):
@@ -388,22 +497,25 @@ class GaussianFourierProjection(nn.Module):
 
 class Combine(nn.Module):
     """Combine the input pyramid into the trunk: ``Conv_0(x) + y`` (``sum``)
-    or ``[Conv_0(x), y]`` along the channels (``cat``), in the trunk's dtype
-    (y's)."""
+    or ``[Conv_0(x), y]`` along the channels (``cat``), in ``dtype`` (the
+    trunk's): ``Conv_0`` computes in it, the sum is rounded to it and y is
+    cast to it, as in the JAX package (y may be float32 in a bf16 trunk,
+    after DDPM-style blocks)."""
 
     def __init__(self, dim1: int, dim2: int, method: str = "sum",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if method not in ("sum", "cat"):
             raise ValueError(f"Method {method} not recognized.")
-        self.method = method
+        self.method, self.dtype = method, dtype
         self.Conv_0 = ddpm_conv(dim1, dim2, 1, generator=generator)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        h = conv(self.Conv_0, x, y.dtype)
+        h = conv(self.Conv_0, x, self.dtype)
         if self.method == "cat":
-            return torch.cat([h, y], dim=1)
-        return h + y
+            return torch.cat([h, y.to(self.dtype)], dim=1)
+        return (h + y).to(self.dtype)
 
 
 class AttnBlockpp(nn.Module):
@@ -459,10 +571,15 @@ class FirConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The up / down conv in x's dtype, the float32 bias promoting the
+        result (see the module docstring); on a frames shard its columns
+        (ops/fir.py)."""
         if self.up:
-            x = upsample_conv_2d(x, self.weight, k=self.resample_kernel)
+            x = upsample_conv_2d(x, self.weight, k=self.resample_kernel,
+                                 frames=current_frames())
         elif self.down:
-            x = conv_downsample_2d(x, self.weight, k=self.resample_kernel)
+            x = conv_downsample_2d(x, self.weight, k=self.resample_kernel,
+                                   frames=current_frames())
         else:
             x = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
         if self.bias is not None:
@@ -471,9 +588,10 @@ class FirConv2d(nn.Module):
 
 
 class Upsample(nn.Module):
-    """2x upsample: nearest neighbour (then ``Conv_0``, a 3x3 conv, with
-    ``with_conv``), or FIR (fused with the conv ``Conv2d_0`` with
-    ``with_conv``)."""
+    """2x upsample: nearest neighbour (then ``Conv_0``, a float32 3x3 conv,
+    with ``with_conv``), or FIR (fused with the conv ``Conv2d_0`` with
+    ``with_conv``). On a frames shard: the nearest upsample of its own
+    columns, then the conv's halo (``conv``); the FIR's reach (ops/fir.py)."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
                  fir: bool = False, fir_kernel=FIR_KERNEL,
@@ -490,16 +608,23 @@ class Upsample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.fir:
             h = naive_upsample_2d(x, factor=2)
-            return self.Conv_0(h) if self.with_conv else h
+            return conv(self.Conv_0, h) if self.with_conv else h
         if not self.with_conv:
-            return upsample_2d(x, self.fir_kernel, factor=2)
+            return upsample_2d(x, self.fir_kernel, factor=2, frames=current_frames())
         return self.Conv2d_0(x)
 
 
 class Downsample(nn.Module):
-    """2x downsample: a 3x3 stride-2 conv ``Conv_0`` on the map padded by one
-    row and column at the bottom and right (``with_conv``), or a 2x2 mean;
-    or FIR (fused with the conv ``Conv2d_0`` with ``with_conv``)."""
+    """2x downsample: a float32 3x3 stride-2 conv ``Conv_0`` on the map
+    padded by one row and column at the bottom and right (``with_conv``),
+    or a 2x2 mean; or FIR (fused with the conv ``Conv2d_0`` with
+    ``with_conv``).
+
+    On a frames shard (even widths, so that every shard starts on an even
+    column): the mean of its own columns; the stride-2 conv's output column
+    j reads input columns 2j .. 2j + 2, so the shard's last output reads
+    the first column of the rank after (the zero padding at the map's right
+    edge); the FIR's reach (ops/fir.py)."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = False,
                  fir: bool = False, fir_kernel=FIR_KERNEL,
@@ -514,12 +639,20 @@ class Downsample(nn.Module):
                                       generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        seq = current_frames()
         if not self.fir:
-            if self.with_conv:
+            if not self.with_conv:
+                return naive_downsample_2d(x, factor=2, frames=seq)
+            x = x.float()
+            if seq is None:
                 return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
-            return naive_downsample_2d(x, factor=2)
+            if x.shape[-1] % 2:
+                raise ValueError(f"a frames shard of {x.shape[-1]} columns does not "
+                                 "downsample by 2 on its own columns")
+            x = F.pad(seq.halo(x, 3, 0, 1), (0, 0, 0, 1))
+            return F.conv2d(x, self.Conv_0.weight, self.Conv_0.bias, stride=2)
         if not self.with_conv:
-            return downsample_2d(x, self.fir_kernel, factor=2)
+            return downsample_2d(x, self.fir_kernel, factor=2, frames=seq)
         return self.Conv2d_0(x)
 
 
@@ -552,8 +685,8 @@ class _ResnetBlock(nn.Module):
     with the conditioning in its per-batch bias; with dropout active (in
     training, rate > 0) the second chain runs ``groupnorm_silu``, the
     dropout, then ``Conv_1``. Other nonlinearities run the plain chain
-    (``F.group_norm``, the activation, the convs), as the JAX package gates
-    its kernels to SiLU."""
+    (``gn_act``, the convs), as the JAX package gates its kernels to
+    SiLU."""
 
     def _init_common(self, in_ch: int, out_ch: int, temb_dim: Optional[int],
                      semb_dim: Optional[int], act: str, dropout: float, skip_rescale: bool,
@@ -591,7 +724,7 @@ class _ResnetBlock(nn.Module):
         return bias0.contiguous()
 
     def _plain_gn_act(self, gn: "GroupNorm", x: torch.Tensor) -> torch.Tensor:
-        return self.act(F.group_norm(x, gn.num_groups, gn.weight, gn.bias, gn.eps))
+        return gn_act(gn, x, self.act)
 
     def _dropping(self) -> bool:
         return self.training and self.dropout > 0
@@ -619,7 +752,8 @@ class ResnetBlockDDPMpp(_ResnetBlock):
     The JAX package's block has no compute dtype: its maps are float32
     whatever the trunk's, and so they are here (the input is cast to
     float32). With ``swish``, outside dropout, the two chains are one fused
-    kernel each, the second with the shortcut as its skip and ``skip_coef``
+    kernel each (``gn_silu_conv``, on a frames shard with the whole map's
+    statistics), the second with the shortcut as its skip and ``skip_coef``
     1/sqrt(2) or 1."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
@@ -643,33 +777,29 @@ class ResnetBlockDDPMpp(_ResnetBlock):
 
     def _shortcut(self, x: torch.Tensor) -> torch.Tensor:
         if self.Conv_2 is not None:
-            return self.Conv_2(x)
+            return conv(self.Conv_2, x)
         if self.NIN_0 is not None:
             return from_nhwc(self.NIN_0.forward_nhwc(to_nhwc(x)))
         return x
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
-                semb: Optional[torch.Tensor] = None,
+                semb: Optional[torch.Tensor] = None, x2: Optional[torch.Tensor] = None,
                 keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
-        x = x.float()
+        """``x2``: the up path's skip, concatenated to x's channels."""
+        x = x.float() if x2 is None else torch.cat([x.float(), x2.float()], dim=1)
         temb_bias, semb_bias = self._dense_biases(temb, semb, torch.float32)
         skip = self._shortcut(x)
         if self.fused:
             bias0 = self._fused_bias0(x.shape[0], temb_bias, semb_bias)
-            h = groupnorm_silu_conv3x3_op(
-                to_nhwc(x), self.GroupNorm_0.weight, self.GroupNorm_0.bias,
-                conv_hwio(self.Conv_0), bias0, self.GroupNorm_0.num_groups,
-                self.GroupNorm_0.eps)
+            h = gn_silu_conv(to_nhwc(x), self.GroupNorm_0, self.Conv_0, bias0)
             if not self._dropping():
                 bias1 = self.Conv_1.bias[None, :].expand(x.shape[0], self.out_ch)
-                out = groupnorm_silu_conv3x3_op(
-                    h, self.GroupNorm_1.weight, self.GroupNorm_1.bias, conv_hwio(self.Conv_1),
-                    bias1, self.GroupNorm_1.num_groups, self.GroupNorm_1.eps,
-                    skip=to_nhwc(skip), skip_coef=self.skip_coef)
+                out = gn_silu_conv(h, self.GroupNorm_1, self.Conv_1, bias1, skip=to_nhwc(skip),
+                                   skip_coef=self.skip_coef)
                 return from_nhwc(out)
             h = from_nhwc(h)
         else:
-            h = self.Conv_0(self._plain_gn_act(self.GroupNorm_0, x))
+            h = conv(self.Conv_0, self._plain_gn_act(self.GroupNorm_0, x))
             for extra in (temb_bias, semb_bias):
                 if extra is not None:
                     h = h + extra[:, :, None, None]
@@ -753,16 +883,24 @@ class ResnetBlockBigGANpp(_ResnetBlock):
         if self.fir:
             resample = upsample_2d if self.up else downsample_2d
             return resample(x, self.fir_kernel, factor=2, frames=current_frames())
-        return (naive_upsample_2d if self.up else naive_downsample_2d)(x, factor=2)
+        if self.up:
+            return naive_upsample_2d(x, factor=2)
+        return naive_downsample_2d(x, factor=2, frames=current_frames())
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
-                semb: Optional[torch.Tensor] = None,
+                semb: Optional[torch.Tensor] = None, x2: Optional[torch.Tensor] = None,
                 keep_mask: Optional[KeepMask] = None) -> torch.Tensor:
+        """``x2``: the up path's skip, the input's second part of channels
+        (the JAX package's virtual concat): the plain chain of a block that
+        does not resample convolves each part on its own (``conv_parts``),
+        every other path takes the concatenation."""
         dtype = self.compute_dtype
+        resampling = self.up or self.down
+        if x2 is not None and (self.fused or resampling):
+            x, x2 = torch.cat([x, x2], dim=1), None
         x = x.to(dtype)
         batch = x.shape[0]
         temb_bias, semb_bias = self._dense_biases(temb, semb, dtype)
-        resampling = self.up or self.down
         if self.fused and not resampling:
             x_nhwc = to_nhwc(x)
             h = gn_silu_conv(x_nhwc, self.GroupNorm_0, self.Conv_0,
@@ -777,13 +915,16 @@ class ResnetBlockBigGANpp(_ResnetBlock):
                                skip_coef=self.skip_coef, w_packed=self.packed_weight("Conv_1"))
             return from_nhwc(out)
 
+        parts = [x] if x2 is None else [x, x2.to(dtype)]
+        x = torch.cat(parts, dim=1) if x2 is not None else x
         h = self.GroupNorm_0(x) if self.fused else self._plain_gn_act(self.GroupNorm_0, x)
         if resampling:
             h = self._resample(h)
             x = self._resample(x)
-        h = conv(self.Conv_0, h, dtype)
+            parts = [x]
+        h = conv_parts(self.Conv_0, h.split([p.shape[1] for p in parts], dim=1), dtype)
         for extra in (temb_bias, semb_bias):
             if extra is not None:
                 h = h + extra[:, :, None, None]
-        skip = conv(self.Conv_2, x, dtype) if self.Conv_2 is not None else x
+        skip = conv_parts(self.Conv_2, parts, dtype) if self.Conv_2 is not None else x
         return self._second_chain(h, skip, keep_mask, dtype)

@@ -17,24 +17,29 @@ pyramid's, the residual pyramid's first, the output's) as one
 as the JAX package runs flax. Maps are NCHW in channels_last memory.
 
 ``dtype="bf16"`` is the JAX package's bf16 trunk (its ``use_pallas_groupnorm``
-and ``fuse_pyramid`` path): the parameters and the state_dict stay float32;
-the stem conv takes the float32 spectrogram and gives bfloat16; every block,
-attention and Combine runs in bfloat16 (models/layers.py says where float32
-stays); each pyramid head runs the fused kernel on the bf16 map with a bf16
-output, cast to float32; the pyramid's sum and FIR upsample, the division by
-the noise level and ``output_layer`` are float32.
+and ``fuse_pyramid`` path), in every configuration: the parameters and the
+state_dict stay float32; the stem conv takes the float32 spectrogram and
+gives bfloat16; BigGAN blocks, attention and Combine run in bfloat16, and
+DDPM-style blocks in float32 (they have no dtype in the JAX package, so a
+DDPM trunk is float32 after its first block's GroupNorm; models/layers.py
+tabulates where each layer rounds); each output_skip head runs the fused
+kernel on the bf16 map with a bf16 output (swish) or the plain chain in
+bf16, cast to float32; the residual pyramids are float32 (their resampling
+convs have no dtype), the first head of the residual output pyramid the
+plain chain in bf16, and the final head of a configuration without
+output_skip float32; the pyramid's sum and upsample, the division by the
+noise level and ``output_layer`` are float32.
 
 The SNR-conditioned variant (``NCSNppSNR``) is the same network with a second
 Gaussian-Fourier embedding, of the noise level, fed through its own two dense
 layers into every residual block (``Dense_1``), and the output divided by the
 noise level instead of the time.
 
-Inside a frames shard (``parallel.sequence.constrain_frames``) the network
-of the paper's family (BigGAN blocks, FIR, output_skip / input_skip
-pyramids, swish; ``check_frames_parallel``) computes this rank's frames of
-the whole map's output: the layers exchange and reduce over the shard
-(models/layers.py), and a level whose frames do not divide over the ranks
-runs whole on every rank, with the levels below it (``FrameLevels``).
+Inside a frames shard (``parallel.sequence.constrain_frames``) every
+configuration computes this rank's frames of the whole map's output: the
+layers exchange and reduce over the shard (models/layers.py), and a level
+whose frames do not divide over the ranks runs whole on every rank, with
+the levels below it and the input pyramid there (``FrameLevels``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,6 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..ops.fir import downsample_2d, naive_downsample_2d, naive_upsample_2d, upsample_2d
@@ -88,10 +92,8 @@ class NCSNppBase(nn.Module):
                  init_scale: float = 0.0, fourier_scale: float = 16.0,
                  embedding_type: str = "fourier",
                  generator: Optional[torch.Generator] = None):
-        """``dtype``: the trunk's compute dtype, None (float32) or "bf16"
-        (the paper's configuration only: BigGAN blocks, swish, FIR,
-        skip_rescale, the output_skip / input_skip-sum pyramids, Fourier
-        embedding, conditional). ``fuse_pyramid`` names the JAX package's
+        """``dtype``: the trunk's compute dtype, None (float32) or "bf16".
+        ``fuse_pyramid`` names the JAX package's
         flag; the port always runs the output pyramid's heads fused (one
         kernel each, with swish) and takes no other value. ``remat``:
         recompute each residual block's activations in the backward pass
@@ -111,18 +113,6 @@ class NCSNppBase(nn.Module):
         if embedding_type not in ("fourier", "positional"):
             raise ValueError(f"embedding type {embedding_type} unknown.")
         self.compute_dtype = trunk_dtype(dtype)
-        paper = dict(nonlinearity="swish", resblock_type="biggan", fir=True, skip_rescale=True,
-                     progressive="output_skip", progressive_input="input_skip",
-                     progressive_combine="sum", embedding_type="fourier", conditional=True)
-        given = dict(nonlinearity=nonlinearity, resblock_type=resblock_type, fir=fir,
-                     skip_rescale=skip_rescale, progressive=progressive,
-                     progressive_input=progressive_input,
-                     progressive_combine=progressive_combine.lower(),
-                     embedding_type=embedding_type, conditional=conditional)
-        if self.compute_dtype != torch.float32 and given != paper:
-            other = {k: v for k, v in given.items() if paper[k] != v}
-            raise NotImplementedError(f"the bf16 trunk is ported for the paper's NCSN++ "
-                                      f"configuration only, not with {other}")
         self.dropout = dropout
         self.remat = remat
         self.nf = nf
@@ -202,7 +192,7 @@ class NCSNppBase(nn.Module):
                     modules.append(resblock(in_ch, down=True))
                 if progressive_input == "input_skip":
                     modules.append(layers.Combine(channels, in_ch, method=self.combine_method,
-                                                  generator=g))
+                                                  generator=g, dtype=self.compute_dtype))
                     if self.combine_method == "cat":
                         in_ch *= 2
                 elif progressive_input == "residual":
@@ -270,31 +260,29 @@ class NCSNppBase(nn.Module):
                                  "backward pass (torch.utils.checkpoint)")
         return parser
 
-    # the configuration fields frames-parallel enhancement takes (the paper's
-    # family), and the ROADMAP item that holds the others
-    FRAMES_FAMILY = dict(resblock_type="biggan", fir=True, progressive="output_skip",
-                         progressive_input="input_skip", swish=True)
-    FRAMES_TODO = "ROADMAP.md queue 1, frames-parallel enhancement of the other backbones"
+    # every configuration runs frames-parallel (``ScoreModel.enhance``'s
+    # ``seq_mesh``)
+    frames_parallel = True
 
-    def check_frames_parallel(self) -> None:
-        """Raise ``NotImplementedError`` unless frames-parallel enhancement
-        takes this configuration (``FRAMES_FAMILY``)."""
-        given = dict(resblock_type=self.resblock_type, fir=self.fir,
-                     progressive=self.progressive, progressive_input=self.progressive_input,
-                     swish=self.fused)
-        other = {k: v for k, v in given.items() if v != self.FRAMES_FAMILY[k]}
-        if other:
-            raise NotImplementedError(f"frames-parallel enhancement takes NCSN++ with "
-                                      f"{self.FRAMES_FAMILY}, not {other} ({self.FRAMES_TODO})")
-
-    def _head(self, h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d) -> torch.Tensor:
-        """GroupNorm -> act -> conv3x3, with swish one fused kernel in h's
-        dtype; the head's output as float32."""
-        if not self.fused:
-            h = self.act(F.group_norm(h, gn.num_groups, gn.weight, gn.bias, gn.eps))
-            return conv(h).float()
+    def _head(self, h: torch.Tensor, gn: layers.GroupNorm, conv: nn.Conv2d,
+              dtype: torch.dtype, fuse: bool = True) -> torch.Tensor:
+        """GroupNorm -> act -> conv3x3 computed in ``dtype``, the head's
+        output as float32. With swish one fused kernel (K1) where it rounds
+        as the JAX package's head does: an output_skip head (``fuse``, the
+        JAX package's fused pyramid head, whose reference on a float32 map
+        in a bf16 trunk rounds only the activation and the weights: K3, then
+        the conv with bf16 products, where the TPU runs K1, which takes no
+        float32 map with bf16 products yet: ROADMAP queue 1) or a float32 one
+        (on h cast to float32);
+        otherwise the plain chain, rounding after the GroupNorm, the
+        activation and the conv (flax's ``GroupNorm`` and ``Conv`` with
+        ``dtype``)."""
+        if not self.fused or not (fuse or dtype == torch.float32):
+            return layers.conv(conv, layers.gn_act(gn, h, self.act, dtype), dtype).float()
+        if h.dtype == torch.float32 and dtype != torch.float32:
+            return layers.conv(conv, gn(h), products=dtype)
         bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
-        out = layers.gn_silu_conv(layers.to_nhwc(h), gn, conv, bias)
+        out = layers.gn_silu_conv(layers.to_nhwc(h.to(dtype)), gn, conv, bias)
         return layers.from_nhwc(out).float()
 
     def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,
@@ -328,7 +316,9 @@ class NCSNppBase(nn.Module):
         if self.fir:
             return (upsample_2d if up else downsample_2d)(x, self.fir_kernel, factor=2,
                                                           frames=current_frames())
-        return (naive_upsample_2d if up else naive_downsample_2d)(x, factor=2)
+        if up:
+            return naive_upsample_2d(x, factor=2)
+        return naive_downsample_2d(x, factor=2, frames=current_frames())
 
     def _forward_trunk(self, x: torch.Tensor, time_cond: torch.Tensor,
                        noise_cond: Optional[torch.Tensor], keep_mask) -> torch.Tensor:
@@ -355,16 +345,15 @@ class NCSNppBase(nn.Module):
         else:
             temb = semb = None
 
-        def block(h_in):
-            return self._block(next(modules), keep_mask, h_in, temb, semb)
+        def block(h_in, skip=None):
+            return self._block(next(modules), keep_mask, h_in, temb, semb, skip)
 
         # on a frames shard, which levels run split (without one, no change)
-        if current_frames() is not None:
-            self.check_frames_parallel()
         frames = FrameLevels(h.shape[-1], num_resolutions)
+        cdt = self.compute_dtype
         input_pyramid = h
         with frames.level(0):
-            hs = [layers.conv(next(modules), h, self.compute_dtype)]
+            hs = [layers.conv(next(modules), h, cdt)]
         for i_level in range(num_resolutions):
             with frames.level(i_level):
                 for _ in range(self.num_res_blocks):
@@ -381,8 +370,9 @@ class NCSNppBase(nn.Module):
                             frames.down(input_pyramid, i_level), up=False)
                         h = next(modules)(input_pyramid, h)
                     elif self.progressive_input == "residual":
-                        input_pyramid = layers.residual(next(modules)(input_pyramid), h,
-                                                        self.skip_rescale)
+                        input_pyramid = layers.residual(
+                            next(modules)(frames.down(input_pyramid, i_level)), h,
+                            self.skip_rescale)
                         h = input_pyramid
                 hs.append(h)
 
@@ -396,11 +386,11 @@ class NCSNppBase(nn.Module):
         for i_level in reversed(range(num_resolutions)):
             with frames.level(i_level):
                 for _ in range(self.num_res_blocks + 1):
-                    h = block(torch.cat([h, hs.pop()], dim=1))
+                    h = block(h, hs.pop())
                 if self.all_resolutions[i_level] in self.attn_resolutions:
                     h = next(modules)(h)
                 if self.progressive == "output_skip":
-                    head = self._head(h, next(modules), next(modules))
+                    head = self._head(h, next(modules), next(modules), cdt)
                     if pyramid is None:
                         pyramid = head
                     else:
@@ -408,9 +398,11 @@ class NCSNppBase(nn.Module):
                                             pyramid, i_level + 1) + head
                 elif self.progressive == "residual":
                     if pyramid is None:
-                        pyramid = self._head(h, next(modules), next(modules))
+                        pyramid = self._head(h, next(modules), next(modules), cdt, fuse=False)
                     else:
-                        pyramid = layers.residual(next(modules)(pyramid), h, self.skip_rescale)
+                        pyramid = layers.residual(
+                            frames.up(next(modules), pyramid, i_level + 1), h,
+                            self.skip_rescale)
                         h = pyramid
             if i_level != 0:
                 h = frames.up(next(modules) if self.resblock_type == "ddpm" else block, h,
@@ -418,8 +410,8 @@ class NCSNppBase(nn.Module):
 
         if self.progressive == "output_skip":
             h = pyramid
-        else:
-            h = self._head(h, next(modules), next(modules))
+        else:  # the JAX package's final head has no dtype: float32
+            h = self._head(h, next(modules), next(modules), torch.float32)
 
         used_sigmas = noise_cond if snr else time_cond
         h = h / used_sigmas[:, None, None, None]

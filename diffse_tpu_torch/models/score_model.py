@@ -807,8 +807,8 @@ class ScoreModel:
         whole on each) and the steps run eagerly: every rank returns the
         whole waveform, the one-device program's to float tolerance. The
         SNR estimate and the snap to the Karras grid run on the whole
-        waveform, as on one device. Configurations of the backbone other
-        than the paper's family raise ``NotImplementedError``.
+        waveform, as on one device. Every NCSN++ configuration takes it;
+        another backbone (DCUNet) raises ``NotImplementedError``.
 
         Returns the enhanced waveform as a numpy array of ``samples``; with
         ``timeit=True`` a tuple ``(x_hat, nfe, rtf)``.
@@ -816,13 +816,10 @@ class ScoreModel:
         start = time.time()
         cfg = self.cfg
         branch = self._branch(sampler_type)
-        if seq_mesh is not None:
-            check = getattr(self.backbone, "check_frames_parallel", None)
-            if check is None:
-                raise NotImplementedError(
-                    f"frames-parallel enhancement takes NCSN++ only, not {cfg.backbone} "
-                    "(ROADMAP.md queue 1, frames-parallel enhancement of the other backbones)")
-            check()
+        if seq_mesh is not None and not getattr(self.backbone, "frames_parallel", False):
+            raise NotImplementedError(
+                f"frames-parallel enhancement takes NCSN++ only, not {cfg.backbone} "
+                "(ROADMAP.md queue 1, frames-parallel enhancement of DCUNet)")
         x, y = _as_wave(x), _as_wave(y)
         t_orig = y.shape[-1]
 

@@ -87,6 +87,10 @@ stats_launch_counts = {"gn_group_sums": 0, "gn_fold_ab": 0}
 # gn_silu_conv3x3's launches by instantiation (CONV_CONFIGS' ids), so that a run
 # can show which of its kernels the model went through
 conv_config_launches = [0, 0, 0, 0]
+# the GroupNorm kernels' launches on bfloat16 activations, of those counted in
+# launch_counts: a bf16 trunk may run some chains in float32 (DDPM-style
+# blocks, the final head), and a run tells the two apart by these
+bf16_launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
 # bf16 weights packed on the card by pack_conv_weight_bf16 (a cast kernel and
 # a copy each): a module packs its weights once, and the conv's wrapper
 # packs them itself when it is not given them; and the bf16 copies of the
@@ -100,8 +104,9 @@ recompute_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
 
 def reset_launch_counts() -> None:
     """Zero ``launch_counts``, ``stats_launch_counts``, ``conv_config_launches``,
-    ``weight_casts`` and ``recompute_counts``."""
-    for counts in (launch_counts, stats_launch_counts, weight_casts, recompute_counts):
+    ``bf16_launch_counts``, ``weight_casts`` and ``recompute_counts``."""
+    for counts in (launch_counts, stats_launch_counts, bf16_launch_counts, weight_casts,
+                   recompute_counts):
         for name in counts:
             counts[name] = 0
     conv_config_launches[:] = [0] * len(conv_config_launches)
@@ -781,6 +786,7 @@ def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                    int(apply_silu), _stream(x.device)),
                "groupnorm_silu")
     launch_counts["groupnorm_silu"] += 1
+    bf16_launch_counts["groupnorm_silu"] += x.dtype == torch.bfloat16
     return out
 
 
@@ -870,6 +876,7 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             plan.reduce_blocks, _stream(x.device)),
             "gn_silu_conv3x3")
     launch_counts["gn_silu_conv3x3"] += 1
+    bf16_launch_counts["gn_silu_conv3x3"] += dtype == torch.bfloat16
     conv_config_launches[plan.config] += 1
     return out
 

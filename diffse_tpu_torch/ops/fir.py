@@ -2,7 +2,8 @@
 
 Port of diffse_tpu/ops/fir.py: ``upsample_2d``, ``downsample_2d``, the naive
 variants, and the conv-fused ``upsample_conv_2d`` / ``conv_downsample_2d``
-that ``FirConv2d`` runs (the transposed or strided conv through cuDNN, the
+that ``FirConv2d`` runs (the transposed conv as a forward conv on the
+zero-stuffed input, ``ops.convt``, or the strided conv, through cuDNN; the
 FIR through ``upfirdn2d``'s plain path).
 
 ``upsample_2d`` and ``downsample_2d`` build their depthwise filter once per
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import forbid_capture, to_device
+from .convt import conv_transpose2d
 from .upfirdn2d import depthwise_weight, upfirdn2d_depthwise
 
 
@@ -37,8 +39,14 @@ def naive_upsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
 
 
-def naive_downsample_2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
-    """Box-mean downsample."""
+def naive_downsample_2d(x: torch.Tensor, factor: int = 2, frames=None) -> torch.Tensor:
+    """Box-mean downsample. On a frames shard (``frames``) each output column
+    is the mean of ``factor`` of the shard's own columns, which holds where
+    the shard's width, and so its first column, is a multiple of
+    ``factor``: checked, not assumed."""
+    if frames is not None and x.shape[-1] % factor:
+        raise ValueError(f"a frames shard of {x.shape[-1]} columns does not downsample by "
+                         f"{factor} on its own columns")
     return F.avg_pool2d(x, factor)
 
 
@@ -63,52 +71,73 @@ def _fir_weight(k, gain: float, factor: int, up: bool, x: torch.Tensor) -> torch
     return weight
 
 
-def _frames_upfirdn(frames, x: torch.Tensor, weight: torch.Tensor, up: int, down: int,
-                    pad: tuple) -> torch.Tensor:
-    """``upfirdn2d_depthwise`` of the whole map, this rank's output columns,
-    from a frames shard's columns (``parallel.sequence.FramesShard``): an
-    output column reads the padded, zero-stuffed input from ``o * down -
-    pad0`` on over the filter's width, so the shard takes ``pad0 // up``
-    columns of the rank before and as many of the rank after as its last
-    output reaches (zeros past the global edges, the map's zero padding),
-    and pads or crops the stuffed width so that its outputs line up with the
-    whole map's."""
-    kw, w = weight.shape[-1], x.shape[-1]
-    left = pad[0] // up
-    right = max(0, (up - down - pad[0] + kw - 1) // up)
-    xe = frames.halo(x, 3, left, right)
-    pad_left = pad[0] - left * up
-    pad_right = (w * up // down - 1) * down + kw - xe.shape[-1] * up - pad_left
-    return upfirdn2d_depthwise(xe, weight, up=up, down=down, pad=pad,
-                               pad_w=(pad_left, pad_right))
+def _frames_resample(frames, x: torch.Tensor, run, left: int, right: int, up: int,
+                     down: int) -> torch.Tensor:
+    """``run`` (a resampling of a whole map by ``up / down``, alone or fused
+    with a conv) of a frames shard (``parallel.sequence.FramesShard``):
+    ``run`` of the shard's columns extended by ``left`` columns of the rank
+    before and ``right`` of the rank after (zeros past the global edges, the
+    whole map's zero padding), the extension's outputs cropped. Exact when
+    each kept output reads no column past the extension (each caller's
+    reach) and the extension starts on the stride's phase (``left * up`` a
+    multiple of ``down``, the shard's first column a multiple of ``down``)."""
+    width = x.shape[-1]
+    if (left * up) % down or width % down:
+        raise ValueError(f"a frames shard of {width} columns, extended by {left}, is off the "
+                         f"stride {down}'s phase")
+    out = run(frames.halo(x, 3, left, right))
+    start = left * up // down
+    return out[..., start: start + width * up // down]
 
 
 def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0,
                 frames=None) -> torch.Tensor:
     """FIR upsample by ``factor``; on a frames shard (``frames``) this rank's
-    columns of the whole map's upsample."""
+    columns of the whole map's upsample. Its reach: output column o sums the
+    zero-stuffed input's columns ``o - pad0 .. o - pad0 + nt - 1`` (``nt``
+    taps), whose column m is x's column m / factor where factor divides m;
+    so the shard's first output (``factor * lo``) reads x from column ``lo -
+    pad0 // factor`` and its last up to ``hi - 1 + (nt - 2 - pad0) // factor
+    + 1``: for [1,3,3,1] (pad0 = 2) one column each side."""
     weight = _fir_weight(k, gain, factor, True, x)
-    p = weight.shape[-1] - factor
-    pad = ((p + 1) // 2 + factor - 1, p // 2)
-    if frames is not None:
-        return _frames_upfirdn(frames, x, weight, factor, 1, pad)
-    return upfirdn2d_depthwise(x, weight, up=factor, pad=pad)
+    nt = weight.shape[-1]
+    p = nt - factor
+    pad0 = (p + 1) // 2 + factor - 1
+
+    def run(x):
+        return upfirdn2d_depthwise(x, weight, up=factor, pad=(pad0, p // 2))
+
+    if frames is None:
+        return run(x)
+    return _frames_resample(frames, x, run, pad0 // factor,
+                            max(0, (nt - 2 - pad0) // factor + 1), factor, 1)
 
 
 def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0,
                   frames=None) -> torch.Tensor:
     """FIR downsample by ``factor``; on a frames shard (``frames``) this
-    rank's columns of the whole map's downsample."""
+    rank's columns of the whole map's downsample. Its reach: output column o
+    sums x's columns ``factor * o - pad0 .. factor * o - pad0 + nt - 1``, so
+    the shard's first output (``lo / factor``) reads x from ``lo - pad0``
+    (the extension rounded up to whole strides) and its last up to ``hi - 1
+    + nt - factor - pad0``: for [1,3,3,1] (pad0 = 1) two columns before,
+    one after."""
     weight = _fir_weight(k, gain, factor, False, x)
-    p = weight.shape[-1] - factor
-    pad = ((p + 1) // 2, p // 2)
-    if frames is not None:
-        return _frames_upfirdn(frames, x, weight, 1, factor, pad)
-    return upfirdn2d_depthwise(x, weight, down=factor, pad=pad)
+    nt = weight.shape[-1]
+    p = nt - factor
+    pad0 = (p + 1) // 2
+
+    def run(x):
+        return upfirdn2d_depthwise(x, weight, down=factor, pad=(pad0, p // 2))
+
+    if frames is None:
+        return run(x)
+    return _frames_resample(frames, x, run, -(-pad0 // factor) * factor,
+                            max(0, nt - factor - pad0), 1, factor)
 
 
 def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k=None, factor: int = 2,
-                     gain: float = 1.0) -> torch.Tensor:
+                     gain: float = 1.0, frames=None) -> torch.Tensor:
     """Fused ``factor``x upsample + conv (the StyleGAN2 layer): the conv on
     the zero-stuffed input, with a full (kh - 1) padding, then the FIR.
 
@@ -118,29 +147,70 @@ def upsample_conv_2d(x: torch.Tensor, w: torch.Tensor, k=None, factor: int = 2,
 
     The JAX package correlates ``w`` with the input dilated by ``factor``
     (``lhs_dilation``); a transposed conv of stride ``factor`` with the
-    kernel flipped and its in/out axes swapped is that correlation.
+    kernel flipped and its in/out axes swapped is that correlation, run as
+    ``ops.convt``'s forward conv on the zero-stuffed input (cuDNN's
+    transposed-conv algorithms sum by atomics, so that a captured program's
+    replay would not equal its eager run).
+
+    On a frames shard (``frames``) this rank's columns of the whole map's
+    output. Its reach: output column o sums the FIR's ``nt`` taps over the
+    conv's columns ``o - pad0 .. o - pad0 + nt - 1``, each of which sums
+    ``kh`` columns of the dilated input back from it; the dilated input's
+    column m is x's column m / factor where factor divides m. So the
+    shard's first output (``factor * lo``) reads x from column ``lo - (pad0
+    + kh - 1) // factor`` and its last (``factor * hi - 1``) up to ``hi - 1 +
+    (nt - 2 - pad0) // factor + 1``: for [1,3,3,1] and a 3x3 kernel (pad0 =
+    1) one column each side.
     """
     kh, kw = w.shape[2], w.shape[3]
     if kh != kw:
         raise ValueError(f"upsample_conv_2d: square kernels only, got {kh}x{kw}")
-    h = F.conv_transpose2d(x, torch.flip(w, (2, 3)).transpose(0, 1).to(x.dtype), stride=factor)
-    weight = _fir_weight(k, gain, factor, True, h)
-    p = (weight.shape[-1] - factor) - (kh - 1)
-    return upfirdn2d_depthwise(h, weight, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+    nt = len(k) if k is not None else factor
+    p = (nt - factor) - (kh - 1)
+    pad0 = (p + 1) // 2 + factor - 1
+
+    def run(x):
+        h = conv_transpose2d(x, torch.flip(w, (2, 3)).transpose(0, 1).to(x.dtype),
+                             stride=(factor, factor))
+        weight = _fir_weight(k, gain, factor, True, h)
+        return upfirdn2d_depthwise(h, weight, pad=(pad0, p // 2 + 1))
+
+    if frames is None:
+        return run(x)
+    return _frames_resample(frames, x, run, (pad0 + kh - 1) // factor,
+                            max(0, (nt - 2 - pad0) // factor + 1), factor, 1)
 
 
 def conv_downsample_2d(x: torch.Tensor, w: torch.Tensor, k=None, factor: int = 2,
-                       gain: float = 1.0) -> torch.Tensor:
+                       gain: float = 1.0, frames=None) -> torch.Tensor:
     """Fused FIR filter + stride-``factor`` conv (VALID).
 
     Args:
         x: ``[N, Cin, H, W]``.
         w: ``[Cout, Cin, kh, kw]`` (OIHW), square.
+
+    On a frames shard (``frames``) this rank's columns of the whole map's
+    output. Its reach: output column o sums ``kh`` filtered columns from
+    ``factor * o``, and filtered column c sums x's columns ``c - pad0 ..
+    c - pad0 + nt - 1``; so the shard's first output (``lo / factor``) reads
+    x from column ``lo - pad0`` and its last (``hi / factor - 1``) up to
+    ``hi - 1 + kh + nt - 1 - factor - pad0``, the extension on the left
+    rounded up to whole strides: for [1,3,3,1] and a 3x3 kernel (pad0 = 2)
+    two columns each side.
     """
     kh, kw = w.shape[2], w.shape[3]
     if kh != kw:
         raise ValueError(f"conv_downsample_2d: square kernels only, got {kh}x{kw}")
-    weight = _fir_weight(k, gain, factor, False, x)
-    p = (weight.shape[-1] - factor) + (kh - 1)
-    x = upfirdn2d_depthwise(x, weight, pad=((p + 1) // 2, p // 2))
-    return F.conv2d(x, w.to(x.dtype), stride=factor)
+    nt = len(k) if k is not None else factor
+    p = (nt - factor) + (kh - 1)
+    pad0 = (p + 1) // 2
+
+    def run(x):
+        weight = _fir_weight(k, gain, factor, False, x)
+        x = upfirdn2d_depthwise(x, weight, pad=(pad0, p // 2))
+        return F.conv2d(x, w.to(x.dtype), stride=factor)
+
+    if frames is None:
+        return run(x)
+    return _frames_resample(frames, x, run, -(-pad0 // factor) * factor,
+                            max(0, kh + nt - 1 - factor - pad0), 1, factor)

@@ -13,8 +13,6 @@ in bfloat16).
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
@@ -40,19 +38,15 @@ def depthwise_weight(kernel: torch.Tensor, channels: int) -> torch.Tensor:
 
 
 def upfirdn2d_depthwise(x: torch.Tensor, weight: torch.Tensor, up: int = 1, down: int = 1,
-                        pad: tuple[int, int] = (0, 0),
-                        pad_w: Optional[tuple[int, int]] = None) -> torch.Tensor:
+                        pad: tuple[int, int] = (0, 0)) -> torch.Tensor:
     """``upfirdn2d`` with the filter given as ``depthwise_weight`` of x's
-    dtype on x's device, which a caller can build once; ``pad_w``, when
-    given, pads (or crops) the width in place of ``pad`` (a frames shard's
-    columns extended by its neighbours', ``ops.fir``)."""
+    dtype on x's device, which a caller can build once."""
     n, c, h, w = x.shape
     pad0, pad1 = pad
-    pw0, pw1 = pad if pad_w is None else pad_w
     if up > 1:
         z = torch.empty((n, c, h * up, w * up), dtype=x.dtype, device=x.device,
                         memory_format=torch.channels_last).zero_()
         z[:, :, ::up, ::up] = x
         x = z
-    x = F.pad(x, (pw0, pw1, pad0, pad1))
+    x = F.pad(x, (pad0, pad1, pad0, pad1))
     return round_once(lambda a, k: F.conv2d(a, k, stride=down, groups=c), x, weight)

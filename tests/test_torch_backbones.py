@@ -322,8 +322,20 @@ def test_timestep_embedding_and_activations_match_jax():
 
 
 def test_bf16_refuses_other_configurations():
-    with pytest.raises(NotImplementedError, match="bf16"):
-        NCSNpp(**arch_of("ddpmpp"), dtype="bf16")
+    """No configuration is refused the bf16 trunk: each builds, NCSNpp and
+    NCSNppSNR, with float32 parameters and the float32 model's state_dict
+    (its keys and shapes), which takes the bridged weights."""
+    for name in CONFIGS:
+        arch = arch_of(name)
+        for cls, snr in ((NCSNpp, False), (NCSNppSNR, True)):
+            model = cls(**arch, dtype="bf16")
+            assert model.compute_dtype == torch.bfloat16
+            sd, ref = model.state_dict(), cls(**arch).state_dict()
+            assert all(v.dtype == torch.float32 for v in sd.values()), name
+            assert {k: v.shape for k, v in sd.items()} == {k: v.shape for k, v in ref.items()}
+            model.load_state_dict(state_dict_from_jax(
+                random_jax_params(arch, 0, frames=16, snr=snr), **arch, snr_conditioning=snr),
+                strict=True)
 
 
 def test_default_configuration_is_the_paper_program():

@@ -391,12 +391,41 @@ def test_export_cli_writes_the_ema_and_refuses_platforms(tmp_path):
 
 def test_export_refuses_what_it_cannot_trace(tiny_model):
     """A name that is no enhance branch is refused; every branch exports in
-    both trunks (tests below), and a bf16 trunk outside the paper's NCSN++
-    family cannot be built at all."""
+    both trunks (tests below), the bf16 trunk of every NCSN++ configuration
+    (``test_bf16_ddpmpp_artifact_matches_enhance``)."""
     with pytest.raises(ValueError, match="cannot be exported"):
         export.export_enhance(tiny_model, None, "sebridge_v3", 4800)
-    with pytest.raises(NotImplementedError, match="paper's NCSN"):
-        _model(backbone=dict(BF16_BACKBONE, resblock_type="ddpm"))
+
+
+# score_sde's DDPM++ (tests/test_torch_backbones.py), bf16 trunk: DDPM-style
+# blocks in float32, the stem's bf16 cast the only prepared weights
+BF16_DDPMPP = dict(BF16_BACKBONE, resblock_type="ddpm", fir=False, resamp_with_conv=True,
+                   progressive="none", progressive_input="none", embedding_type="positional")
+
+
+def test_bf16_ddpmpp_artifact_matches_enhance(tmp_path):
+    """A bf16 DDPM++ checkpoint's bbed_pc artifact (N = 3) through the
+    export CLI: bitwise equal to ``enhance`` on the same seed, its prepared
+    weights the stem's bf16 cast (the blocks and the final head are
+    float32), and a call casts nothing."""
+    from diffse_tpu_torch.cli import export_artifact
+
+    model = _model("bbed", sigma_max=0.5, seed=7, backbone=BF16_DDPMPP, **SMALL_STFT)
+    ckpt, path = str(tmp_path / "ckpt"), str(tmp_path / "art")
+    CheckpointManager(ckpt, hparams=model.hparams).save(0, TrainState(model.backbone), {})
+    meta = export_artifact.main(["--ckpt", ckpt, "--out", path, "--utt_seconds", "0.1875",
+                                 "--device", "cpu", "--N", "3"])
+    enhance, _ = load_artifact(path)
+    assert meta["dtype"] == "bfloat16"
+    prepared = torch.load(os.path.join(path, meta["prepared"]), weights_only=True)
+    stem = next(f"all_modules.{i}" for i, m in enumerate(model.backbone.all_modules)
+                if isinstance(m, torch.nn.Conv2d))
+    assert sorted(prepared) == [f"{stem}.cast_bias", f"{stem}.cast_weight"]
+    y = _wave(13, 3000)
+    casts = dict(ck.weight_casts)
+    got = enhance(y, seed=4, snr=0.3)
+    assert ck.weight_casts == casts
+    np.testing.assert_array_equal(got, _enhance(model, y, 4, N=3, snr=0.3))
 
 
 def test_format_1_artifact_is_refused(artifact, tmp_path):

@@ -79,6 +79,28 @@ def test_fir_resampling_matches_jax(name):
     np.testing.assert_allclose(_nchw_to_nhwc(out.numpy()), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("name", ["upsample_conv_2d", "conv_downsample_2d"])
+def test_fused_fir_convs_match_jax_without_a_transposed_conv(name, monkeypatch):
+    """``FirConv2d``'s fused up / down convs against the JAX package's, with
+    ``F.conv_transpose2d`` out of reach: cuDNN's transposed-conv algorithms
+    sum by atomics, so a captured program of the residual pyramids would not
+    replay its eager run bit for bit; the upsample runs a forward conv on
+    the zero-stuffed input (``ops.convt``)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a transposed conv")
+
+    monkeypatch.setattr(torch.nn.functional, "conv_transpose2d", refuse)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 6, 16, 8)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 6, 5)) / np.sqrt(54)).astype(np.float32)  # HWIO
+    x_cl = torch.from_numpy(x).contiguous(memory_format=torch.channels_last)
+    out = getattr(fir, name)(x_cl, torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
+                             k=[1, 3, 3, 1])
+    ref = getattr(jfir, name)(jnp.asarray(_nchw_to_nhwc(x)), jnp.asarray(w), k=[1, 3, 3, 1])
+    np.testing.assert_allclose(_nchw_to_nhwc(out.numpy()), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("length", [63 * 128, 20000])
 def test_stft_istft_match_jax(length):
     rng = np.random.default_rng(2)

@@ -23,8 +23,8 @@ take most of the file's time).
 
 Then, with no ranks: the split statistics and the kernels' given affine
 (``ab=``) in their plain versions, the halo arithmetic of the fused conv and
-the FIR resampling on a stand-in shard, the key of a mesh, and the
-configurations outside the slice raising.
+the FIR resampling on a stand-in shard, the key of a mesh, and DCUNet
+raising.
 """
 
 import concurrent.futures
@@ -413,19 +413,15 @@ def test_frame_levels_gather_where_a_level_does_not_divide():
 
 
 @pytest.mark.parametrize("backbone,kwargs", [
-    ("ncsnpp", dict(resblock_type="ddpm", fir=False, progressive="none",
-                    progressive_input="residual")),
-    ("ncsnpp", dict(fir=False)),
-    ("dcunet", dict(dcunet_architecture="DCUNet-10")),
+    pytest.param("dcunet", dict(dcunet_architecture="DCUNet-10"), id="dcunet-kwargs2"),
 ])
 def test_configurations_outside_the_slice_raise(backbone, kwargs):
-    """DCUNet, DDPM-style blocks, the residual pyramids and naive resampling
-    raise ``NotImplementedError`` under ``seq_mesh``, naming the ROADMAP
-    item, before any collective."""
-    arch = dict(ARCH, **kwargs) if backbone == "ncsnpp" else kwargs
+    """DCUNet raises ``NotImplementedError`` under ``seq_mesh``, naming the
+    ROADMAP item, before any collective (every NCSN++ configuration runs:
+    tests/test_torch_sequence_configs.py)."""
     cfg = ScoreModelConfig(backbone=backbone, sde="bbed", model_type="sebridge_v2",
-                           **({"n_fft": 512} if backbone == "dcunet" else {}))
-    model = ScoreModel(cfg, backbone_kwargs=arch, sde_kwargs=SDE_KWARGS, device="cpu")
+                           n_fft=512)
+    model = ScoreModel(cfg, backbone_kwargs=kwargs, sde_kwargs=SDE_KWARGS, device="cpu")
     y = _wavs(0)[1]
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         model.enhance(y, y, seq_mesh=object())
