@@ -1655,28 +1655,28 @@ def run_ode(torch, ck, dev, weights):
     eager_wall = time.perf_counter() - t0
     err = float(np.max(np.abs(graphed - eager)) / np.max(np.abs(eager)))
     bitwise = bool(np.array_equal(graphed, eager))
-    syncs = count_syncs(torch, lambda: model.enhance(
-        y, y, generator=torch.Generator(dev).manual_seed(71), sampler_type="ode"))
+    # 4 attempts a read, its synchronising operations counted in the same run
     program.steps_per_read = 4
-    again = model.enhance(y, y, generator=torch.Generator(dev).manual_seed(71),
-                          sampler_type="ode")
-    reads4, flags4 = program.reads, list(program.flags)
+    again = []
+    syncs = count_syncs(torch, lambda: again.append(model.enhance(
+        y, y, generator=torch.Generator(dev).manual_seed(71), sampler_type="ode")))
+    again, reads4, flags4 = again[0], program.reads, list(program.flags)
     program.steps_per_read = 1
     print(f"bbed_ode (rtol = atol = 1e-5), {ODE_SAMPLES / SR} s utterance ({t_pad} frames): nfev "
           f"{nfev}, attempts {flags[2]}, status {flags[3]}; first call (warm-up and capture of "
           f"three programs, then a run) {first:.4f} s, card memory they keep "
           f"{held / 2**20:.1f} MiB; graphed wall {wall:.4f} s with {reads} host reads of the "
-          f"done flag ({syncs} synchronising operations in a whole enhance, the final copy "
-          f"among them), eager wall {eager_wall:.4f} s (nfev {nfev_eager}); graphed vs eager, "
+          f"done flag, eager wall {eager_wall:.4f} s (nfev {nfev_eager}); graphed vs eager, "
           f"same generator state: max|diff|/max|eager| {err:.3e} (tol {GRAPH_TOL}), bitwise "
-          f"equal {bitwise}; 4 attempts a read: {reads4} reads, flags {flags4}, bitwise equal "
-          f"{bool(np.array_equal(again, graphed))}; launches recorded at capture "
+          f"equal {bitwise}; 4 attempts a read: {reads4} reads ({syncs} synchronising "
+          f"operations in that whole enhance, the final copy among them), flags {flags4}, "
+          f"bitwise equal {bool(np.array_equal(again, graphed))}; launches recorded at capture "
           f"{[p.launch_counts for p in program.programs]}")
     if (nfev != nfev_eager or err > GRAPH_TOL or flags4 != flags or not np.isfinite(graphed).all()
-            or not np.array_equal(again, graphed) or syncs > reads + 1 or flags[3] != 0):
+            or not np.array_equal(again, graphed) or syncs > reads4 + 1 or flags[3] != 0):
         failures.append(f"bbed_ode graphed: nfev {nfev} vs eager {nfev_eager}, deviates "
                         f"{err:.3e}, flags {flags} vs {flags4} at 4 attempts a read, syncs "
-                        f"{syncs} for {reads} reads")
+                        f"{syncs} for {reads4} reads")
     for sub, forwards in zip(program.programs, (2, 6, 1)):
         check_recorded("bbed_ode", sub, forwards, failures)
     paths["bbed_ode (graphed and eager)"] = card_runs(dict(ck.launch_counts), program.programs)
@@ -3588,7 +3588,16 @@ DDPMPP_EVAL_LAUNCHES = {"gn_silu_conv3x3": 75, "groupnorm_silu": 4, "fused_bias_
 DDPMPP_TRAIN_LAUNCHES = {"gn_silu_conv3x3": 38, "groupnorm_silu": 41, "fused_bias_leaky_relu": 0}
 # the paper's NCSN++ with both residual pyramids (71.1M parameters)
 RESIDUAL = dict(progressive="residual", progressive_input="residual")
-TRUNK_CONFIGS = {"paper": {}, "ddpm++": DDPMPP, "residual": RESIDUAL}
+# DDPM++ with the output_skip pyramid: its heads read the DDPM-style blocks'
+# float32 maps, so that in the bf16 trunk each runs K1 on a float32 map with
+# bf16 products (compute_dtype bf16), the mode's path
+DDPMPP_SKIP = dict(DDPMPP, progressive="output_skip")
+TRUNK_CONFIGS = {"paper": {}, "ddpm++": DDPMPP, "residual": RESIDUAL,
+                 "ddpm++ skip": DDPMPP_SKIP}
+# the trunks phase 14 runs of each configuration (DDPMPP_SKIP's float32 trunk
+# is DDPM++'s program but its heads)
+TRUNK_DTYPES = {"ddpm++": ("float32", "bf16"), "residual": ("float32", "bf16"),
+                "ddpm++ skip": ("bf16",)}
 # K1/K2 and K3 launches a forward by configuration and trunk, and of those
 # on bf16 activations. DDPM-style blocks are float32 in a bf16 trunk (the
 # JAX package gives them no dtype): 75 / 4, none bf16. The residual
@@ -3596,11 +3605,17 @@ TRUNK_CONFIGS = {"paper": {}, "ddpm++": DDPMPP, "residual": RESIDUAL}
 # dtype) are K1; in bf16 the first head of the residual output pyramid runs
 # the plain chain (K3 without its SiLU) where float32 runs K1 (76 / 28 and
 # 75 / 29). Each K3 is the attention's norm or an up/down block's.
+# DDPMPP_SKIP: the 37 blocks' 74 chains and 7 output_skip heads, one a level
+# (81 / 4), none on bf16 activations. DCUNet runs no GroupNorm kernel.
 TRUNK_LAUNCHES = {
     ("paper", "float32"): ((81, 28), (0, 0)), ("paper", "bf16"): ((81, 28), (81, 28)),
     ("ddpm++", "float32"): ((75, 4), (0, 0)), ("ddpm++", "bf16"): ((75, 4), (0, 0)),
-    ("residual", "float32"): ((76, 28), (0, 0)), ("residual", "bf16"): ((75, 29), (74, 29))}
-TRUNK_SEEDS = {"ddpm++": 58, "residual": 74}
+    ("residual", "float32"): ((76, 28), (0, 0)), ("residual", "bf16"): ((75, 29), (74, 29)),
+    ("ddpm++ skip", "bf16"): ((81, 4), (0, 0)), ("dcunet", "float32"): ((0, 0), (0, 0))}
+# of a forward's K1/K2 launches, those on float32 maps with bf16 products
+# (mixed_launch_counts): DDPMPP_SKIP's 7 heads in bf16, no other trunk's
+MIXED_LAUNCHES = {("ddpm++ skip", "bf16"): 7}
+TRUNK_SEEDS = {"ddpm++": 58, "residual": 74, "ddpm++ skip": 79}
 
 
 def _graphed_vs_eager(torch, dev, label, model, waves, seed_base, failures, card):
@@ -3808,10 +3823,11 @@ def run_backbones(torch, ck, dev, card):
     del model
     # with the fused conv at skip_coef 1, which skip_rescale=False gives; the
     # enhance path's calls (batch 1) timed, training's checked
-    extra = ("gn_silu_conv3x3", (1, 256, 128, 128), torch.float32, 128, 1.0, False)
+    extra = ("gn_silu_conv3x3", (1, 256, 128, 128), torch.float32, 128, 1.0, None, False)
     check_kernel_calls(torch, ck, dev, "ddpm++: the enhance and train steps' kernel calls",
                        calls | train_calls | {extra}, failures, timed=lambda c: c[1][0] == 1)
-    trunk_paths, bf16_paths = run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures)
+    trunk_paths, bf16_paths, mode = run_backbone_trunks(torch, ck, dev, card, y, f32_walls,
+                                                        failures)
     paths.update(trunk_paths)
     for label, path in {**paths, **bf16_paths}.items():
         print(f"{label}: kernel runs on the card {path['runs']}, recorded at capture "
@@ -3820,22 +3836,23 @@ def run_backbones(torch, ck, dev, card):
         failures.append("ddpm++: gn_silu_conv3x3 never ran")
     if failures:
         raise AssertionError("; ".join(failures))
-    return paths, bf16_paths
+    return paths, bf16_paths, mode
 
 
 def record_kernel_calls(ck, run):
     """``run()`` with every K1/K2 and K3 wrapper call recorded: the set of
-    ``("gn_silu_conv3x3", x shape, dtype, Cout, skip_coef or None, with
-    ab)`` and ``("groupnorm_silu", x shape, dtype, apply_silu, out_dtype,
-    with ab)``. Returns (``run``'s result, the calls)."""
+    ``("gn_silu_conv3x3", x shape, dtype, Cout, skip_coef or None,
+    compute_dtype, with ab)`` and ``("groupnorm_silu", x shape, dtype,
+    apply_silu, out_dtype, with ab)``. Returns (``run``'s result, the
+    calls)."""
     conv, norm, calls = ck.groupnorm_silu_conv3x3, ck.groupnorm_silu, set()
 
     def conv_spy(x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
-                 skip_coef=1.0, w_packed=None, ab=None):
+                 skip_coef=1.0, w_packed=None, ab=None, compute_dtype=None):
         calls.add(("gn_silu_conv3x3", tuple(x.shape), x.dtype, w.shape[-1],
-                   None if skip is None else float(skip_coef), ab is not None))
+                   None if skip is None else float(skip_coef), compute_dtype, ab is not None))
         return conv(x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef,
-                    w_packed, ab)
+                    w_packed, ab, compute_dtype)
 
     def norm_spy(x, scale, bias, num_groups, eps=1e-6, apply_silu=True, out_dtype=None,
                  ab=None):
@@ -3850,14 +3867,23 @@ def record_kernel_calls(ck, run):
         ck.groupnorm_silu_conv3x3, ck.groupnorm_silu = conv, norm
 
 
-def check_kernel_calls(torch, ck, dev, label, calls, failures, timed=None):
+def check_kernel_calls(torch, ck, dev, label, calls, failures, timed=None, rows=None):
     """Each recorded K1/K2 and K3 call (``record_kernel_calls``) on seeded
-    inputs of its shape and dtype against its plain version: float32 within
+    inputs of its shape and dtype against its plain version: a float32
+    output (K1 with bf16 products on a float32 map among them) within
     ``KERNEL_TOL``, bf16 within one bf16 ulp but on ``BF16_SHARE`` of the
     elements (``bf16_agreement``); a call given an affine (``ab=``, a frames
     shard's) with the affine of x's columns but its first. The calls that
-    ``timed(call)`` picks are timed beside their bound and printed. Returns
-    the largest error."""
+    ``timed(call)`` picks are timed beside their bound and printed; a
+    bf16-products call also beside the K3 + cuDNN pair the port ran there
+    before the mode (K3, the activation rounded to bf16, cuDNN's conv of it
+    with the weights rounded to bf16, float32 sums). With ``rows`` (a list),
+    each timed call's ``(call, max_abs_err, timing, bound_ms, bound_by,
+    pair ms)`` is appended. Returns the largest error."""
+    import torch.nn.functional as F
+
+    from diffse_tpu_torch.utils import float32_precision, queued_ms
+
     rng = np.random.default_rng(75)
 
     def t(a, dtype=torch.float32):
@@ -3873,12 +3899,15 @@ def check_kernel_calls(torch, ck, dev, label, calls, failures, timed=None):
         ab = None
         if call[-1]:
             ab = ck.gn_stats_ab(x[:, :, 1:].contiguous() if shape[2] > 1 else x, gs, gb, groups)
+        pair_ms = None
         if kind == "gn_silu_conv3x3":
-            cout, coef = call[3:5]
+            cout, coef, products = call[3:6]
             w = t(rng.standard_normal((3, 3, c, cout)) / np.sqrt(9 * c))
-            args = (x, gs, gb, w, t(0.1 * rng.standard_normal((shape[0], cout))), groups)
-            kw = dict(ab=ab) if coef is None else dict(
-                skip=t(rng.standard_normal((*shape[:3], cout)), dtype), skip_coef=coef, ab=ab)
+            bias = t(0.1 * rng.standard_normal((shape[0], cout)))
+            args = (x, gs, gb, w, bias, groups)
+            kw = dict(ab=ab, compute_dtype=products) if coef is None else dict(
+                skip=t(rng.standard_normal((*shape[:3], cout)), dtype), skip_coef=coef, ab=ab,
+                compute_dtype=products)
             packed = (ck.pack_conv_weight_bf16(w) if dtype == torch.bfloat16
                       and c % ck.CONV_BK_BF16 == 0 else None)
 
@@ -3888,8 +3917,18 @@ def check_kernel_calls(torch, ck, dev, label, calls, failures, timed=None):
             def plain():
                 return ck.groupnorm_silu_conv3x3_reference(*args, **kw)
 
-            plan = ck.CONV_CONFIGS[ck.conv_plan(*shape, cout, dtype).config][3]
+            if products is not None:
+                w16 = w.permute(3, 2, 0, 1).to(products).float()
+
+                def pair():  # the head as the port ran it before K1's mode
+                    act = ck.groupnorm_silu(x, gs, gb, groups, ab=ab).permute(0, 3, 1, 2)
+                    with float32_precision(dev):
+                        return F.conv2d(act.to(products).float(), w16, bias[0], padding=1)
+
+            plan = ck.CONV_CONFIGS[ck.conv_plan(*shape, cout, products or dtype,
+                                                None if products is None else dtype).config][3]
             name = (f"gn_silu_conv3x3 {list(shape)}->{cout} {str(dtype)[6:]}"
+                    f"{'' if products is None else f' {str(products)[6:]} products'}"
                     f"{'' if coef is None else f' +skip x{coef:.4f}'}"
                     f"{' ab=' if ab is not None else ''} (plan {plan})")
         else:
@@ -3916,14 +3955,21 @@ def check_kernel_calls(torch, ck, dev, label, calls, failures, timed=None):
         if timed is not None and timed(call):
             if kind == "gn_silu_conv3x3":
                 bounds = conv_bounds(*shape, cout, coef is not None, x.element_size())
-                bound_ms, bound_by = bounds["bf16" if dtype == torch.bfloat16 else "tf32x3"]
+                bf16 = dtype == torch.bfloat16 or products is not None
+                bound_ms, bound_by = bounds["bf16" if bf16 else "tf32x3"]
             else:  # x in, the output out, the scale and bias
                 bound_ms, bound_by = bound((9 if silu else 5) * x.numel(),
                                            (x.element_size() + out.element_size()) * x.numel()
                                            + 8 * c)
             times = timing(torch, kernel, plain)
-            print(f"{name}: max_abs_err {err:.3e} ok {ok} | "
-                  f"{describe(times, bound_ms, bound_by)}")
+            what = describe(times, bound_ms, bound_by)
+            if kind == "gn_silu_conv3x3" and products is not None:
+                pair_ms = median_ms(torch, pair)
+                what += (f"; the K3 + cuDNN pair it replaces {pair_ms:.4f} ms (queued "
+                         f"{queued_ms(pair):.4f})")
+            print(f"{name}: max_abs_err {err:.3e} ok {ok} | {what}")
+            if rows is not None:
+                rows.append((call, err, times, bound_ms, bound_by, pair_ms))
     print(f"{label}: {len(calls)} kernel call shapes against their plain versions, "
           f"max_abs_err {worst:.3e}; disagreeing {bad}")
     failures += [f"{label}: {b} disagrees" for b in bad]
@@ -3991,14 +4037,17 @@ def own_init_forward(torch, label, make, dev, x, t, failures):
             f"bf16-vs-float32 gap {f32_gap:.3e} (limit {BF16_GAP_RATIO})")
 
 
-def dtype_runs(ck, counts, bf16_counts, by_config, programs=()):
+def dtype_runs(ck, counts, bf16_counts, by_config, programs=(), mixed=None):
     """A path's kernel runs on the card split by the activations' dtype:
     ``(float32, bf16)``, each ``{"runs": ..., "recorded": ...}`` as
     ``card_runs`` gives them, from the wrappers' counts over the path's
     window (``launch_counts`` with ``stats_launch_counts``,
-    ``bf16_launch_counts``, ``conv_config_launches``) and its captured
-    programs. The bf16 part splits the conv's launches between the
-    ``wgmma.ss`` kernel and the others (``conv_launches``)."""
+    ``bf16_launch_counts``, ``conv_config_launches``, and ``mixed``, the
+    window's ``mixed_launch_counts``) and its captured programs. The bf16
+    part splits the conv's launches between the ``wgmma.ss`` kernel and the
+    others (``conv_launches``); the float32 part the conv's launches with
+    bf16 products on float32 maps (``gn_silu_conv3x3_f32_bf16``) from the
+    others."""
     def total(window, recorded_of):
         recorded = {k: sum(recorded_of(p).get(k, 0) for p in programs) for k in window}
         runs = {k: n + sum(recorded_of(p).get(k, 0) * (p.replays - 1) for p in programs)
@@ -4013,6 +4062,11 @@ def dtype_runs(ck, counts, bf16_counts, by_config, programs=()):
                                                    p.conv_config_launches[ws]})
     f32 = ({k: v - b16_runs.get(k, 0) for k, v in all_runs.items()},
            {k: v - b16_recorded.get(k, 0) for k, v in all_recorded.items()})
+    mixed_runs, mixed_recorded = total({"gn_silu_conv3x3": 0} if mixed is None else mixed,
+                                       lambda p: p.mixed_launch_counts)
+    for part, m in zip(f32, (mixed_runs, mixed_recorded)):
+        part["gn_silu_conv3x3"] -= m["gn_silu_conv3x3"]
+        part["gn_silu_conv3x3_f32_bf16"] = m["gn_silu_conv3x3"]
 
     def bf16_entries(part):
         return {**part, "fused_bias_leaky_relu": 0,
@@ -4024,10 +4078,14 @@ def dtype_runs(ck, counts, bf16_counts, by_config, programs=()):
 
 def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
     """Phase 14, the trunks of other configurations: DDPM++ in bf16 (its
-    float32 ``bbed_pc`` ran above: ``f32_walls``) and the residual
-    configuration in float32 and bf16, on ``y`` (1.0 s), each with the same
-    redrawn weights in both trunks. Returns the float32 and the bf16
-    kernels' runs by path."""
+    float32 ``bbed_pc`` ran above: ``f32_walls``), the residual
+    configuration in float32 and bf16, each with the same redrawn weights in
+    both trunks, and DDPMPP_SKIP in bf16 (its heads K1 with bf16 products on
+    float32 maps; its float32 forward for the gap only), on ``y`` (1.0 s).
+    Returns the float32 and the bf16 kernels' runs by path, and the JSON
+    record's row of K1's bf16-products mode (its head calls timed at batch
+    1: the largest beside its bound and the pair it replaces, the largest
+    error of any)."""
     import copy
 
     from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
@@ -4039,9 +4097,9 @@ def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
                          .astype(np.complex64))
     t = torch.tensor([0.5])
     all_calls = set()
-    for config in ("ddpm++", "residual"):
+    for config in TRUNK_DTYPES:
         walls, outs, weights = {k: v for k, v in f32_walls.items() if k == config}, {}, None
-        for dtype in ("float32", "bf16"):
+        for dtype in TRUNK_DTYPES[config]:
             label = f"{config} {dtype}"
 
             def make(device, model_type="bbed", dtype=dtype, redrawn=True):
@@ -4069,6 +4127,11 @@ def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
                 got = ((ck.launch_counts["gn_silu_conv3x3"], ck.launch_counts["groupnorm_silu"]),
                        (ck.bf16_launch_counts["gn_silu_conv3x3"],
                         ck.bf16_launch_counts["groupnorm_silu"]))
+                mixed = ck.mixed_launch_counts["gn_silu_conv3x3"]
+                if "float32" not in outs:  # the float32 trunk on the same weights
+                    outs["float32"] = make(dev, dtype="float32").backbone(x.to(dev), t.to(dev))
+            if mixed != MIXED_LAUNCHES.get((config, dtype), 0):
+                failures.append(f"{label}: {mixed} K1 launches a forward with bf16 products")
             if (config, dtype) == ("ddpm++", "float32"):  # held to the CPU above
                 if got != TRUNK_LAUNCHES[(config, dtype)]:
                     failures.append(f"{label}: launches a forward {got}")
@@ -4092,7 +4155,8 @@ def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
             print(f"{label} NCSN++ ({n_params} params) forward (F=256 T={BENCH_FRAMES}, "
                   f"redrawn weights): {what}; "
                   f"launches a forward (K1/K2, K3) {got[0]}, on bf16 activations {got[1]} "
-                  f"(expected {TRUNK_LAUNCHES[(config, dtype)]})")
+                  f"(expected {TRUNK_LAUNCHES[(config, dtype)]}), K1 with bf16 products on "
+                  f"float32 maps {mixed} (expected {MIXED_LAUNCHES.get((config, dtype), 0)})")
             if got != TRUNK_LAUNCHES[(config, dtype)]:
                 failures.append(f"{label}: launches a forward {got}")
             # bbed_pc and sebridge_v2, graphed against eager
@@ -4107,13 +4171,17 @@ def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
                 p for _, p in v2._graphs.values()]
             per_forward = {k: programs[0].launch_counts[k] // (2 * BACKBONE_PC_N)
                            for k in ("gn_silu_conv3x3", "groupnorm_silu")}
+            mixed = programs[0].mixed_launch_counts["gn_silu_conv3x3"] // (2 * BACKBONE_PC_N)
             print(f"{label}: launches per forward in the captured bbed_pc program "
-                  f"{per_forward}; sebridge_v2 replay wall {v2_walls[0]:.4f} s per utterance")
-            if tuple(per_forward.values()) != TRUNK_LAUNCHES[(config, dtype)][0]:
-                failures.append(f"{label}: bbed_pc launches per forward {per_forward}")
+                  f"{per_forward}, with bf16 products on float32 maps {mixed}; sebridge_v2 "
+                  f"replay wall {v2_walls[0]:.4f} s per utterance")
+            if (tuple(per_forward.values()) != TRUNK_LAUNCHES[(config, dtype)][0]
+                    or mixed != MIXED_LAUNCHES.get((config, dtype), 0)):
+                failures.append(f"{label}: bbed_pc launches per forward {per_forward}, "
+                                f"{mixed} with bf16 products")
             f32_part, bf16_part = dtype_runs(
                 ck, {**ck.launch_counts, **ck.stats_launch_counts}, ck.bf16_launch_counts,
-                ck.conv_config_launches, programs)
+                ck.conv_config_launches, programs, ck.mixed_launch_counts)
             name = f"{label} trunk: bbed_pc + sebridge_v2 (graphed and eager)"
             paths[name] = f32_part
             if any(TRUNK_LAUNCHES[(config, dtype)][1]):
@@ -4124,13 +4192,30 @@ def run_backbone_trunks(torch, ck, dev, card, y, f32_walls, failures):
               "per utterance: "
               + ", ".join(f"{'float32' if k == config else k} {v:.4f} s"
                           for k, v in walls.items()))
-    check_kernel_calls(torch, ck, dev, "trunks: the forwards' kernel calls", all_calls, failures)
+    # every call checked; K1's bf16-products calls (the heads) timed
+    rows = []
+    mode_err = check_kernel_calls(
+        torch, ck, dev, "trunks: the forwards' kernel calls", all_calls, failures,
+        timed=lambda c: c[0] == "gn_silu_conv3x3" and c[5] is not None, rows=rows)
+    if not rows:
+        failures.append("trunks: no K1 call with bf16 products on a float32 map")
+        return paths, bf16_paths, {}
+    call, _, times, bound_ms, bound_by, pair_ms = max(rows, key=lambda r: np.prod(r[0][1]))
+    mode = {"max_abs_err": max(r[1] for r in rows), **times, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": [*call[1], call[3]],
+            "replaced_pair_ms": pair_ms}
+    print(f"K1 with bf16 products on float32 maps: {len(rows)} head shapes, max_abs_err "
+          f"{mode['max_abs_err']:.3e} (all trunk calls {mode_err:.3e}); the largest "
+          f"{mode['shape'][:4]}->{mode['shape'][4]}: {describe(times, bound_ms, bound_by)}, "
+          f"the K3 + cuDNN pair {pair_ms:.4f} ms [{card}]")
     if not all(p["runs"]["gn_silu_conv3x3"] for p in paths.values()):
         failures.append("trunks: a path ran no float32 gn_silu_conv3x3")
     if not all(p["runs"]["gn_silu_conv3x3"] and p["runs"]["groupnorm_silu"]
                for p in bf16_paths.values()):
         failures.append("trunks: a bf16 path ran no bf16 K1/K3")
-    return paths, bf16_paths
+    if not any(p["runs"]["gn_silu_conv3x3_f32_bf16"] for p in paths.values()):
+        failures.append("trunks: no path ran K1 with bf16 products on a float32 map")
+    return paths, bf16_paths, mode
 
 
 # ---------------------------------------------------------------- parallel
@@ -4519,7 +4604,14 @@ SEQUENCE_CASES = [("sebridge_v2", "sebridge_v2", 1.0, "paper", "float32", 61, {}
                   ("residual sebridge_v2", "sebridge_v2", 1.0, "residual", "float32", 64, {}),
                   ("residual sebridge_v2 bf16", "sebridge_v2", 1.0, "residual", "bf16", 64, {}),
                   ("residual bbed_pc", "bbed", 0.5, "residual", "float32", 65,
+                   {"N": SEQUENCE_PC_N}),
+                  ("dcunet sebridge_v2", "sebridge_v2", 1.0, "dcunet", "float32", 66, {}),
+                  ("dcunet bbed_pc", "bbed", 0.5, "dcunet", "float32", 67,
                    {"N": SEQUENCE_PC_N})]
+# DCUNet in phase 16: phase 14's (DilDCUNet-v2 at the training CLI's
+# defaults, "bN", n_fft 512), its weights and running statistics redrawn and
+# its output layer scaled as there; its 513 padded frames split unevenly
+SEQUENCE_DCUNET_SEED = 32
 
 
 def sequence_launches(config, dtype, forwards):
@@ -4597,12 +4689,15 @@ def check_sequence_kernels(torch, ck, dev):
     return rows
 
 
-def sequence_model(torch, dev, model_type, sigma_max, backbone, weights):
-    """The NCSN++ of ``backbone`` keywords in a ScoreModel of ``model_type``
-    under BBED, with ``weights``."""
+def sequence_model(torch, dev, model_type, sigma_max, backbone, weights, config="paper"):
+    """The backbone of ``backbone`` keywords (configuration ``config``: an
+    NCSN++ of ``TRUNK_CONFIGS``, or "dcunet" at ``DCUNET_N_FFT``) in a
+    ScoreModel of ``model_type`` under BBED, with ``weights``."""
     from diffse_tpu_torch.models.score_model import ScoreModel, ScoreModelConfig
 
-    cfg = ScoreModelConfig(backbone="ncsnpp", sde="bbed", model_type=model_type,
+    kind = dict(backbone="dcunet", n_fft=DCUNET_N_FFT) if config == "dcunet" else dict(
+        backbone="ncsnpp")
+    cfg = ScoreModelConfig(**kind, sde="bbed", model_type=model_type,
                            snr_conditioned="false", sigma_max=sigma_max)
     model = ScoreModel(cfg, backbone_kwargs=backbone, sde_kwargs=dict(
         T_sampling=0.999, k=2.6, theta=0.52, N=30), device=dev,
@@ -4615,7 +4710,8 @@ def _sequence_rank(rank, workdir, device):
     """One rank of phase 16: each case's enhance over the frames mesh of
     every rank, each 1-NFE case twice (the second timed warm), with its
     waveform, walls, launches (of those, on bf16 activations, and by conv
-    instantiation), the kernel calls it made and the programs it kept."""
+    instantiation), the kernel calls it made, the programs it kept and, for
+    DCUNet, the output columns its first encoder conv computed."""
     import os
 
     import torch
@@ -4632,8 +4728,12 @@ def _sequence_rank(rank, workdir, device):
         torch.cuda.reset_peak_memory_stats(dev)
     for label, model_type, sigma_max, config, dtype, seed, kw in SEQUENCE_CASES:
         model = sequence_model(torch, dev, model_type, sigma_max,
-                               {**ref["backbones"][config], "dtype": dtype},
-                               ref["weights"][config])
+                               sequence_backbone(ref["backbones"][config], config, dtype),
+                               ref["weights"][config], config)
+        columns = []
+        if config == "dcunet":
+            model.backbone.encoder_0.conv.register_forward_hook(
+                lambda mod, args, y: columns.append(y.shape[3]))
         walls = []
         for _ in range(1 if kw else 2):
             ck.reset_launch_counts()
@@ -4646,10 +4746,34 @@ def _sequence_rank(rank, workdir, device):
         out[label] = {"wave": wave, "walls": walls, "graphs": len(model._graphs),
                       "launches": {**ck.launch_counts, **ck.stats_launch_counts},
                       "bf16": dict(ck.bf16_launch_counts),
-                      "by_config": list(ck.conv_config_launches), "calls": calls}
+                      "by_config": list(ck.conv_config_launches), "calls": calls,
+                      "columns": sorted(set(columns))}
         del model
     out["peak"] = _peak(torch, dev)
     return out
+
+
+def sequence_backbone(kwargs, config, dtype):
+    """A phase-16 backbone's keywords: an NCSN++'s with its trunk's dtype;
+    DCUNet's (float32 only, as in the JAX package) as they are."""
+    return kwargs if config == "dcunet" else {**kwargs, "dtype": dtype}
+
+
+def sequence_weights(torch, config, backbone):
+    """A phase-16 backbone's redrawn weights (and DCUNet's running
+    statistics, its output layer scaled by ``DCUNET_OUTPUT_SCALE``)."""
+    if config != "dcunet":
+        redraw_weights(torch, backbone, seed=SEQUENCE_WEIGHT_SEED)
+        return {k: v.detach().clone() for k, v in backbone.state_dict().items()}
+    redraw_weights(torch, backbone, seed=SEQUENCE_DCUNET_SEED)
+    g = torch.Generator().manual_seed(SEQUENCE_DCUNET_SEED + 1)
+    with torch.no_grad():
+        for p in backbone.output_layer.parameters():
+            p.mul_(DCUNET_OUTPUT_SCALE)
+        for name, b in backbone.named_buffers():
+            b.copy_((torch.rand(b.shape, generator=g) + 0.5) if name.endswith("var")
+                    else 0.1 * torch.randn(b.shape, generator=g))
+    return {k: v.detach().clone() for k, v in backbone.state_dict().items()}
 
 
 def run_sequence(torch, ck, dev, card):
@@ -4659,6 +4783,7 @@ def run_sequence(torch, ck, dev, card):
     import shutil
     import tempfile
 
+    from diffse_tpu_torch.models.dcunet import DCUNet
     from diffse_tpu_torch.models.ncsnpp import NCSNpp
     from diffse_tpu_torch.parallel import dryrun
     from diffse_tpu_torch.utils import generator_noise
@@ -4670,10 +4795,13 @@ def run_sequence(torch, ck, dev, card):
     _, wave = synthetic_pair(np.random.default_rng(16), int(SEQUENCE_SECONDS * SR))
     weights, n_params, backbones = {}, {}, {}
     for config in dict.fromkeys(case[3] for case in SEQUENCE_CASES):
-        backbones[config] = {**TRUNK_CONFIGS[config], **SEQUENCE_BACKBONE}
-        backbone = NCSNpp(**backbones[config], generator=torch.Generator().manual_seed(0))
-        redraw_weights(torch, backbone, seed=SEQUENCE_WEIGHT_SEED)
-        weights[config] = {k: v.detach().clone() for k, v in backbone.state_dict().items()}
+        if config == "dcunet":
+            backbones[config] = DCUNET_CLI
+            backbone = DCUNet(**DCUNET_CLI, generator=torch.Generator().manual_seed(0))
+        else:
+            backbones[config] = {**TRUNK_CONFIGS[config], **SEQUENCE_BACKBONE}
+            backbone = NCSNpp(**backbones[config], generator=torch.Generator().manual_seed(0))
+        weights[config] = sequence_weights(torch, config, backbone)
         n_params[config] = sum(p.numel() for p in backbone.parameters())
         del backbone
 
@@ -4683,7 +4811,12 @@ def run_sequence(torch, ck, dev, card):
     one = {}
     for label, model_type, sigma_max, config, dtype, seed, kw in SEQUENCE_CASES:
         model = sequence_model(torch, dev, model_type, sigma_max,
-                               {**backbones[config], "dtype": dtype}, weights[config])
+                               sequence_backbone(backbones[config], config, dtype),
+                               weights[config], config)
+        if config == "dcunet":  # the whole output width of the first encoder conv
+            model.backbone.encoder_0.conv.register_forward_hook(
+                lambda mod, args, y, label=label: one.__setitem__(label + " columns",
+                                                                   y.shape[3]))
         walls = {}
         for how in ("graphed", "replay") + (() if kw else ("eager",)):
             gen = torch.Generator(dev).manual_seed(seed)
@@ -4736,8 +4869,8 @@ def run_sequence(torch, ck, dev, card):
             launches = x["launches"]
             walls = one[label + " walls"]
             print(f"sequence ({card}): {label} on a {SEQUENCE_SECONDS} s utterance (512 frames, "
-                  f"the {n_params[config]}-parameter {config} NCSN++, weights redrawn from seed "
-                  f"{SEQUENCE_WEIGHT_SEED}), gloo rank {r} of {SEQUENCE_RANKS} against one "
+                  f"the {n_params[config]}-parameter {config} backbone, weights redrawn), "
+                  f"gloo rank {r} of {SEQUENCE_RANKS} against one "
                   f"device: max|diff|/max|ref| {gap:.3e} ({what}); launches on the rank "
                   f"{launches} over {forwards} forward(s), of those on bf16 activations "
                   f"{x['bf16']}, by conv instantiation {x['by_config']}; programs kept "
@@ -4750,6 +4883,15 @@ def run_sequence(torch, ck, dev, card):
                                 f"expected {expected}, bf16 {expected_bf16}")
             if x["graphs"]:
                 failures.append(f"{label} rank {r}: a sharded call kept a program")
+            if config == "dcunet":  # the split is real: a rank computes its part only
+                whole = one[label + " columns"]
+                print(f"sequence: {label} rank {r}: the first encoder conv computed "
+                      f"{x['columns']} of its {whole} output columns (at most "
+                      f"{-(-whole // SEQUENCE_RANKS)})")
+                if len(x["columns"]) != 1 or x["columns"][0] > -(-whole // SEQUENCE_RANKS):
+                    failures.append(f"{label} rank {r}: first encoder columns {x['columns']}")
+        if config == "dcunet":  # cuDNN's convs only: no kernel path
+            continue
         total = {k: sum(res[label]["launches"][k] for res in ranks) for k in expected}
         bf16 = {k: sum(res[label]["bf16"][k] for res in ranks) for k in ck.bf16_launch_counts}
         by_config = [sum(v) for v in zip(*(res[label]["by_config"] for res in ranks))]
@@ -5190,6 +5332,10 @@ def main(argv=None) -> int:
          "also_replaces": "diffse_tpu/ops/pallas_kernels.py:350",
          **launches("gn_silu_conv3x3_other", bf16_paths),
          **results["bf16_kernels"]["gn_silu_conv3x3"]},
+        {"name": "gn_silu_conv3x3_f32_bf16", **gn_source,
+         "replaces": "diffse_tpu/ops/pallas_kernels.py:269",
+         "also_replaces": "diffse_tpu/ops/pallas_kernels.py:350",
+         **launches("gn_silu_conv3x3_f32_bf16"), **results["backbones"][2]},
         {"name": "gn_silu_conv3x3_bf16_wgmma_ss", **gn_source,
          "replaces": "diffse_tpu/ops/pallas_kernels.py:269",
          **launches("gn_silu_conv3x3_ws", bf16_paths),

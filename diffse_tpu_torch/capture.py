@@ -25,7 +25,7 @@ before the capture. Building a ``Program``:
    so that random draws inside the graph are graph-safe Philox draws;
 4. keeps the static outputs and the kernels' launch counts made during the
    capture (``launch_counts``, ``conv_config_launches``, ``bf16_launch_counts``,
-   ``weight_casts``):
+   ``mixed_launch_counts``, ``weight_casts``):
    a capture runs nothing on the card, and a replay launches the recorded
    kernels without passing through the wrappers, so the counts do not
    advance on replay. ``replays`` counts the replays: a program's kernel
@@ -77,7 +77,8 @@ def _capture_side(device: torch.device) -> tuple:
 
 def _counts() -> tuple:
     return (dict(cuda_kernels.launch_counts), list(cuda_kernels.conv_config_launches),
-            dict(cuda_kernels.weight_casts), dict(cuda_kernels.bf16_launch_counts))
+            dict(cuda_kernels.weight_casts), dict(cuda_kernels.bf16_launch_counts),
+            dict(cuda_kernels.mixed_launch_counts))
 
 
 class Program:
@@ -118,6 +119,7 @@ class Program:
         self.conv_config_launches = [a - b for a, b in zip(after[1], before[1])]
         self.weight_casts = {k: after[2][k] - before[2][k] for k in after[2]}
         self.bf16_launch_counts = {k: after[3][k] - before[3][k] for k in after[3]}
+        self.mixed_launch_counts = {k: after[4][k] - before[4][k] for k in after[4]}
         self.replays = 0
         self.capture_seconds = time.perf_counter() - t0
 

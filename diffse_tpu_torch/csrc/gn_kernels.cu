@@ -239,7 +239,10 @@ __device__ __forceinline__ float silu_fast(float v) { return v * __frcp_rn(1.0f 
 
 // One group's affine from its sums over n elements: a = rstd * scale and
 // b = bias - mean * a for its channels, lanes over the channels. The float32
-// and the bf16 arithmetic are the plain version's (gn_stats_ab_reference).
+// and the bf16 arithmetic are the plain version's (gn_stats_ab_reference);
+// T is the type whose arithmetic is taken (bf16 wherever the activation is
+// rounded to bf16 after the affine, float32 x in the conv's F32Bf16 mode
+// too).
 template <typename T>
 __device__ __forceinline__ void group_affine(double gs, double gq, double n, int g, int cg,
                                              int row, int lane, const float* __restrict__ scale,
@@ -273,8 +276,9 @@ __device__ __forceinline__ void group_affine(double gs, double gq, double n, int
 // (4 float32, 8 bfloat16), C <= 2048. partial: [B, groups,
 // parts] (sum, sum of squares); counter: [B], zero. kSums: the last block
 // writes each group's (sum, sum of squares) to sums [B, groups] instead of
-// a, b (scale, bias, a, b, eps unused).
-template <typename T, bool kSums>
+// a, b (scale, bias, a, b, eps unused). F: the fold's arithmetic
+// (group_affine<F>), T's unless given.
+template <typename T, bool kSums, typename F = T>
 __global__ void __launch_bounds__(stats_threads<T>())
 gn_stats_ab_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                    const float* __restrict__ bias, double2* __restrict__ partial,
@@ -382,7 +386,7 @@ gn_stats_ab_kernel(const T* __restrict__ x, const float* __restrict__ scale,
     if constexpr (kSums) {
       if (lane == 0) sums[static_cast<long long>(bi) * groups + g] = make_double2(gs, gq);
     } else {
-      group_affine<T>(gs, gq, n, g, cg, bi * c, lane, scale, bias, a, b, eps);
+      group_affine<F>(gs, gq, n, g, cg, bi * c, lane, scale, bias, a, b, eps);
     }
   }
   if (tid == 0) counter[bi] = 0;
@@ -504,36 +508,61 @@ __host__ __device__ constexpr int weight_row_stride(int bn, int mod = 8) {
   return bn + (mod - bn % 32 + 32) % 32;
 }
 
-// What the conv's activation type sets: input channels per K chunk (32 bytes
-// of a position either way), bytes a position of the activated tile takes
-// (float32: hi and lo of 8 channels; bf16: 16 channels), and the weight
-// rows' stride rule.
+// The conv's third mode: float32 x with bf16 products (the Pallas K1 with
+// compute_dtype bf16 on a float32 map, pallas_kernels.py:288-297: a bf16
+// trunk's output_skip heads on DDPM-style blocks). The prologue reads x in
+// float32, computes x*a+b and SiLU in float32 and rounds the activation to
+// bf16; bias, skip and output stay float32.
+struct F32Bf16 {};
+
+// What the conv's mode sets: the type of x, skip and out (X); whether the
+// products are bf16; input channels per K chunk (one k8 TF32 or k16 bf16
+// step); bytes a position of the staged raw x chunk takes (32, or 64 for
+// F32Bf16's 16 float32 channels); bytes a position of the activated tile
+// takes (float32: hi and lo of 8 channels; bf16: 16 channels); and the
+// weight rows' stride rule.
 template <typename T>
 struct ConvTypes;
 template <>
 struct ConvTypes<float> {
+  using X = float;
+  static constexpr bool kBf16 = false;
   static constexpr int kBK = 8;
+  static constexpr int kRawBytes = 32;
   static constexpr int kActBytes = 4 * kActFloats;
   static constexpr int kWMod = 8;
 };
 template <>
 struct ConvTypes<bf16> {
+  using X = bf16;
+  static constexpr bool kBf16 = true;
   static constexpr int kBK = 16;
+  static constexpr int kRawBytes = 32;
+  static constexpr int kActBytes = 32;
+  static constexpr int kWMod = 4;
+};
+template <>
+struct ConvTypes<F32Bf16> {
+  using X = float;
+  static constexpr bool kBf16 = true;
+  static constexpr int kBK = 16;
+  static constexpr int kRawBytes = 64;
   static constexpr int kActBytes = 32;
   static constexpr int kWMod = 4;
 };
 
 template <typename T>
 struct ConvArgs {
-  const T* x;              // [B, H, W, Cin]
+  using X = typename ConvTypes<T>::X;
+  const X* x;              // [B, H, W, Cin]
   const float* a;          // [B, Cin] GroupNorm affine
   const float* b;
   const float* w;          // [3, 3, Cin, Cout], float32
   const float* bias;       // row bi at bias + bi * bias_row_stride
   int bias_row_stride;
-  const T* skip;           // [B, H, W, Cout] or null
+  const X* skip;           // [B, H, W, Cout] or null
   float skip_coef;
-  T* out;                  // [B, H, W, Cout]
+  X* out;                  // [B, H, W, Cout]
   float* partial;          // [splits, B*H*W, Cout] when splits > 1
   int batch, h, wd, cin, cout;
   int th, tw, tiles_w, tiles_per_image;  // the position tile
@@ -545,13 +574,13 @@ __host__ __device__ inline int conv_taps(int h, int wd) {
 }
 
 // Dynamic shared memory of one block, in bytes (conv_plan computes the same):
-// a ring of `stages` (raw halo, 32 bytes a position; float32 weights) and
-// `act_bufs` activated tiles.
+// a ring of `stages` (raw halo, 32 bytes a position, 64 for F32Bf16; float32
+// weights) and `act_bufs` activated tiles.
 template <typename T>
 __host__ __device__ inline int conv_smem_bytes(int bn, int th, int tw, int taps,
                                                int stages = kStages, int act_bufs = 2) {
   const int halo = (th + 2) * (tw + 2);
-  return stages * (halo * 32 + 4 * taps * ConvTypes<T>::kBK *
+  return stages * (halo * ConvTypes<T>::kRawBytes + 4 * taps * ConvTypes<T>::kBK *
                                    weight_row_stride(bn, ConvTypes<T>::kWMod)) +
          act_bufs * halo * ConvTypes<T>::kActBytes;
 }
@@ -562,8 +591,9 @@ template <typename T>
 struct ConvBlock {
   static constexpr int kBKT = ConvTypes<T>::kBK;
   static constexpr int kActWords = ConvTypes<T>::kActBytes / 4;
+  static constexpr int kRawWords = ConvTypes<T>::kRawBytes / 4;
   const ConvArgs<T> p;
-  float* raw_s;  // [stages][halo_n][8 words]: 32 bytes of x a position
+  float* raw_s;  // [stages][halo_n][kRawWords]: a position's chunk of x
   float* w_s;    // [stages][taps][kBKT][bnp]
   float* act_s;  // [bufs][halo_n][kActWords]
   int bi, oh0, ow0, n0, split;
@@ -591,7 +621,7 @@ struct ConvBlock {
     c_last = (u1 - 1) / taps;
     halo_w = p.tw + 2;
     halo_n = (p.th + 2) * halo_w;
-    raw_size = halo_n * 8;
+    raw_size = halo_n * kRawWords;
     w_size = taps * kBKT * bnp;
     raw_s = smem;
     w_s = raw_s + stages * raw_size;
@@ -622,28 +652,31 @@ struct ConvBlock {
   // all nine taps are live.
   template <int BN, int kThreads, int kHaloW = 0>
   __device__ void load_chunk(int tid, int i, int stage) const {
+    using X = typename ConvTypes<T>::X;
     constexpr int BNP = weight_row_stride(BN, ConvTypes<T>::kWMod);
     constexpr int kVecs = BN / 4;           // 16-byte pieces of one weight row
-    constexpr int kHalf = 16 / sizeof(T);   // channels in 16 bytes of x
+    constexpr int kHalf = 16 / sizeof(X);   // channels in 16 bytes of x
+    // 16-byte pieces of a position's chunk: 2, or 4 for F32Bf16
+    constexpr int kPieceShift = ConvTypes<T>::kRawBytes == 64 ? 2 : 1;
     const int c = c_first + i;
     const int ci0 = c * kBKT;
-    const T* xb = p.x + static_cast<long long>(bi) * p.h * p.wd * p.cin;
+    const X* xb = p.x + static_cast<long long>(bi) * p.h * p.wd * p.cin;
     float* rs = raw_s + stage * raw_size;
     float* ws = w_s + stage * w_size;
     int lo, hi;
     tap_range(c, lo, hi);
-    const int n_halo = halo_n * 2;
+    const int n_halo = halo_n << kPieceShift;
     const int total = n_halo + (hi - lo) * kBKT * kVecs;
 #pragma unroll 4
     for (int e = tid; e < total; e += kThreads) {
       if (e < n_halo) {  // 16 bytes of a halo position's chunk
-        const int hp = e >> 1;
-        const int half = e & 1;
+        const int hp = e >> kPieceShift;
+        const int piece = e & ((1 << kPieceShift) - 1);
         int ih, iw;
         const bool ok = in_map<kHaloW>(hp, ih, iw);
-        const T* src =
-            ok ? xb + (static_cast<long long>(ih) * p.wd + iw) * p.cin + ci0 + half * kHalf : p.x;
-        cp_async16(rs + hp * 8 + half * 4, src, ok);
+        const X* src =
+            ok ? xb + (static_cast<long long>(ih) * p.wd + iw) * p.cin + ci0 + piece * kHalf : p.x;
+        cp_async16(rs + hp * kRawWords + piece * 4, src, ok);
       } else {  // 16 bytes of a weight row
         const int ew = e - n_halo;
         const int l = lo + ew / (kBKT * kVecs);
@@ -700,9 +733,10 @@ struct ConvBlock {
     }
   }
 
-  // The bf16 prologue, once per staged element: x*a+b and SiLU in float32,
-  // rounded as the plain version rounds them (affine_rn, silu_rn), zero
-  // padding, one rounding to bf16. Thread tid always takes the channel
+  // The bf16 prologue, once per staged element: x*a+b and SiLU in float32
+  // (x read as bf16, or as float32 in the F32Bf16 mode), rounded as the
+  // plain version rounds them (affine_rn, silu_rn), zero padding, one
+  // rounding to bf16. Thread tid always takes the channel
   // pair (2j, 2j + 1), j = tid % 8 (kThreads % 8 == 0), one 32-bit word.
   // Packed: per position, for t = 0..3, channels (2t, 2t+1, 2t+8, 2t+9), so
   // that one 8-byte load gives a thread both halves of its m16n8k16 A row.
@@ -725,9 +759,15 @@ struct ConvBlock {
       int ih, iw;
       float v0 = 0.0f, v1 = 0.0f;
       if (in_map<kHaloW>(hp, ih, iw)) {
-        const uint32_t xw = rs[hp * 8 + j];
-        v0 = silu_rn(affine_rn(bf16_lo(xw), a0, b0));
-        v1 = silu_rn(affine_rn(bf16_hi(xw), a1, b1));
+        if constexpr (std::is_same<typename ConvTypes<T>::X, float>::value) {
+          const float2 xf = *reinterpret_cast<const float2*>(rs + hp * kRawWords + 2 * j);
+          v0 = silu_rn(affine_rn(xf.x, a0, b0));
+          v1 = silu_rn(affine_rn(xf.y, a1, b1));
+        } else {
+          const uint32_t xw = rs[hp * 8 + j];
+          v0 = silu_rn(affine_rn(bf16_lo(xw), a0, b0));
+          v1 = silu_rn(affine_rn(bf16_hi(xw), a1, b1));
+        }
       }
       as[hp * (kPlanar ? 4 : 8) + word] = pack_bf16x2(v0, v1);
     }
@@ -756,8 +796,9 @@ struct ConvBlock {
         return;
       }
     }
-    p.out[off] = from_f32<T>(v0);
-    if (pair) p.out[off + 1] = from_f32<T>(v1);
+    using X = typename ConvTypes<T>::X;
+    p.out[off] = from_f32<X>(v0);
+    if (pair) p.out[off + 1] = from_f32<X>(v1);
   }
 };
 
@@ -765,7 +806,7 @@ struct ConvBlock {
 template <typename T, int BM, int BN, int WARPS_M, int WARPS_N>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N)
 gn_silu_conv3x3_kernel(const ConvArgs<T> p) {
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr bool kBf16 = ConvTypes<T>::kBf16;
   constexpr int kThreads = 32 * WARPS_M * WARPS_N;
   constexpr int WM = BM / WARPS_M;
   constexpr int WN = BN / WARPS_N;
@@ -985,7 +1026,8 @@ __device__ __forceinline__ uint64_t smem_desc(const float* ptr, uint32_t lbo, ui
 }
 
 // Blocks of the wgmma kernel on one SM: two in float32 (~104 KB each); one
-// in bf16, whose 16-channel chunks of float32 weights take 76 KB a stage.
+// with bf16 products, whose 16-channel chunks of float32 weights take 76 KB a
+// stage.
 template <typename T>
 __host__ __device__ constexpr int wgmma_blocks_per_sm() {
   return std::is_same<T, float>::value ? 2 : 1;
@@ -1010,7 +1052,7 @@ template <typename T, int TW>
 __global__ void __launch_bounds__(256, wgmma_blocks_per_sm<T>())
 gn_silu_conv3x3_wgmma_kernel(const ConvArgs<T> p) {
   static_assert(TW == 32, "the wgmma wrappers are m64n32");
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr bool kBf16 = ConvTypes<T>::kBf16;
   constexpr int kThreads = 256;
   constexpr int kRing = 2;
   constexpr int BN = 128;
@@ -1729,7 +1771,7 @@ cudaError_t launch_conv_ws(const ConvArgs<bf16>& c, const void* w_packed, dim3 g
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename F = T>
 int stats_ab(const T* x, const float* scale, const float* bias, double* partial,
              int* counter, float* a, float* b, int batch, int hw, int c, int groups,
              int parts, int chunk, float eps, cudaStream_t stream) {
@@ -1739,7 +1781,7 @@ int stats_ab(const T* x, const float* scale, const float* bias, double* partial,
       static_cast<long long>(parts) * chunk < hw || (parts - 1) * chunk >= hw) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gn_stats_ab_kernel<T, false><<<dim3(parts, batch), kThreads, 0, stream>>>(
+  gn_stats_ab_kernel<T, false, F><<<dim3(parts, batch), kThreads, 0, stream>>>(
       x, scale, bias, reinterpret_cast<double2*>(partial), counter, a, b, nullptr, hw, c,
       groups, chunk, eps);
   return static_cast<int>(cudaGetLastError());
@@ -1785,10 +1827,10 @@ int gn_apply(const Tin* x, const float* a, const float* b, Tout* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int gn_silu_conv3x3(const T* x, const float* a, const float* b, const float* w,
-                    const void* w_packed, const float* bias_total, int bias_row_stride, const T* skip,
-                    float skip_coef, T* out, float* partial, int batch, int h, int wd,
+template <typename T, typename X = typename ConvTypes<T>::X>
+int gn_silu_conv3x3(const X* x, const float* a, const float* b, const float* w,
+                    const void* w_packed, const float* bias_total, int bias_row_stride, const X* skip,
+                    float skip_coef, X* out, float* partial, int batch, int h, int wd,
                     int cin, int cout, int config, int th, int tw, int tiles_w,
                     int tiles_per_image, int units_per_split, int splits, int grid_x,
                     int grid_y, int grid_z, int smem_bytes, int reduce_blocks,
@@ -1822,7 +1864,7 @@ int gn_silu_conv3x3(const T* x, const float* a, const float* b, const float* w,
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long total4 = static_cast<long long>(batch) * h * wd * cout / 4;
-  conv_split_reduce_kernel<T><<<reduce_blocks, kReduceThreads, 0, st>>>(
+  conv_split_reduce_kernel<X><<<reduce_blocks, kReduceThreads, 0, st>>>(
       reinterpret_cast<const float4*>(partial), splits, total4, bias_total, bias_row_stride,
       skip, skip_coef, out, h * wd * cout, cout);
   return static_cast<int>(cudaGetLastError());
@@ -1832,7 +1874,8 @@ int gn_silu_conv3x3(const T* x, const float* a, const float* b, const float* w,
 
 extern "C" {
 
-// dtype codes (ops/cuda_kernels.py _DTYPE_CODES): 0 float32, 1 bfloat16.
+// dtype codes (ops/cuda_kernels.py _DTYPE_CODES): 0 float32, 1 bfloat16;
+// diffse_gn_stats_ab also takes 2 (float32 x, bf16 fold arithmetic).
 
 int diffse_gn_stats_ab(const void* x, int dtype, const float* scale, const float* bias,
                        double* partial, int* counter, float* a, float* b, int batch,
@@ -1844,6 +1887,10 @@ int diffse_gn_stats_ab(const void* x, int dtype, const float* scale, const float
                             b, batch, hw, c, groups, parts, chunk, eps, st);
     case 1: return stats_ab(static_cast<const bf16*>(x), scale, bias, partial, counter, a, b,
                             batch, hw, c, groups, parts, chunk, eps, st);
+    // float32 x folded with the bf16 arithmetic: the conv's F32Bf16 mode
+    case 2: return stats_ab<float, bf16>(static_cast<const float*>(x), scale, bias, partial,
+                                         counter, a, b, batch, hw, c, groups, parts, chunk, eps,
+                                         st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1895,7 +1942,8 @@ int diffse_gn_apply(const void* x, int in_dtype, const float* a, const float* b,
 }
 
 // The plan's config ids, in the order of CONV_CONFIGS in ops/cuda_kernels.py;
-// x, skip and out of the dtype's type.
+// x, skip and out of the dtype's type. Mode 2 (ops/cuda_kernels.py
+// _CONV_MODES): float32 x, skip and out with bf16 products (F32Bf16).
 int diffse_gn_silu_conv3x3(const void* x, int dtype, const float* a, const float* b,
                            const float* w, const void* w_packed, const float* bias_total,
                            int bias_row_stride, const void* skip,
@@ -1907,17 +1955,24 @@ int diffse_gn_silu_conv3x3(const void* x, int dtype, const float* a, const float
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return gn_silu_conv3x3(static_cast<const float*>(x), a, b, w, w_packed, bias_total,
-                             bias_row_stride, static_cast<const float*>(skip), skip_coef,
-                             static_cast<float*>(out), partial, batch, h, wd, cin, cout,
-                             config, th, tw, tiles_w, tiles_per_image, units_per_split,
-                             splits, grid_x, grid_y, grid_z, smem_bytes, reduce_blocks, st);
+      return gn_silu_conv3x3<float>(static_cast<const float*>(x), a, b, w, w_packed, bias_total,
+                                    bias_row_stride, static_cast<const float*>(skip), skip_coef,
+                                    static_cast<float*>(out), partial, batch, h, wd, cin, cout,
+                                    config, th, tw, tiles_w, tiles_per_image, units_per_split,
+                                    splits, grid_x, grid_y, grid_z, smem_bytes, reduce_blocks, st);
     case 1:
-      return gn_silu_conv3x3(static_cast<const bf16*>(x), a, b, w, w_packed, bias_total,
-                             bias_row_stride, static_cast<const bf16*>(skip), skip_coef,
-                             static_cast<bf16*>(out), partial, batch, h, wd, cin, cout,
-                             config, th, tw, tiles_w, tiles_per_image, units_per_split,
-                             splits, grid_x, grid_y, grid_z, smem_bytes, reduce_blocks, st);
+      return gn_silu_conv3x3<bf16>(static_cast<const bf16*>(x), a, b, w, w_packed, bias_total,
+                                   bias_row_stride, static_cast<const bf16*>(skip), skip_coef,
+                                   static_cast<bf16*>(out), partial, batch, h, wd, cin, cout,
+                                   config, th, tw, tiles_w, tiles_per_image, units_per_split,
+                                   splits, grid_x, grid_y, grid_z, smem_bytes, reduce_blocks, st);
+    case 2:
+      return gn_silu_conv3x3<F32Bf16>(static_cast<const float*>(x), a, b, w, w_packed, bias_total,
+                                      bias_row_stride, static_cast<const float*>(skip), skip_coef,
+                                      static_cast<float*>(out), partial, batch, h, wd, cin, cout,
+                                      config, th, tw, tiles_w, tiles_per_image, units_per_split,
+                                      splits, grid_x, grid_y, grid_z, smem_bytes, reduce_blocks,
+                                      st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,6 +19,15 @@ tree by its paths. The "bN" running statistics are buffers that update as
 flax's ``BatchNorm`` updates them (``OnReImBatchNorm``); "CbN" normalises by
 the batch's statistics in training and in evaluation alike, so a batch of
 several requests is normalised across them, as in the JAX package.
+
+Frames-parallel (``ScoreModel.enhance(seq_mesh=)``; the JAX package lets
+GSPMD partition it): inside a frames shard every level is split unevenly
+over the ranks (``parallel.sequence.split_bounds``), each complex conv and
+transposed conv computing this rank's part of its output from the input
+columns it reaches (``models/shared.py``); the input's pad or trim and the
+output's crop happen at the global right edge; "bN" in evaluation is local
+to each column; "CbN" whitens by the whole map's moments, all-reduced; the
+time embedding and the skip concatenations are local.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.mesh import batch_mean
+from ..parallel.sequence import current_frames, split_bounds
 from ..utils import float32_precision
 from .shared import (BackboneRegistry, ComplexConv2d, ComplexConvTranspose2d, ComplexLinear,
                      DiffusionStepEmbedding, GaussianFourierProjection)
@@ -169,7 +179,8 @@ class OnReImBatchNorm(nn.Module):
 class ComplexBatchNorm(nn.Module):
     """"CbN": complex batch norm with 2x2 covariance whitening, always by the
     batch's statistics (the reference's ``track_running_stats=False``), the
-    global batch's in a data-parallel step.
+    global batch's in a data-parallel step; on a frames shard the whole
+    map's (``_frames_moments``), never the shard's own.
     ``Wri`` is kept as flax keeps it, drawn on [0, 1.8) and shifted by -0.9
     where it is used."""
 
@@ -190,11 +201,17 @@ class ComplexBatchNorm(nn.Module):
         wri = self.Wri - 0.9
         axes = (0, 2, 3)
         xr, xi = x.real, x.imag
-        xr = xr - batch_mean(xr, axes, keepdim=True)
-        xi = xi - batch_mean(xi, axes, keepdim=True)
-        vrr = batch_mean(xr * xr, axes, keepdim=True) + self.eps
-        vri = batch_mean(xr * xi, axes, keepdim=True)
-        vii = batch_mean(xi * xi, axes, keepdim=True) + self.eps
+        seq = current_frames()
+        if seq is not None:
+            mr, mi, vrr, vri, vii = _frames_moments(seq, xr, xi, axes)
+            xr, xi = xr - mr, xi - mi
+            vrr, vii = vrr + self.eps, vii + self.eps
+        else:
+            xr = xr - batch_mean(xr, axes, keepdim=True)
+            xi = xi - batch_mean(xi, axes, keepdim=True)
+            vrr = batch_mean(xr * xr, axes, keepdim=True) + self.eps
+            vri = batch_mean(xr * xi, axes, keepdim=True)
+            vii = batch_mean(xi * xi, axes, keepdim=True) + self.eps
         # the inverse matrix square root of [[vrr, vri], [vri, vii]]
         tau = vrr + vii
         delta = vrr * vii - vri * vri
@@ -211,6 +228,21 @@ class ComplexBatchNorm(nn.Module):
         yr = zrr * xr + zri * xi + c(self.Br)
         yi = zir * xr + zii * xi + c(self.Bi)
         return torch.complex(yr, yi)
+
+
+def _frames_moments(seq, xr: torch.Tensor, xi: torch.Tensor, axes) -> tuple:
+    """The whole map's means of ``xr`` and ``xi`` and their covariances
+    ``(vrr, vri, vii)`` over ``axes``, of which each rank holds its frames:
+    the five sums and the count of each rank, all-reduced in float64, then
+    divided by the count (the covariances as E[ab] - E[a]E[b], exact enough
+    in float64); float32 ``[1, C, 1, 1]`` each."""
+    a, b = xr.double(), xi.double()
+    count = torch.full_like(a.sum(axes), a.numel() / a.shape[1])
+    sums = seq.sum(torch.stack([a.sum(axes), b.sum(axes), (a * a).sum(axes),
+                                (a * b).sum(axes), (b * b).sum(axes), count]))
+    sr, si, srr, sri, sii = sums[:5] / sums[5]
+    moments = (sr, si, srr - sr * sr, sri - sr * si, sii - si * si)
+    return tuple(m.float()[None, :, None, None] for m in moments)
 
 
 def _norm(norm_type: str, channels: int, generator):
@@ -257,8 +289,9 @@ class DCUNetComplexEncoderBlock(nn.Module):
         self.norm = _norm(norm_type, out_ch, generator)
         self.act = get_activation(activation)
 
-    def forward(self, x, t_embed=None):
-        y = self.conv(x)
+    def forward(self, x, t_embed=None, bounds=None):
+        """``bounds``: on a frames shard, x's split over the ranks."""
+        y = self.conv(x, bounds)
         if self.embed_layer is not None and t_embed is not None:
             y = y + self.embed_layer(t_embed)
         return on_reim(self.act, self.norm(y))
@@ -281,8 +314,9 @@ class DCUNetComplexDecoderBlock(nn.Module):
         self.norm = _norm(norm_type, out_ch, generator)
         self.act = get_activation(activation)
 
-    def forward(self, x, t_embed=None, output_size=None):
-        y = self.deconv(x, output_size=output_size)
+    def forward(self, x, t_embed=None, output_size=None, bounds=None):
+        """``bounds``: on a frames shard, x's split over the ranks."""
+        y = self.deconv(x, output_size=output_size, bounds=bounds)
         if self.embed_layer is not None and t_embed is not None:
             y = y + self.embed_layer(t_embed)
         return on_reim(self.act, self.norm(y))
@@ -297,6 +331,9 @@ class DCUNet(nn.Module):
     the command line's defaults (``add_argparse_args``) differ from them
     (``dcunet_activation`` leaky_relu, ``dcunet_temb_layers_global`` 1), as
     in the JAX package. ``dcunet_mask_bound`` other than "none" raises."""
+
+    # enhance(seq_mesh=) splits its frames over the ranks (the module docstring)
+    frames_parallel = True
 
     def __init__(self, dcunet_architecture: str = "DilDCUNet-v2",
                  dcunet_time_embedding: str = "gfp", dcunet_temb_layers_global: int = 2,
@@ -381,8 +418,12 @@ class DCUNet(nn.Module):
             return self._forward(spec, t)
 
     def _forward(self, spec: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        x = self._fix_input_dims(spec)
-        x_in = x
+        # on a frames shard: each map's split over the ranks, the input's in
+        # the equal parts that enhance hands out
+        seq = current_frames()
+        spec_bounds = None if seq is None else split_bounds(spec.shape[3] * seq.count,
+                                                            seq.count)
+        x, x_bounds = self._fix_input_dims(spec, spec_bounds)
 
         t_embed = None
         if self.time_embedding is not None:
@@ -390,39 +431,58 @@ class DCUNet(nn.Module):
             for i in range(self.temb_layers_global):
                 t_embed = on_reim(self.temb_act, getattr(self, f"embed_global_{i}")(t_embed))
 
-        enc_outs = []
-        h = x
-        for i in range(self.n_encoders):
-            h = getattr(self, f"encoder_{i}")(h, t_embed)
-            enc_outs.append(h)
-        for i, enc_out in enumerate(reversed(enc_outs[:-1])):
-            h = getattr(self, f"decoder_{i}")(h, t_embed, output_size=enc_out.shape[2:])
-            h = torch.cat([h, enc_out], dim=1)
-        out = self.output_layer(h, output_size=x_in.shape[2:])
-        return self._fix_output_dims(out, spec)
+        def size(t, bounds):  # a map's whole (F, T)
+            return t.shape[2:] if bounds is None else (t.shape[2], bounds[-1])
 
-    def _fix_input_dims(self, x: torch.Tensor) -> torch.Tensor:
+        enc_outs = []
+        h, bounds = x, x_bounds
+        for i in range(self.n_encoders):
+            encoder = getattr(self, f"encoder_{i}")
+            h = encoder(h, t_embed, bounds)
+            bounds = None if bounds is None else encoder.conv.out_bounds(bounds)
+            enc_outs.append((h, bounds))
+        for i, (enc_out, enc_bounds) in enumerate(reversed(enc_outs[:-1])):
+            h = getattr(self, f"decoder_{i}")(h, t_embed, output_size=size(enc_out, enc_bounds),
+                                              bounds=bounds)
+            h, bounds = torch.cat([h, enc_out], dim=1), enc_bounds
+        out = self.output_layer(h, output_size=size(x, x_bounds), bounds=bounds)
+        if spec_bounds is None:
+            return self._fix_output_dims(out, spec)
+        # cropped (or zero-padded) at the global right edge, in enhance's parts
+        return seq.columns(out, split_bounds(x_bounds[-1], seq.count),
+                           list(zip(spec_bounds, spec_bounds[1:])), dim=3)
+
+    def _fix_input_dims(self, x: torch.Tensor, bounds: Optional[tuple] = None):
         """Pad or trim the time so that ``(T - 1)`` divides the time-stride
-        product; ``(F - 1)`` must divide the frequency-stride product."""
+        product; ``(F - 1)`` must divide the frequency-stride product. On a
+        frames shard (x's split over the ranks: ``bounds``) the whole map's
+        T counts, and the rank at the global right edge pads or trims.
+        Returns x and its bounds."""
         freq_prod, time_prod = int(self.stride_prod[0]), int(self.stride_prod[1])
+        width = x.shape[3] if bounds is None else bounds[-1]
         if (x.shape[2] - 1) % freq_prod:
-            shape = (x.shape[0], x.shape[2], x.shape[3], x.shape[1])  # as the JAX package's NHWC
+            shape = (x.shape[0], x.shape[2], width, x.shape[1])  # as the JAX package's NHWC
             raise TypeError(
                 f"Input shape must be [batch, freq + 1, time + 1, ch] with freq "
                 f"divisible by {freq_prod}, got {shape} instead")
-        time_remainder = (x.shape[3] - 1) % time_prod
+        time_remainder = (width - 1) % time_prod
         if time_remainder:
             if self.fix_length_mode is None:
                 raise TypeError(
                     f"Input time dim must satisfy (T - 1) %% {time_prod} == 0, got "
-                    f"{tuple(x.shape)}. Set fix_length to 'pad' or 'trim'.")
+                    f"{(*x.shape[:3], width)}. Set fix_length to 'pad' or 'trim'.")
             if self.fix_length_mode == "pad":
-                x = F.pad(x, (0, time_prod - time_remainder))
+                change = time_prod - time_remainder
             elif self.fix_length_mode == "trim":
-                x = x[:, :, :, : x.shape[3] - time_remainder]
+                change = -time_remainder
             else:
                 raise ValueError(f"Unknown fix_length mode '{self.fix_length_mode}'")
-        return x
+            seq = current_frames()
+            if bounds is None or seq.index == seq.count - 1:
+                x = F.pad(x, (0, change)) if change > 0 else x[:, :, :, : x.shape[3] + change]
+            if bounds is not None:
+                bounds = (*bounds[:-1], bounds[-1] + change)
+        return x, bounds
 
     @staticmethod
     def _fix_output_dims(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -58,11 +58,15 @@ whatever the output. Layer by layer, for a bf16 map reaching it:
                           divisor sqrt(2) rounded to it
   ======================  ====================================================
 
-The heads (models/ncsnpp.py): an output_skip head with swish is K1 in the
-trunk's dtype; every other head inside the trunk is the plain chain in it
-(the residual pyramid's first head rounds after its GroupNorm and its SiLU,
-as flax does); the final head of a configuration without output_skip has
-no dtype: float32. A program exported with the bf16 trunk
+The heads (models/ncsnpp.py): an output_skip head with swish is K1 with
+the trunk's dtype as its products' (``compute_dtype``): on a bf16 map all
+bf16 with one rounding of the output; on a float32 map (after DDPM-style
+blocks) the activation and the weights rounded to bf16, the products summed
+in float32, the output float32, as the JAX package's fused pyramid head
+computes there; every other head inside the trunk is the plain chain in the
+trunk's dtype (the residual pyramid's first head rounds after its GroupNorm
+and its SiLU, as flax does); the final head of a configuration without
+output_skip has no dtype: float32. A program exported with the bf16 trunk
 (``serving/export.py``) takes the bf16 copies and the packed conv weights
 as inputs: inside ``given_weights`` the layers read them from the given
 store by their names in the backbone, in place of their caches.
@@ -280,8 +284,7 @@ def cast_params(module: nn.Module, dtype: torch.dtype):
     return cached[2], cached[3]
 
 
-def conv(module: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype = torch.float32,
-         products: Optional[torch.dtype] = None) -> torch.Tensor:
+def conv(module: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``module(x)`` computed in ``dtype``, as flax's ``nn.Conv(dtype=...)``
     does: x and the weight cast to ``dtype``, the conv rounded to it once,
     then the bias (cast to ``dtype``) added in ``dtype``. Float32 is the
@@ -289,17 +292,8 @@ def conv(module: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype = torch.float32,
     dtype promotes a bf16 input with its float32 kernel); the cast weight
     and bias are kept (``cast_params``). On a frames shard a conv wider than
     one column reads its neighbours' columns (zeros past the global edges,
-    its SAME padding there) and pads none along the frames.
-
-    ``products`` (bf16 with a float32 ``dtype``): x and the weight rounded
-    to it, their products summed in float32 with a float32 output and bias,
-    as the JAX package's fused chain computes with ``compute_dtype`` on a
-    float32 map."""
+    its SAME padding there) and pads none along the frames."""
     x, padding = _frames_halo(module, x.to(dtype))
-    if products is not None:
-        weight = cast_params(module, products)[0].float()
-        return F.conv2d(x.to(products).float(), weight, module.bias, stride=module.stride,
-                        padding=padding)
     if dtype == torch.float32:
         return F.conv2d(x, module.weight, module.bias, stride=module.stride, padding=padding)
     weight, bias = cast_params(module, dtype)
@@ -395,21 +389,27 @@ def conv_hwio(conv: nn.Conv2d) -> torch.Tensor:
     return conv.weight.permute(2, 3, 1, 0).contiguous()
 
 
-def frames_affine(seq, x: torch.Tensor, gn: "GroupNorm"):
+def frames_affine(seq, x: torch.Tensor, gn: "GroupNorm",
+                  fold_dtype: Optional[torch.dtype] = None):
     """The GroupNorm affine ``(a, b)`` of the whole map of which NHWC ``x``
     holds a frames shard's columns (``seq``): the shard's group sums
     (``gn_group_sums``) summed over the ranks in float64, folded over every
-    rank's positions (``gn_fold_ab``)."""
+    rank's positions (``gn_fold_ab``) with the arithmetic of ``fold_dtype``
+    activations (x's when None; bf16 for K1's bf16 products on a float32
+    map, as its one-device statistics pass folds)."""
     sums = seq.sum(gn_group_sums(x, gn.num_groups))
     b, h, w, c = x.shape
-    return gn_fold_ab(sums, h * w * seq.count, gn.weight, gn.bias, gn.eps, x.dtype)
+    return gn_fold_ab(sums, h * w * seq.count, gn.weight, gn.bias, gn.eps,
+                      fold_dtype or x.dtype)
 
 
 def gn_silu_conv(x: torch.Tensor, gn: "GroupNorm", conv: nn.Conv2d, bias: torch.Tensor,
                  skip: Optional[torch.Tensor] = None, skip_coef: float = 1.0,
-                 w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 w_packed: Optional[torch.Tensor] = None,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``groupnorm_silu_conv3x3_op`` of NHWC ``x`` with ``gn``'s parameters
-    and ``conv``'s weight. On a frames shard: with the whole map's affine
+    and ``conv``'s weight (``compute_dtype``: bf16 products on a float32 x,
+    the op's keyword). On a frames shard: with the whole map's affine
     (``frames_affine``), on x extended by one column of each neighbour (none
     past the global edges, where the kernel's own padding zero-pads the
     activated map, as on one device) and ``skip`` by as many zeros, the
@@ -418,14 +418,15 @@ def gn_silu_conv(x: torch.Tensor, gn: "GroupNorm", conv: nn.Conv2d, bias: torch.
     if seq is None:
         return groupnorm_silu_conv3x3_op(x, gn.weight, gn.bias, conv_hwio(conv), bias,
                                          gn.num_groups, gn.eps, skip=skip,
-                                         skip_coef=skip_coef, w_packed=w_packed)
-    ab = frames_affine(seq, x, gn)
+                                         skip_coef=skip_coef, w_packed=w_packed,
+                                         compute_dtype=compute_dtype)
+    ab = frames_affine(seq, x, gn, compute_dtype)
     x, left, right = seq.halo(x, 2, 1, 1, zero_edges=False)
     if skip is not None:
         skip = F.pad(skip, (0, 0, left, right))
     out = groupnorm_silu_conv3x3_op(x.contiguous(), gn.weight, gn.bias, conv_hwio(conv), bias,
                                     gn.num_groups, gn.eps, skip=skip, skip_coef=skip_coef,
-                                    w_packed=w_packed, ab=ab)
+                                    w_packed=w_packed, ab=ab, compute_dtype=compute_dtype)
     return out[:, :, left: out.shape[2] - right].contiguous()
 
 

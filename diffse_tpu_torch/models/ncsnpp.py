@@ -269,20 +269,22 @@ class NCSNppBase(nn.Module):
         """GroupNorm -> act -> conv3x3 computed in ``dtype``, the head's
         output as float32. With swish one fused kernel (K1) where it rounds
         as the JAX package's head does: an output_skip head (``fuse``, the
-        JAX package's fused pyramid head, whose reference on a float32 map
-        in a bf16 trunk rounds only the activation and the weights: K3, then
-        the conv with bf16 products, where the TPU runs K1, which takes no
-        float32 map with bf16 products yet: ROADMAP queue 1) or a float32 one
-        (on h cast to float32);
-        otherwise the plain chain, rounding after the GroupNorm, the
-        activation and the conv (flax's ``GroupNorm`` and ``Conv`` with
-        ``dtype``)."""
+        JAX package's fused pyramid head, ``groupnorm_silu_conv3x3_pallas``
+        with ``compute_dtype=dtype``: on a bf16 map in bf16; on a float32
+        map in a bf16 trunk, after DDPM-style blocks, K1's float32-x mode,
+        which rounds only the activation and the weights to bf16 and keeps
+        the sums, bias and output float32) or a float32 one (on h cast to
+        float32); otherwise the plain chain, rounding after the GroupNorm,
+        the activation and the conv (flax's ``GroupNorm`` and ``Conv`` with
+        ``dtype``). The bias is broadcast over the batch, as the JAX
+        package's ``pyramid_head`` broadcasts it."""
         if not self.fused or not (fuse or dtype == torch.float32):
             return layers.conv(conv, layers.gn_act(gn, h, self.act, dtype), dtype).float()
-        if h.dtype == torch.float32 and dtype != torch.float32:
-            return layers.conv(conv, gn(h), products=dtype)
         bias = conv.bias[None, :].expand(h.shape[0], conv.out_channels)
-        out = layers.gn_silu_conv(layers.to_nhwc(h.to(dtype)), gn, conv, bias)
+        if h.dtype == torch.float32 and dtype != torch.float32:
+            out = layers.gn_silu_conv(layers.to_nhwc(h), gn, conv, bias, compute_dtype=dtype)
+        else:
+            out = layers.gn_silu_conv(layers.to_nhwc(h.to(dtype)), gn, conv, bias)
         return layers.from_nhwc(out).float()
 
     def _forward(self, x: torch.Tensor, time_cond: torch.Tensor,

@@ -807,8 +807,9 @@ class ScoreModel:
         whole on each) and the steps run eagerly: every rank returns the
         whole waveform, the one-device program's to float tolerance. The
         SNR estimate and the snap to the Karras grid run on the whole
-        waveform, as on one device. Every NCSN++ configuration takes it;
-        another backbone (DCUNet) raises ``NotImplementedError``.
+        waveform, as on one device. Every backbone takes it: every NCSN++
+        configuration, and DCUNet, whose odd widths split unevenly over the
+        ranks (``parallel/sequence.py``).
 
         Returns the enhanced waveform as a numpy array of ``samples``; with
         ``timeit=True`` a tuple ``(x_hat, nfe, rtf)``.
@@ -817,9 +818,8 @@ class ScoreModel:
         cfg = self.cfg
         branch = self._branch(sampler_type)
         if seq_mesh is not None and not getattr(self.backbone, "frames_parallel", False):
-            raise NotImplementedError(
-                f"frames-parallel enhancement takes NCSN++ only, not {cfg.backbone} "
-                "(ROADMAP.md queue 1, frames-parallel enhancement of DCUNet)")
+            raise NotImplementedError(f"frames-parallel enhancement: the {cfg.backbone} "
+                                      "backbone does not run on a frames shard")
         x, y = _as_wave(x), _as_wave(y)
         t_orig = y.shape[-1]
 

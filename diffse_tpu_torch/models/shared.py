@@ -19,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.convt import conv_transpose2d, output_padding_for
+from ..ops.convt import conv_transpose2d, output_padding_for, stuffed_conv2d
+from ..parallel.sequence import current_frames, split_bounds
 from ..registry import Registry
 
 BackboneRegistry = Registry("Backbone")
@@ -126,7 +127,18 @@ class ComplexConv2d(nn.Module):
     """A complex conv from two real convs ``re`` and ``im`` (torch's
     ``nn.Conv2d``, their biases optional), run as one real conv: the real and
     imaginary parts stacked on the batch, the two weights on the output
-    channels."""
+    channels.
+
+    On a frames shard (``parallel.sequence.current_frames``) ``forward``
+    takes the column bounds over the ranks of the whole map of which x is
+    this rank's part (``bounds``) and computes this rank's part of the whole
+    output, split by ``out_bounds``: output column ``o`` reads the input
+    columns ``o * s - p`` through ``o * s - p + d * (k - 1)`` along the
+    frames (stride s, padding p, dilation d, kernel k), so the rank's first
+    output column lies on the global stride grid; those columns come from
+    the ranks holding them (``FramesShard.columns``), zeros past the global
+    edges, where the explicit padding applies, and the conv runs unpadded
+    along the frames."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=(1, 1), padding=(0, 0),
                  dilation=(1, 1), bias: bool = True,
@@ -143,11 +155,28 @@ class ComplexConv2d(nn.Module):
             if bias:
                 nn.init.zeros_(conv.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_width(self, width: int) -> int:
+        """The output's frames from an input ``width`` frames wide."""
+        k, s, p, d = self.re.kernel_size[1], self.stride[1], self.padding[1], self.dilation[1]
+        return (width + 2 * p - d * (k - 1) - 1) // s + 1
+
+    def out_bounds(self, bounds: tuple) -> tuple:
+        """The output's split over the ranks from the input's ``bounds``."""
+        return split_bounds(self.out_width(bounds[-1]), len(bounds) - 1)
+
+    def forward(self, x: torch.Tensor, bounds: Optional[tuple] = None) -> torch.Tensor:
         batch, out_ch = x.shape[0], self.re.out_channels
         bias = None if self.re.bias is None else torch.cat([self.re.bias, self.im.bias])
-        y = F.conv2d(torch.cat([x.real, x.imag]), torch.cat([self.re.weight, self.im.weight]),
-                     bias, self.stride, self.padding, self.dilation)
+        xs, padding = torch.cat([x.real, x.imag]), self.padding
+        if bounds is not None:
+            k, s, p, d = (self.re.kernel_size[1], self.stride[1], self.padding[1],
+                          self.dilation[1])
+            out = self.out_bounds(bounds)
+            spans = [(o0 * s - p, (o1 - 1) * s - p + d * (k - 1) + 1)
+                     for o0, o1 in zip(out, out[1:])]
+            xs, padding = current_frames().columns(xs, bounds, spans, dim=3), (padding[0], 0)
+        y = F.conv2d(xs, torch.cat([self.re.weight, self.im.weight]), bias, self.stride,
+                     padding, self.dilation)
         re_a, im_a = y[:batch, :out_ch], y[:batch, out_ch:]
         re_b, im_b = y[batch:, :out_ch], y[batch:, out_ch:]
         return torch.complex(re_a - im_b, re_b + im_a)
@@ -158,7 +187,18 @@ class ComplexConvTranspose2d(nn.Module):
     (``ops.convt``): weights ``w_re``, ``w_im`` ``[Cin, Cout, kh, kw]``,
     optional biases ``b_re``, ``b_im``; run as one real transposed conv, as
     ``ComplexConv2d``. ``forward(x, output_size)`` picks the output padding
-    that gives ``output_size``."""
+    that gives ``output_size``.
+
+    On a frames shard, as ``ComplexConv2d`` (``bounds``: the input's split;
+    the output split by ``split_bounds`` of its width): the forward conv on
+    the zero-stuffed input (``ops.convt``) reads, for output column ``o``,
+    stuffed columns ``o - lo`` through ``o - lo + d * (k - 1)`` (``lo = d *
+    (k - 1) - p``, the stuffed map's padding before), so a rank's part of
+    the output reads the input columns from ``ceil((o0 - lo) / s)`` through
+    ``floor((o1 - 1 - lo + d * (k - 1)) / s)``; it stuffs those, pads them
+    so that its first output column is ``o0`` (the output padding reaches
+    only the rank at the global right edge) and runs the same forward
+    conv."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size, stride=(1, 1), padding=(0, 0),
                  output_padding=(0, 0), dilation=(1, 1), bias: bool = False,
@@ -178,14 +218,19 @@ class ComplexConvTranspose2d(nn.Module):
         else:
             self.b_re = self.b_im = None
 
-    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, output_size=None,
+                bounds: Optional[tuple] = None) -> torch.Tensor:
+        size = x.shape[2:] if bounds is None else (x.shape[2], bounds[-1])
         op = self.output_padding
         if output_size is not None:
-            op = output_padding_for(x.shape[2:], output_size, self.kernel_size, self.stride,
+            op = output_padding_for(size, output_size, self.kernel_size, self.stride,
                                     self.padding, self.dilation)
         batch, out_ch = x.shape[0], self.w_re.shape[1]
-        y = conv_transpose2d(torch.cat([x.real, x.imag]), torch.cat([self.w_re, self.w_im], 1),
-                             self.stride, self.padding, op, self.dilation)
+        xs, w = torch.cat([x.real, x.imag]), torch.cat([self.w_re, self.w_im], 1)
+        if bounds is None:
+            y = conv_transpose2d(xs, w, self.stride, self.padding, op, self.dilation)
+        else:
+            y = self._frames_forward(xs, w, bounds, op)
         re_a, im_a = y[:batch, :out_ch], y[:batch, out_ch:]
         re_b, im_b = y[batch:, :out_ch], y[batch:, out_ch:]
         re, im = re_a - im_b, re_b + im_a
@@ -193,3 +238,30 @@ class ComplexConvTranspose2d(nn.Module):
             re = re + self.b_re[None, :, None, None]
             im = im + self.b_im[None, :, None, None]
         return torch.complex(re, im)
+
+    def out_width(self, width: int, output_padding: int) -> int:
+        """The output's frames from an input ``width`` frames wide."""
+        k, s, p, d = self.kernel_size[1], self.stride[1], self.padding[1], self.dilation[1]
+        return (width - 1) * s - 2 * p + d * (k - 1) + 1 + output_padding
+
+    def _frames_forward(self, xs: torch.Tensor, w: torch.Tensor, bounds: tuple,
+                        op) -> torch.Tensor:
+        """This rank's part of the transposed conv of the real map ``xs``
+        split at ``bounds`` (the class's docstring)."""
+        seq = current_frames()
+        (kh, k), (s, p, d) = self.kernel_size, (self.stride[1], self.padding[1],
+                                                self.dilation[1])
+        width, reach = bounds[-1], d * (k - 1)
+        lo = reach - p
+        out = split_bounds(self.out_width(width, op[1]), seq.count)
+        spans = [(max(0, -(-(o0 - lo) // s)), min(width, (o1 - 1 - lo + reach) // s + 1))
+                 for o0, o1 in zip(out, out[1:])]
+        (a, b), o0, o1 = spans[seq.index], out[seq.index], out[seq.index + 1]
+        if b <= a:
+            raise ValueError(f"output columns [{o0}, {o1}) read no input column")
+        xs = seq.columns(xs, bounds, spans, dim=3)
+        left = a * s - (o0 - lo)
+        right = (o1 - o0 + reach) - left - ((b - a - 1) * s + 1)
+        lo_h = self.dilation[0] * (kh - 1) - self.padding[0]
+        return stuffed_conv2d(xs, w, self.stride, (lo_h, lo_h + op[0]), (left, right),
+                              self.dilation)

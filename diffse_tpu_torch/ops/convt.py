@@ -43,13 +43,24 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1), paddi
 
     Returns ``[B, Cout, H', W']`` with H', W' from the formula above.
     """
-    (sh, sw), (kh, kw) = stride, weight.shape[2:]
+    kh, kw = weight.shape[2:]
+    (ph, pw), (oph, opw), (dh, dw) = padding, output_padding, dilation
+    lo_h, lo_w = dh * (kh - 1) - ph, dw * (kw - 1) - pw
+    return stuffed_conv2d(x, weight, stride, (lo_h, lo_h + oph), (lo_w, lo_w + opw), dilation)
+
+
+def stuffed_conv2d(x: torch.Tensor, weight: torch.Tensor, stride, pad_h, pad_w,
+                   dilation=(1, 1)) -> torch.Tensor:
+    """The transposed conv's forward conv: ``x`` zero-stuffed by ``stride``,
+    padded by ``pad_h`` and ``pad_w`` (before, after; a negative pad crops),
+    correlated with ``weight`` (``[Cin, Cout, kh, kw]``) flipped. A frames
+    shard computes its part of the output by the same conv on its columns
+    of the input and its own pads (``models/shared.py``)."""
+    sh, sw = stride
     if sh > 1 or sw > 1:
         b, c, h, w = x.shape
         z = x.new_zeros((b, c, (h - 1) * sh + 1, (w - 1) * sw + 1))
         z[:, :, ::sh, ::sw] = x
         x = z
-    (ph, pw), (oph, opw), (dh, dw) = padding, output_padding, dilation
-    lo_h, lo_w = dh * (kh - 1) - ph, dw * (kw - 1) - pw
-    x = F.pad(x, (lo_w, lo_w + opw, lo_h, lo_h + oph))
+    x = F.pad(x, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]))
     return F.conv2d(x, torch.flip(weight, (2, 3)).transpose(0, 1), dilation=tuple(dilation))

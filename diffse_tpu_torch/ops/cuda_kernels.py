@@ -11,8 +11,10 @@ PyTorch's current stream.
 Every wrapper keeps the JAX signature and layout (NHWC activations, HWIO
 weights). The GroupNorm chains take float32 or bfloat16 activations (the
 bf16 trunk, ``NCSNpp(dtype="bf16")``) with float32 parameters, statistics
-and accumulation, as the Pallas kernels do. Each wrapper dispatches on the
-device of its input:
+and accumulation, as the Pallas kernels do; the fused conv also takes the
+JAX keyword ``compute_dtype`` (bfloat16 products on a float32 map, the bf16
+trunk's output_skip heads on DDPM-style blocks). Each wrapper dispatches on
+the device of its input:
 
   - a CPU tensor takes the plain PyTorch version beside the kernel (the same
     maths as the Pallas kernel's jnp reference);
@@ -91,6 +93,11 @@ conv_config_launches = [0, 0, 0, 0]
 # launch_counts: a bf16 trunk may run some chains in float32 (DDPM-style
 # blocks, the final head), and a run tells the two apart by these
 bf16_launch_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
+# the conv's launches on float32 activations with bfloat16 products
+# (``compute_dtype=torch.bfloat16``: a bf16 trunk's output_skip heads on
+# float32 maps), of those counted in launch_counts and not in
+# bf16_launch_counts
+mixed_launch_counts = {"gn_silu_conv3x3": 0}
 # bf16 weights packed on the card by pack_conv_weight_bf16 (a cast kernel and
 # a copy each): a module packs its weights once, and the conv's wrapper
 # packs them itself when it is not given them; and the bf16 copies of the
@@ -104,9 +111,10 @@ recompute_counts = {"gn_silu_conv3x3": 0, "groupnorm_silu": 0}
 
 def reset_launch_counts() -> None:
     """Zero ``launch_counts``, ``stats_launch_counts``, ``conv_config_launches``,
-    ``bf16_launch_counts``, ``weight_casts`` and ``recompute_counts``."""
-    for counts in (launch_counts, stats_launch_counts, bf16_launch_counts, weight_casts,
-                   recompute_counts):
+    ``bf16_launch_counts``, ``mixed_launch_counts``, ``weight_casts`` and
+    ``recompute_counts``."""
+    for counts in (launch_counts, stats_launch_counts, bf16_launch_counts, mixed_launch_counts,
+                   weight_casts, recompute_counts):
         for name in counts:
             counts[name] = 0
     conv_config_launches[:] = [0] * len(conv_config_launches)
@@ -123,6 +131,11 @@ CONV_ACT_FLOATS = 16      # floats per position of the activated tile (csrc kAct
 # The activation types the GroupNorm kernels take, by the code the C entry
 # points switch on.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The conv's modes, (x's dtype, the products' dtype), by the code its C entry
+# point switches on: float32, bfloat16, and float32 x with bf16 products
+# (csrc F32Bf16).
+_CONV_MODES = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+               (torch.float32, torch.bfloat16): 2}
 # The conv kernel's instantiations, by the id the C entry point switches on:
 # (BM positions, BN output channels, threads, instruction, tile width: 0 for
 # any, else the wgmma kernel's fixed TW, with 128 / TW rows, stages of the
@@ -167,8 +180,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def conv_bk(dtype: torch.dtype = torch.float32) -> int:
-    """Input channels per K chunk of the conv for activations of ``dtype``:
-    32 bytes of each position either way."""
+    """Input channels per K chunk of the conv for products of ``dtype``: one
+    k8 TF32 or k16 bf16 step (32 bytes of each position of x in x's dtype)."""
     return CONV_BK_BF16 if dtype == torch.bfloat16 else CONV_BK
 
 
@@ -186,15 +199,18 @@ def conv_taps(h: int, w: int) -> int:
 
 
 def conv_smem_bytes(bn: int, th: int, tw: int, taps: int, stages: int = CONV_STAGES,
-                    act_bufs: int = 2, dtype: torch.dtype = torch.float32) -> int:
-    """csrc ``conv_smem_bytes``: the cp.async ring of ``stages`` (raw x halo,
-    32 bytes a position, and float32 weights per stage) and ``act_bufs``
-    activated halo tiles (float32 hi and lo, 64 bytes a position; bfloat16,
-    32 bytes)."""
+                    act_bufs: int = 2, dtype: torch.dtype = torch.float32,
+                    x_dtype: Optional[torch.dtype] = None) -> int:
+    """csrc ``conv_smem_bytes`` for products of ``dtype`` on x of ``x_dtype``
+    (``dtype``'s when None): the cp.async ring of ``stages`` (raw x halo, a
+    K chunk of x a position: 32 bytes, 64 for float32 x with bf16 products;
+    float32 weights per stage) and ``act_bufs`` activated halo tiles
+    (float32 hi and lo, 64 bytes a position; bfloat16, 32 bytes)."""
     halo = (th + 2) * (tw + 2)
     bk = conv_bk(dtype)
+    raw_bytes = bk * (x_dtype or dtype).itemsize
     act_bytes = 32 if dtype == torch.bfloat16 else 4 * CONV_ACT_FLOATS
-    return (stages * (halo * 32 + 4 * taps * bk * _weight_row_stride(bn, dtype))
+    return (stages * (halo * raw_bytes + 4 * taps * bk * _weight_row_stride(bn, dtype))
             + act_bufs * halo * act_bytes)
 
 
@@ -246,20 +262,24 @@ def _tile_sizes(n: int, limit: int):
 
 
 def conv_config(b: int, h: int, w: int, cin: int, cout: int,
-                dtype: torch.dtype = torch.float32) -> int:
-    """The instantiation for ``[b, h, w, cin] -> cout``: the narrow
+                dtype: torch.dtype = torch.float32,
+                x_dtype: Optional[torch.dtype] = None) -> int:
+    """The instantiation for ``[b, h, w, cin] -> cout`` with products of
+    ``dtype`` on x of ``x_dtype`` (``dtype``'s when None): the narrow
     ``mma.sync`` block for the Cout <= 8 heads; ``wgmma`` where all nine taps
     touch the map and a row has ``CONV_WGMMA_MIN_W`` positions or more
-    (``CONV_WGMMA_MIN_W_BF16`` for bf16 activations); else the 64x64
-    ``mma.sync`` block. In bf16, ``wgmma.ss`` in place of ``wgmma`` where its
-    tiles times its K chunks give every SM a block (one utterance's narrow
-    levels do not: there ``wgmma``'s smaller tiles fill the card)."""
+    (``CONV_WGMMA_MIN_W_BF16`` for bf16 products); else the 64x64
+    ``mma.sync`` block. On bf16 x, ``wgmma.ss`` in place of ``wgmma`` where
+    its tiles times its K chunks give every SM a block (one utterance's
+    narrow levels do not: there ``wgmma``'s smaller tiles fill the card); it
+    stages bf16 x only."""
     if cout <= 8:
         return CONV_MMA_HEAD
     min_w = CONV_WGMMA_MIN_W_BF16 if dtype == torch.bfloat16 else CONV_WGMMA_MIN_W
     if conv_taps(h, w) != 9 or w < min_w:
         return CONV_MMA
-    if dtype == torch.bfloat16 and cout % 8 == 0 and cin % CONV_BK_BF16 == 0:
+    if (dtype == torch.bfloat16 and (x_dtype or dtype) == dtype and cout % 8 == 0
+            and cin % CONV_BK_BF16 == 0):
         tile = _ws_tiles(b, h, w, cout)[0]
         if tile[2] * cin // CONV_BK_BF16 >= SMS:
             return CONV_WGMMA_SS
@@ -287,9 +307,11 @@ def _ws_tiles(b: int, h: int, w: int, cout: int):
 
 def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
                    fill: int = 1, dtype: torch.dtype = torch.float32,
-                   tile: Optional[tuple] = None, max_units: Optional[int] = None) -> ConvPlan:
+                   tile: Optional[tuple] = None, max_units: Optional[int] = None,
+                   x_dtype: Optional[torch.dtype] = None) -> ConvPlan:
     """The plan of instantiation ``config`` for ``[b, h, w, cin] -> cout``
-    with activations of ``dtype`` that aims at ``fill * SMS`` blocks: the
+    with products of ``dtype`` on x of ``x_dtype`` (``dtype``'s when None)
+    that aims at ``fill * SMS`` blocks: the
     position tile with the fewest tiles (then the smallest halo) among those
     whose K split can reach that many, and K cut into as many splits as it
     takes (one, when the tiles alone reach it, or when ``fill`` is 0), and
@@ -333,20 +355,23 @@ def make_conv_plan(b: int, h: int, w: int, cin: int, cout: int, config: int,
         config=config, th=th, tw=tw, tiles_h=tiles_h, tiles_w=tiles_w, n_tiles=n_tiles,
         units=units, units_per_split=per, splits=splits,
         grid=(b * tiles_h * tiles_w, n_tiles, splits),
-        smem_bytes=conv_smem_bytes(bn, th, tw, taps, stages, act_bufs, dtype),
+        smem_bytes=conv_smem_bytes(bn, th, tw, taps, stages, act_bufs, dtype, x_dtype),
         reduce_blocks=reduce_blocks)
 
 
 @functools.lru_cache(maxsize=None)
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
-              dtype: torch.dtype = torch.float32) -> ConvPlan:
+              dtype: torch.dtype = torch.float32,
+              x_dtype: Optional[torch.dtype] = None) -> ConvPlan:
     """The launch plan of ``gn_silu_conv3x3`` for ``[b, h, w, cin] -> cout``
-    with activations of ``dtype``: ``conv_config``'s instantiation, with a
-    tile and K split that give every SM a block (``make_conv_plan``), and in
-    float32 no split longer than ``CONV_F32_MAX_UNITS``."""
-    return make_conv_plan(b, h, w, cin, cout, conv_config(b, h, w, cin, cout, dtype),
+    with products of ``dtype`` on x of ``x_dtype`` (``dtype``'s when None):
+    ``conv_config``'s instantiation, with a tile and K split that give every
+    SM a block (``make_conv_plan``), and with float32 products no split
+    longer than ``CONV_F32_MAX_UNITS``."""
+    return make_conv_plan(b, h, w, cin, cout, conv_config(b, h, w, cin, cout, dtype, x_dtype),
                           dtype=dtype,
-                          max_units=CONV_F32_MAX_UNITS if dtype == torch.float32 else None)
+                          max_units=CONV_F32_MAX_UNITS if dtype == torch.float32 else None,
+                          x_dtype=x_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -421,24 +446,27 @@ def groupnorm_silu_reference(x, scale, bias, num_groups: int, eps: float = 1e-6,
 
 def groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
                                      num_groups: int, eps: float = 1e-6,
-                                     skip=None, skip_coef: float = 1.0, ab=None):
+                                     skip=None, skip_coef: float = 1.0, ab=None,
+                                     compute_dtype: Optional[torch.dtype] = None):
     """Plain version of K1/K2 (``_gn_silu_conv3x3_reference``,
     pallas_kernels.py:330): ``[skip +] conv3x3_SAME(SiLU(x*a+b)) + bias_total``,
     the sum scaled by ``skip_coef`` when ``skip`` is given, ``a, b`` x's
     statistics or the given ``ab``. NHWC in and out, HWIO weights; zero
     padding applies to the activated map.
 
-    The products run in x's dtype: for bfloat16 x (``compute_dtype`` bf16 in
-    the JAX package) the float32 activation and the weights are each rounded
-    to bfloat16 (to nearest even) and their products summed in float32 (exact
+    The products run in ``compute_dtype``, x's dtype when None: in bfloat16
+    (bf16 x, or float32 x with ``compute_dtype`` bf16, as the JAX package's
+    ``cd``) the float32 activation and the weights are each rounded to
+    bfloat16 (to nearest even) and their products summed in float32 (exact
     products, so the float32 conv computes them); bias, skip and scale in
-    float32; one rounding to bfloat16 at the end."""
+    float32; one rounding to x's dtype at the end."""
     a, b = gn_stats_ab_reference(x, gn_scale, gn_bias, num_groups, eps) if ab is None else ab
     v = x.float() * a[:, None, None, :] + b[:, None, None, :]
     act = (v * torch.sigmoid(v)).permute(0, 3, 1, 2)
     w = w.float()
-    if x.dtype != torch.float32:
-        act, w = act.to(x.dtype).float(), w.to(x.dtype).float()
+    products = compute_dtype or x.dtype
+    if products != torch.float32:
+        act, w = act.to(products).float(), w.to(products).float()
     with float32_precision(x.device):
         out = F.conv2d(act, w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
     out = out + bias_total.float()[:, None, None, :]
@@ -626,6 +654,18 @@ def _activation_dtype(name: str, x: torch.Tensor) -> torch.dtype:
     return x.dtype
 
 
+def _products_dtype(name: str, x: torch.Tensor,
+                    compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The conv's products' dtype: x's (``compute_dtype`` None), or bfloat16
+    on float32 x (``compute_dtype`` bf16); any other pair raises."""
+    if compute_dtype is None:
+        return x.dtype
+    if compute_dtype == torch.bfloat16 and x.dtype == torch.float32:
+        return compute_dtype
+    raise TypeError(f"{name}: compute_dtype {compute_dtype} for x of {x.dtype}; the kernel "
+                    "takes None (products in x's dtype) or bfloat16 on float32 x")
+
+
 def _dispatch_device(name: str, x: torch.Tensor) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU)."""
     if x.device.type == "cpu":
@@ -657,15 +697,20 @@ def _ticket_counters(device: torch.device, stream: int, bsz: int) -> torch.Tenso
     return counters
 
 
-def _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps):
+def _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps, fold_dtype=None):
+    """The statistics pass's ``a, b``, folded with the arithmetic of
+    ``fold_dtype`` activations (x's when None): float32 x in the conv's
+    bf16-products mode takes the bf16 fold, whose ``a, b`` are the plain
+    version's bit for bit, so that the activations round to bf16 alike."""
     bsz, h, w, c = x.shape
+    code = 2 if (x.dtype, fold_dtype) == (torch.float32, torch.bfloat16) else _DTYPE_CODES[x.dtype]
     parts, chunk = stats_plan(bsz, h * w, c)
     a = torch.empty((bsz, c), device=x.device, dtype=torch.float32)
     b = torch.empty_like(a)
     partial = torch.empty((bsz, num_groups, parts, 2), device=x.device, dtype=torch.float64)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     counters = _ticket_counters(x.device, stream, bsz)
-    _check(lib.diffse_gn_stats_ab(_ptr(x), _DTYPE_CODES[x.dtype], _ptr(gn_scale),
+    _check(lib.diffse_gn_stats_ab(_ptr(x), code, _ptr(gn_scale),
                                   _ptr(gn_bias), _ptr(partial), _ptr(counters), _ptr(a),
                                   _ptr(b), bsz, h * w, c, num_groups, parts, chunk,
                                   float(eps), ctypes.c_void_p(stream)), "gn_stats_ab")
@@ -795,16 +840,18 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                            bias_total: torch.Tensor, num_groups: int,
                            eps: float = 1e-6, skip: Optional[torch.Tensor] = None,
                            skip_coef: float = 1.0,
-                           w_packed: Optional[torch.Tensor] = None, ab=None) -> torch.Tensor:
+                           w_packed: Optional[torch.Tensor] = None, ab=None,
+                           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused GroupNorm + SiLU + conv3x3 (+bias [+skip] * skip_coef), the port
     of ``groupnorm_silu_conv3x3_pallas`` (pallas_kernels.py:565) covering both
     of its regimes.
 
     Args:
         x: ``[B, H, W, Cin]``, float32 or bfloat16 (the products run in x's
-            dtype, accumulated in float32); gn_scale, gn_bias: ``[Cin]``.
+            dtype unless ``compute_dtype`` says otherwise, accumulated in
+            float32); gn_scale, gn_bias: ``[Cin]``.
         w: ``[3, 3, Cin, Cout]`` (HWIO), float32 (rounded to bfloat16 in the
-            kernel for a bfloat16 x).
+            kernel for bfloat16 products).
         bias_total: ``[B, Cout]`` float32 conv bias plus any per-batch
             conditioning; a ``[Cout]`` bias expanded over the batch (row
             stride 0) is taken as it is, without a copy.
@@ -817,6 +864,11 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             ``gn_scale`` and ``gn_bias`` folded in) in place of x's own
             statistics, whose pass is then skipped: a frames shard's, summed
             over the shards, with x extended by its neighbours' columns.
+        compute_dtype: the JAX keyword. None: products in x's dtype;
+            ``torch.bfloat16`` on float32 x: the activation (computed in
+            float32) and the weights rounded to bfloat16, their products
+            summed in float32, bias, skip and output float32 (counted in
+            ``mixed_launch_counts``). Any other pair raises ``TypeError``.
 
     Returns ``[B, H, W, Cout]`` of x's dtype.
     """
@@ -830,11 +882,13 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
         raise ValueError(f"gn_silu_conv3x3: w_packed is {w_packed.dtype} "
                          f"{tuple(w_packed.shape)}; expected bfloat16 "
                          f"{packed_weight_shape(cin, cout)} (pack_conv_weight_bf16)")
+    products = _products_dtype("gn_silu_conv3x3", x, compute_dtype)
     if not _dispatch_device("gn_silu_conv3x3", x):
         return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
-                                                num_groups, eps, skip, skip_coef, ab)
+                                                num_groups, eps, skip, skip_coef, ab,
+                                                compute_dtype)
     dtype = _activation_dtype("gn_silu_conv3x3", x)
-    bk = conv_bk(dtype)
+    bk = conv_bk(products)
     if cin % bk or cout % 4 or cin % num_groups or cin > 4 * STATS_THREADS:
         raise ValueError(f"gn_silu_conv3x3: Cin={cin} must be a multiple of {bk} and "
                          f"of {num_groups} groups and at most {4 * STATS_THREADS}, "
@@ -853,7 +907,8 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                            skip=skip)
     if ab is not None:
         _check_ab("gn_silu_conv3x3", x, ab)
-    plan = conv_plan(bsz, h, wd, cin, cout, dtype)
+    x_dtype = None if products == dtype else dtype
+    plan = conv_plan(bsz, h, wd, cin, cout, products, x_dtype)
     if plan.config != CONV_WGMMA_SS:
         w_packed = None
     elif w_packed is None:
@@ -863,12 +918,13 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
                                w_packed=w_packed)
     lib = _library()
     with torch.cuda.device(x.device):
-        a, b = _stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps) if ab is None else ab
+        a, b = (_stats_ab(lib, x, gn_scale, gn_bias, num_groups, eps, products) if ab is None
+                else ab)
         out = torch.empty((bsz, h, wd, cout), device=x.device, dtype=dtype)
         partial = None if plan.splits == 1 else torch.empty(
             (plan.splits, bsz * h * wd, cout), device=x.device, dtype=torch.float32)
         _check(lib.diffse_gn_silu_conv3x3(
-            _ptr(x), _DTYPE_CODES[dtype], _ptr(a), _ptr(b), _ptr(w), _ptr(w_packed),
+            _ptr(x), _CONV_MODES[dtype, products], _ptr(a), _ptr(b), _ptr(w), _ptr(w_packed),
             _ptr(bias_rows), bias_row_stride,
             _ptr(skip), float(skip_coef), _ptr(out), _ptr(partial), bsz, h, wd, cin, cout,
             plan.config, plan.th, plan.tw, plan.tiles_w, plan.tiles_h * plan.tiles_w,
@@ -877,6 +933,7 @@ def groupnorm_silu_conv3x3(x: torch.Tensor, gn_scale: torch.Tensor,
             "gn_silu_conv3x3")
     launch_counts["gn_silu_conv3x3"] += 1
     bf16_launch_counts["gn_silu_conv3x3"] += dtype == torch.bfloat16
+    mixed_launch_counts["gn_silu_conv3x3"] += products != dtype
     conv_config_launches[plan.config] += 1
     return out
 
@@ -921,28 +978,30 @@ class GroupNormSiLUConv3x3(torch.autograd.Function):
     bf16 x, as ``w.astype(compute_dtype)`` in JAX), bias_total and skip.
     ``w_packed`` is a copy of w for the bf16 kernel and carries no gradient.
     With a given affine ``a, b`` the gradients go to them in place of
-    gn_scale and gn_bias, which the function then does not read."""
+    gn_scale and gn_bias, which the function then does not read. With
+    ``compute_dtype`` (bf16 products on a float32 map) the recompute rounds
+    as the forward does."""
 
     @staticmethod
     def forward(ctx, x, gn_scale, gn_bias, w, bias_total, skip, a, b, w_packed, num_groups,
-                eps, skip_coef):
+                eps, skip_coef, compute_dtype=None):
         ctx.save_for_backward(x, gn_scale, gn_bias, w, bias_total, skip, a, b)
-        ctx.settings = (num_groups, eps, skip_coef)
+        ctx.settings = (num_groups, eps, skip_coef, compute_dtype)
         return gn_silu_conv3x3_custom_op(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
-                                         skip, skip_coef, w_packed, a, b)
+                                         skip, skip_coef, w_packed, a, b, compute_dtype)
 
     @staticmethod
     def backward(ctx, grad_out):
-        num_groups, eps, skip_coef = ctx.settings
+        num_groups, eps, skip_coef, compute_dtype = ctx.settings
 
         def plain(x, gn_scale, gn_bias, w, bias_total, skip, a, b):
             return groupnorm_silu_conv3x3_reference(x, gn_scale, gn_bias, w, bias_total,
                                                     num_groups, eps, skip, skip_coef,
-                                                    _given_ab(a, b))
+                                                    _given_ab(a, b), compute_dtype)
 
         grads = _recompute_grads("gn_silu_conv3x3", ctx, plain, grad_out,
                                  _read_inputs(ctx.saved_tensors))
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 class GroupNormSiLU(torch.autograd.Function):
@@ -991,16 +1050,17 @@ def groupnorm_silu_conv3x3_op(x: torch.Tensor, gn_scale: torch.Tensor, gn_bias: 
                               eps: float = 1e-6, skip: Optional[torch.Tensor] = None,
                               skip_coef: float = 1.0,
                               w_packed: Optional[torch.Tensor] = None,
-                              ab=None) -> torch.Tensor:
+                              ab=None, compute_dtype: Optional[torch.dtype] = None
+                              ) -> torch.Tensor:
     """``groupnorm_silu_conv3x3`` (same arguments) that autograd can
     differentiate (``GroupNormSiLUConv3x3``); the wrapper's op when no
     input needs a gradient (under ``torch.no_grad()``, for one)."""
     a, b = (None, None) if ab is None else ab
     if not needs_grad(x, gn_scale, gn_bias, w, bias_total, skip, a, b):
         return gn_silu_conv3x3_custom_op(x, gn_scale, gn_bias, w, bias_total, num_groups, eps,
-                                         skip, skip_coef, w_packed, a, b)
+                                         skip, skip_coef, w_packed, a, b, compute_dtype)
     return GroupNormSiLUConv3x3.apply(x, gn_scale, gn_bias, w, bias_total, skip, a, b,
-                                      w_packed, num_groups, eps, skip_coef)
+                                      w_packed, num_groups, eps, skip_coef, compute_dtype)
 
 
 def groupnorm_silu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -1076,11 +1136,12 @@ _OP_SCHEMAS = {
     "groupnorm_silu_conv3x3": (
         "(Tensor x, Tensor gn_scale, Tensor gn_bias, Tensor w, Tensor bias_total, "
         "int num_groups, float eps=1e-06, Tensor? skip=None, float skip_coef=1.0, "
-        "Tensor? w_packed=None, Tensor? a=None, Tensor? b=None) -> Tensor",
+        "Tensor? w_packed=None, Tensor? a=None, Tensor? b=None, "
+        "ScalarType? compute_dtype=None) -> Tensor",
         lambda x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
-        skip_coef=1.0, w_packed=None, a=None, b=None: groupnorm_silu_conv3x3(
-            x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip, skip_coef, w_packed,
-            _given_ab(a, b))),
+        skip_coef=1.0, w_packed=None, a=None, b=None, compute_dtype=None:
+        groupnorm_silu_conv3x3(x, gn_scale, gn_bias, w, bias_total, num_groups, eps, skip,
+                               skip_coef, w_packed, _given_ab(a, b), compute_dtype)),
     "groupnorm_silu": (
         "(Tensor x, Tensor scale, Tensor bias, int num_groups, float eps=1e-06, "
         "bool apply_silu=True, ScalarType? out_dtype=None, Tensor? a=None, Tensor? b=None) "
@@ -1095,7 +1156,7 @@ _OP_SCHEMAS = {
 
 
 def _conv_fake(x, gn_scale, gn_bias, w, bias_total, num_groups, eps=1e-6, skip=None,
-               skip_coef=1.0, w_packed=None, a=None, b=None):
+               skip_coef=1.0, w_packed=None, a=None, b=None, compute_dtype=None):
     return x.new_empty((*x.shape[:3], w.shape[-1]))
 
 

@@ -15,8 +15,17 @@ the layers consult the enclosing shard (``constrain_frames``,
     shards in float64 before the affine is folded (``FramesShard.sum``);
   - the attention's keys and values are gathered over the frames;
   - the samplers' norms and maxima are reduced over the shards;
-  - a U-Net level whose frames do not divide over the ranks runs whole on
-    every rank (``FrameLevels``), as GSPMD replicates it.
+  - an NCSN++ level whose frames do not divide over the ranks runs whole on
+    every rank (``FrameLevels``), as GSPMD replicates it;
+  - DCUNet's levels, whose widths are odd (its input padded to ``(T - 1) %
+    time_prod == 0``, its "auto" paddings of even kernels, the decoder's
+    exact output sizes), split unevenly instead (``split_bounds``: at most
+    ``ceil(W / n)`` columns a rank, as GSPMD splits an uneven dimension):
+    each complex conv and transposed conv reads the input columns its part
+    of the output reaches, from whichever ranks hold them
+    (``FramesShard.columns``, zeros past the global edges, where the
+    explicit padding applies), and "CbN" whitens by the whole map's five
+    moments, each rank's sums all-reduced in float64 (``FramesShard.sum``).
 
 Every rank computes the STFT of the whole waveform and keeps its frames,
 draws every random tensor at the whole shape and keeps its frames (so a
@@ -31,6 +40,7 @@ send.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import threading
 from typing import Callable, List, NamedTuple, Optional
@@ -77,6 +87,18 @@ def spec_seq_sharding(mesh: DeviceMesh, frames: int, axis_name: Optional[str] = 
         raise ValueError(f"{frames} frames do not divide over {count} ranks")
     k = frames // count
     return slice(index * k, (index + 1) * k)
+
+
+def split_bounds(width: int, count: int) -> tuple:
+    """The column bounds of a map ``width`` frames wide split unevenly over
+    ``count`` ranks: rank ``r`` holds ``[bounds[r], bounds[r + 1])`` with
+    ``bounds[r] = ceil(r * width / count)``, so at most ``ceil(width /
+    count)`` columns, as GSPMD splits an uneven dimension (its own split over
+    two ranks), and at least ``floor(width / count)``, so that no rank is
+    empty. Raises where ``width < count``."""
+    if width < count:
+        raise ValueError(f"{width} frames do not split over {count} ranks")
+    return tuple(-(-r * width // count) for r in range(count + 1))
 
 
 class FramesShard(NamedTuple):
@@ -150,6 +172,59 @@ class FramesShard(NamedTuple):
                 parts.append(t.new_zeros(shape))
         out = torch.cat(parts, dim)
         return out if zero_edges else (out, added_left, added_right)
+
+    def columns(self, t: torch.Tensor, bounds: tuple, spans, dim: int = -1) -> torch.Tensor:
+        """Columns ``[lo, hi) = spans[self.index]`` along ``dim`` of the whole
+        map of which ``t`` holds this rank's part, the map split at ``bounds``
+        (rank ``r`` holding ``[bounds[r], bounds[r + 1])``); zeros past the
+        whole map's edges ``[0, bounds[-1])``. Every rank calls it at once
+        with every rank's span (``spans``, the same on each). One all-gather
+        of each rank's first and last ``m`` columns, ``m`` the most any rank
+        reads past its own part (none where no rank does); a span that reads
+        a column farther than ``m`` from its holder's edges raises."""
+        if t.is_complex():
+            return torch.view_as_complex(
+                self.columns(torch.view_as_real(t), bounds, spans, dim % t.ndim).contiguous())
+        dim = dim % t.ndim
+        width = bounds[-1]
+        if t.shape[dim] != bounds[self.index + 1] - bounds[self.index]:
+            raise ValueError(f"a shard of {t.shape[dim]} columns where bounds {bounds} give "
+                             f"rank {self.index} {bounds[self.index + 1] - bounds[self.index]}")
+
+        def outside(r):  # columns of [0, width) rank r reads left and right of its part
+            (lo, hi), b0, b1 = spans[r], bounds[r], bounds[r + 1]
+            return (max(0, min(b0, hi) - max(lo, 0)), max(0, min(hi, width) - max(lo, b1)))
+
+        m = max(max(outside(r)) for r in range(self.count))
+        own, lo, hi = bounds[self.index], *spans[self.index]
+        zero = t.shape[dim]  # the zero column's index in the source below
+        parts = [t, t.new_zeros((*t.shape[:dim], 1, *t.shape[dim + 1:]))]
+        if m:
+            w = t.shape[dim]
+            first = t.narrow(dim, 0, min(m, w))
+            last = t.narrow(dim, w - min(m, w), min(m, w))
+            pad = [0] * (2 * (t.ndim - dim - 1))
+            block = torch.cat([torch.nn.functional.pad(first, pad + [0, m - first.shape[dim]]),
+                               torch.nn.functional.pad(last, pad + [m - last.shape[dim], 0])],
+                              dim)
+            parts.append(self.gather(block, dim))
+        index = []
+        for g in range(lo, hi):
+            if g < 0 or g >= width:
+                index.append(zero)
+                continue
+            q = bisect.bisect_right(bounds, g) - 1
+            if q == self.index:
+                index.append(g - own)
+            elif g - bounds[q] < m:
+                index.append(zero + 1 + q * 2 * m + g - bounds[q])
+            elif bounds[q + 1] - g <= m:
+                index.append(zero + 1 + q * 2 * m + 2 * m - (bounds[q + 1] - g))
+            else:
+                raise ValueError(f"column {g} lies {m} columns or more inside rank {q}'s part")
+        source = torch.cat(parts, dim)
+        return source.index_select(dim, torch.tensor(index, dtype=torch.long,
+                                                     device=t.device))
 
 
 _active = threading.local()

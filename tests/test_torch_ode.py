@@ -35,7 +35,9 @@ from test_torch_ncsnpp import random_jax_params
 
 torch.set_num_threads(2)
 
-ARCH = dict(nf=4, ch_mult=(1, 1, 1, 1, 1), num_res_blocks=1, attn_resolutions=(16,),
+# three levels (the JAX package's tiny NCSN++ has five): every kind of block,
+# attention at the deepest, and a shorter compile of the JAX program
+ARCH = dict(nf=4, ch_mult=(1, 1, 1), num_res_blocks=1, attn_resolutions=(64,),
             image_size=256)
 JAX_FLAGS = dict(use_pallas_groupnorm=True, fuse_pyramid=True)
 SDE_KWARGS = dict(T_sampling=0.999, k=2.6, theta=0.52)
@@ -265,28 +267,41 @@ class EagerProgram:
         return self.fn(generator, **inputs)
 
 
+@pytest.fixture(scope="module")
+def captured_loop():
+    """``bbed_ode`` of one utterance on the tiny model, eagerly and then
+    through its ``LoopProgram`` (here on stand-in programs that run eagerly
+    on the CPU): its capture and first run, which reads the flags after
+    every attempt. Yields the runner, the program, and the eager and first
+    results; the stand-ins stay in place until the module's tests end."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(capture, "Program", EagerProgram)
+        mp.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+        model = _tiny_bbed()
+        y = noisy_wav(3)
+
+        def run():
+            return model.enhance(y, y, generator=torch.Generator().manual_seed(5),
+                                 sampler_type="ode", timeit=True)[:2]
+
+        eager, nfev = run()
+        model.device = torch.device("cuda")  # only the dispatch and the capture check read it
+        mp.setattr(score_model, "Program", EagerProgram)
+        first, _ = run()  # captures, then runs once reading after every attempt
+        key = model._graph_key("bbed_ode", 64, 30, "reverse_diffusion", "ald", 1, False, batch=1)
+        program = model._graphs[key][1]
+        yield run, program, (eager, nfev), first
+
+
 @pytest.mark.parametrize("steps_per_read", [1, 3])
-def test_captured_ode_loop_equals_eager(monkeypatch, steps_per_read):
-    """``bbed_ode`` through its ``LoopProgram`` (here on stand-in programs
-    that run eagerly on the CPU): the eager path's waveform and nfev, one
-    read of the flags per ``steps_per_read`` attempts, and the same result
-    whatever that number."""
-    monkeypatch.setattr(capture, "Program", EagerProgram)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    model = _tiny_bbed()
-    y = noisy_wav(3)
-
-    def run():
-        return model.enhance(y, y, generator=torch.Generator().manual_seed(5),
-                             sampler_type="ode", timeit=True)[:2]
-
-    eager, nfev = run()
-    model.device = torch.device("cuda")  # only the dispatch and the capture check read it
-    monkeypatch.setattr(score_model, "Program", EagerProgram)
-    first, _ = run()  # captures, then runs once reading after every attempt
-    key = model._graph_key("bbed_ode", 64, 30, "reverse_diffusion", "ald", 1, False, batch=1)
-    program = model._graphs[key][1]
+def test_captured_ode_loop_equals_eager(captured_loop, steps_per_read):
+    """``bbed_ode`` through its ``LoopProgram``: the eager path's waveform
+    and nfev, one read of the flags per ``steps_per_read`` attempts, and the
+    same result whatever that number (each case one run of the program
+    captured once, ``captured_loop``)."""
+    run, program, (eager, nfev), first = captured_loop
     assert isinstance(program, capture.LoopProgram) and np.array_equal(first, eager)
+    before = program.step.replays, program.start.replays, program.finish.replays
     program.steps_per_read = steps_per_read
     graphed, nfev_graphed = run()
     assert np.array_equal(graphed, eager) and nfev_graphed == nfev > 8
@@ -294,5 +309,9 @@ def test_captured_ode_loop_equals_eager(monkeypatch, steps_per_read):
     assert done == 1 and flags_nfev == nfev and status == 0 and nfev == 2 + 6 * attempts
     reads = -(-attempts // steps_per_read)
     assert program.reads == reads
-    assert program.step.replays == attempts + reads * steps_per_read
-    assert program.start.replays == program.finish.replays == 2
+    # the capture's first run replayed the step once an attempt, this one
+    # steps_per_read times a read; start and finish once a run
+    assert before == (attempts, 1, 1)
+    assert program.step.replays - before[0] == reads * steps_per_read
+    assert program.start.replays - before[1] == program.finish.replays - before[2] == 1
+    program.step.replays, program.start.replays, program.finish.replays = before

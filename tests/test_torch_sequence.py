@@ -6,7 +6,7 @@ conftest's virtual CPU devices), on the same weights (the bridge) and the
 JAX package's draws.
 
 Two spawned worlds, each running all of its cases once (a module fixture):
-2 ranks (the JAX test's tiny 5-level NCSN++ at 128 frames: ``sebridge_v2``,
+2 ranks (a tiny 3-level NCSN++ at 128 frames: ``sebridge_v2``,
 ``sebridge_v3_snr``, ``bbed_pc`` N=3 with ALD and with Langevin,
 ``bbed_ode``'s start and first step attempts (its RK45 norms reduced over
 the ranks), ``sebridge``, ``sebridge_v2_snr`` (the noise level a maximum
@@ -23,8 +23,8 @@ take most of the file's time).
 
 Then, with no ranks: the split statistics and the kernels' given affine
 (``ab=``) in their plain versions, the halo arithmetic of the fused conv and
-the FIR resampling on a stand-in shard, the key of a mesh, and DCUNet
-raising.
+the FIR resampling on a stand-in shard, and the key of a mesh (DCUNet:
+tests/test_torch_sequence_dcunet.py).
 """
 
 import concurrent.futures
@@ -410,21 +410,6 @@ def test_frame_levels_gather_where_a_level_does_not_divide():
     with _set_frames(Shard()):
         assert FrameLevels(64, 7).split == [True] * 7
     assert FrameLevels(128, 7).split == [] and FrameLevels(128, 7).shard is None
-
-
-@pytest.mark.parametrize("backbone,kwargs", [
-    pytest.param("dcunet", dict(dcunet_architecture="DCUNet-10"), id="dcunet-kwargs2"),
-])
-def test_configurations_outside_the_slice_raise(backbone, kwargs):
-    """DCUNet raises ``NotImplementedError`` under ``seq_mesh``, naming the
-    ROADMAP item, before any collective (every NCSN++ configuration runs:
-    tests/test_torch_sequence_configs.py)."""
-    cfg = ScoreModelConfig(backbone=backbone, sde="bbed", model_type="sebridge_v2",
-                           n_fft=512)
-    model = ScoreModel(cfg, backbone_kwargs=kwargs, sde_kwargs=SDE_KWARGS, device="cpu")
-    y = _wavs(0)[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        model.enhance(y, y, seq_mesh=object())
 
 
 def test_mesh_key_of_a_one_rank_mesh():

@@ -1,7 +1,7 @@
 """Rank functions of the port's multi-rank CPU tests
-(``tests/test_torch_parallel.py``, ``tests/test_torch_parallel_train.py``),
-run by ``diffse_tpu_torch.parallel.dryrun.launch`` in spawned gloo ranks.
-Spawned ranks import this module by name, so it imports nothing of JAX."""
+(``tests/test_torch_parallel.py``), run by
+``diffse_tpu_torch.parallel.dryrun.launch`` in spawned gloo ranks. Spawned
+ranks import this module by name, so it imports nothing of JAX."""
 
 import json
 import os
